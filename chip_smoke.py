@@ -1,0 +1,639 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--profile]
+
+Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
+holds each kernel against its plain PyTorch version at the serving path's
+full-width shapes, runs full-width qwen2-0.5b (random weights from a
+seed) through ``Model`` and a ``ServingEngine`` that serves 8 requests,
+checks that the engine's attention went through the kernels (launch
+counts), and times each kernel beside its plain version, its bound and a
+library call.  Every phase prints one JSON line; the card's name and
+power limit print as ``nvidia-smi`` gives them; the line before the last
+is the ``{"kernels": [...]}`` table and the last line is
+``{"ok": true, "device": {...}}``.  Any failed check exits nonzero.
+``--profile`` adds a torch.profiler window over engine steps.
+
+Needs a CUDA device and the repository's ``src/``; imports neither JAX
+nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM published peaks (NVIDIA data sheet, dense): the bound of a
+# kernel is the larger of bytes / HBM rate and flops / peak for its type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+N_LAYERS = 24  # qwen2-0.5b
+# kernel-vs-plain tolerances: f32 sums in another order over up to ~1k
+# keys; bf16 softmax weights round before (kernel) or after (plain)
+# normalisation, the gap tests/test_kernels.py allows the Pallas bodies
+KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# full-width model (conditioned weights), bf16 activations through 24
+# layers: kernel and plain attention round differently at each layer and
+# the differences compound; held to 10% of the largest logit
+LOGIT_REL_TOL = 0.10
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def time_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of ``fn`` in ms: CUDA events around ``iters``
+    back-to-back calls after a warm-up."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(n_bytes: float, flops: float, dtype: str):
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[dtype]
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+
+
+# ---------------------------------------------------------------------------
+# kernel inputs at the serving path's shapes
+# ---------------------------------------------------------------------------
+def paged_inputs(torch, dtype, lengths, *, n_pool=16, mb=9, H=14, Hkv=2,
+                 D=64, seed=0):
+    """Decode-step operands: per-slot pools flattened to global ids, rows
+    that cross slots, ``lengths`` already counting the new token."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lengths)
+    q = (torch.randn((B, H, D), generator=g, device=dev) * 0.3).to(dtype)
+    kp = (torch.randn((B, n_pool, 128, Hkv, D), generator=g, device=dev)
+          * 0.3).to(dtype)
+    vp = (torch.randn((B, n_pool, 128, Hkv, D), generator=g, device=dev)
+          * 0.3).to(dtype)
+    table = torch.randint(0, B * n_pool, (B, mb), generator=g, device=dev,
+                          dtype=torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, kp, vp, table, lens
+
+
+def flash_inputs(torch, dtype, S_kv, *, S_q=128, H=14, Hkv=2, D=64, seed=1):
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = (torch.randn((1, S_q, H, D), generator=g, device=dev) * 0.3)
+    k = (torch.randn((1, S_kv, Hkv, D), generator=g, device=dev) * 0.3)
+    v = (torch.randn((1, S_kv, Hkv, D), generator=g, device=dev) * 0.3)
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+def phase_device(torch):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    line = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else ""
+    check(smi.returncode == 0 and line, f"nvidia-smi failed: {smi.stderr}")
+    print(line, flush=True)
+    emit({"phase": "device", "nvidia_smi": line,
+          "name": torch.cuda.get_device_name(0),
+          "count": torch.cuda.device_count(),
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "python": sys.version.split()[0]})
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    seconds = _build.build()
+    report = {}
+    for name in _build.SOURCES:
+        log = _build.library_path(name).with_name(
+            _build.library_path(name).name + ".log")
+        report[name] = [ln.strip() for ln in log.read_text().splitlines()
+                        if "Used" in ln or "spill" in ln]
+    emit({"phase": "build", "ok": True, "seconds": seconds,
+          "wall_s": time.perf_counter() - t0, "ptxas": report})
+
+
+def phase_parity(torch):
+    """Each kernel against its plain version at full-width shapes."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    errs = {}
+    rows = []
+    lengths = [1001, 645, 129, 388, 901, 261, 0, 1]  # idle + fresh rows
+    for dname in ("float32", "bfloat16"):
+        dtype = getattr(torch, dname)
+        q, kp, vp, table, lens = paged_inputs(torch, dtype, lengths)
+        got = paged_attention_kernel(q, kp, vp, table, lens, n_kv=8)
+        want = ref.paged_attention(q, kp, vp, table, lens, n_kv=8,
+                                   global_pages=True)
+        torch.cuda.synchronize()
+        e = max_err(got, want)
+        rows.append({"kernel": "paged_attention", "dtype": dname,
+                     "case": "B=8 H=14 Hkv=2 D=64 n_kv=8<9 cross-slot",
+                     "max_abs_err": e, "tol": KERNEL_TOL[dname]})
+        check(e <= KERNEL_TOL[dname], f"paged {dname} err {e}")
+        errs["paged_attention", dname] = e
+        for S_kv, off in ((1024, 768), (128, 0), (512, 300)):
+            q, k, v = flash_inputs(torch, dtype, S_kv)
+            got = flash_attention_kernel(q, k, v, causal=True, q_offset=off)
+            want = ref.flash_attention(q, k, v, causal=True, q_offset=off)
+            torch.cuda.synchronize()
+            e = max_err(got, want)
+            rows.append({"kernel": "flash_attention", "dtype": dname,
+                         "case": f"S_q=128 S_kv={S_kv} q_offset={off} "
+                                 "H=14 Hkv=2 D=64",
+                         "max_abs_err": e, "tol": KERNEL_TOL[dname]})
+            check(e <= KERNEL_TOL[dname], f"flash {dname} {S_kv} err {e}")
+            errs["flash_attention", dname] = max(
+                e, errs.get(("flash_attention", dname), 0.0))
+    emit({"phase": "kernel_parity", "ok": True, "cases": rows})
+    return errs
+
+
+def _chunks(torch, model, params, cache, slot, prompt, n_pool, mb, impl):
+    """Prefill ``prompt`` into ``slot`` chunk by chunk (own pages 1..),
+    returning each chunk's logits and the block-table row."""
+    dev = model.device
+    row = torch.zeros((mb,), dtype=torch.int32)
+    n_pages = -(-len(prompt) // 128)
+    row[:n_pages] = torch.arange(1, n_pages + 1) + slot * n_pool
+    logits = []
+    for start in range(0, len(prompt), 128):
+        seg = prompt[start:start + 128]
+        toks = torch.zeros((1, 128), dtype=torch.int32)
+        toks[0, :len(seg)] = torch.tensor(seg, dtype=torch.int32)
+        n_kv = min(1 << ((start // 128 + 1) - 1).bit_length(), mb)
+        out, cache = model.prefill_chunk(
+            params, cache,
+            {"tokens": toks.to(dev), "start": start, "row": row.to(dev),
+             "pages": row[start // 128:start // 128 + 1].to(dev),
+             "last_index": len(seg) - 1},
+            n_kv=n_kv, impl=impl)
+        logits.append(out)
+    return logits, row
+
+
+def conditioned(model, params):
+    """A copy of a seeded init whose attention projections have unit
+    variance over their true contraction (d_model for q/k/v, heads x
+    head_dim for the output).  The JAX package's init divides by
+    sqrt(shape[-2]) — the head count for wq/wk/wv, head_dim for wo — so at
+    full width attention scores spread ~170 wide: every head is a hard
+    argmax that one rounding step can flip, and two correct attention
+    paths part ways within a few layers (phase "layers" shows it)."""
+    import math
+
+    cfg = model.cfg
+    M, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    attn = dict(params["layers"]["attn"])
+    attn["wq"] = attn["wq"] * math.sqrt(H / M)
+    attn["wk"] = attn["wk"] * math.sqrt(Hkv / M)
+    attn["wv"] = attn["wv"] * math.sqrt(Hkv / M)
+    attn["wo"] = attn["wo"] / math.sqrt(H)
+    return dict(params, layers=dict(params["layers"], attn=attn))
+
+
+def bf16_ulp(x: float) -> float:
+    """Spacing of bf16 values at magnitude ``x`` (8 significant bits)."""
+    import math
+
+    return 2.0 ** (math.floor(math.log2(max(x, 1e-30))) - 7)
+
+
+def phase_layers(torch, model, params):
+    """Layer by layer at full width with the model's own init: at every
+    layer both attention paths get the SAME input (the plain path's hidden
+    state), so a difference is that layer's alone.  Held to 4 bf16 ulps of
+    the layer output's largest magnitude."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg, dev = model.cfg, model.device
+    cache = model.init_cache(ShapeConfig("smoke", "decode", 1024, 8))
+    mb = 9
+    row = torch.zeros((mb,), dtype=torch.int32, device=dev)
+    row[:2] = torch.tensor([1, 2], dtype=torch.int32)  # slot 0's pages
+    table = torch.zeros((8, mb), dtype=torch.int32, device=dev)
+    table[0] = row
+    lengths = torch.zeros((8,), dtype=torch.int32, device=dev)
+    lengths[0] = 128
+    toks = torch.arange(7, 135, dtype=torch.int32, device=dev)[None]
+    pos = torch.arange(128, dtype=torch.int32, device=dev)
+    worst = {}
+    for kind in ("chunk", "decode"):
+        if kind == "chunk":
+            h = L.embed_tokens(params["embed"], toks, cfg)
+        else:
+            h = L.embed_tokens(params["embed"], toks[:, :8].T, cfg)
+        worst[kind] = (0.0, 0.0, -1)
+        for i in range(cfg.num_layers):
+            lp = T._layer(params["layers"], i)
+            cl = T._layer(cache["layers"], i)
+            a_in = L.apply_norm(lp["norm1"], h, cfg)
+            outs = []
+            for impl in (None, "plain"):
+                if kind == "chunk":
+                    a, _ = L.attention_chunk(
+                        lp["attn"], a_in, cfg, cl, row=row, pages=row[:1],
+                        positions=pos, q_offset=0, n_kv=1, impl=impl)
+                else:
+                    a, _ = L.attention_decode(
+                        lp["attn"], a_in, cfg, cl, lengths,
+                        block_table=table, n_kv=2, impl=impl)
+                outs.append(a)
+            e = max_err(outs[0], outs[1])
+            scale = float(outs[1].float().abs().max())
+            check(e <= 4 * bf16_ulp(scale),
+                  f"layer {i} {kind}: err {e} at scale {scale}")
+            if e / scale >= worst[kind][0] / max(worst[kind][1], 1e-30):
+                worst[kind] = (e, scale, i)
+            h = h + outs[1]
+            h = h + L.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], h, cfg),
+                                cfg)
+    torch.cuda.synchronize()
+    emit({"phase": "layers", "ok": True, "tol": "4 bf16 ulps of max|out|",
+          "worst": {k: {"max_abs_err": v[0], "max_abs_out": v[1],
+                        "layer": v[2]} for k, v in worst.items()}})
+
+
+def model_logits(torch, model, params, impl):
+    """Logits of three prefill chunks (slot 0, 300 tokens), one chunk
+    (slot 1, 100 tokens) and a decode step over all 8 slots."""
+    from repro_torch.configs import ShapeConfig
+
+    cache = model.init_cache(ShapeConfig("smoke", "decode", 1024, 8))
+    n_pool = cache["layers"]["k_pool"].shape[2]
+    mb = -(-1024 // 128) + 1
+    prompts_ = {0: list(range(7, 7 + 300)), 1: list(range(50, 150))}
+    table = torch.zeros((8, mb), dtype=torch.int32)
+    out = []
+    for slot, prompt in prompts_.items():
+        lg, row = _chunks(torch, model, params, cache, slot, prompt, n_pool,
+                          mb, impl)
+        out += lg
+        table[slot] = row
+    lengths = torch.zeros((8,), dtype=torch.int32)
+    lengths[0], lengths[1] = 300, 100
+    tokens = torch.full((8, 1), 11, dtype=torch.int32)
+    dec, _ = model.decode_step(
+        params, cache,
+        {"tokens": tokens.cuda(), "lengths": lengths.cuda(),
+         "block_table": table.cuda()}, n_kv=4, impl=impl)
+    torch.cuda.synchronize()
+    return out + [dec]
+
+
+def compare_logits(torch, got, want):
+    rows = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(bool(torch.isfinite(a).all()), f"non-finite logits {i}")
+        rows.append({
+            "call": "decode" if i == len(got) - 1 else f"chunk{i}",
+            "shape": list(a.shape), "max_abs_err": max_err(a, b),
+            "max_abs_logit": float(b.float().abs().max()),
+            "argmax_agree": float((a.float().argmax(-1)
+                                   == b.float().argmax(-1)).float().mean())})
+    return rows
+
+
+def phase_model(torch, model, p_cond, p_own):
+    """Full-width prefill chunks and a decode step, kernels vs plain: held
+    to a tolerance with conditioned weights; reported with the model's
+    own init (decorrelated by the hard-argmax attention)."""
+    cond = compare_logits(torch, model_logits(torch, model, p_cond, None),
+                          model_logits(torch, model, p_cond, "plain"))
+    for r in cond:
+        check(r["max_abs_err"] <= LOGIT_REL_TOL * r["max_abs_logit"],
+              f"logits {r}")
+    own = compare_logits(torch, model_logits(torch, model, p_own, None),
+                         model_logits(torch, model, p_own, "plain"))
+    emit({"phase": "model", "ok": True, "tol_rel": LOGIT_REL_TOL,
+          "conditioned": cond, "own_init_reported": own})
+
+
+PROMPT_LENS = (260, 900, 520, 140, 100, 400, 777, 333)  # first 4 share
+
+
+def prompts():
+    import numpy as np
+
+    rs = np.random.RandomState(0)
+    shared = list(rs.randint(1, 150_000, 128))
+    out = []
+    for i, n in enumerate(PROMPT_LENS):
+        if i < 4:
+            out.append(shared + list(rs.randint(1, 150_000, n - 128)))
+        else:
+            out.append(list(rs.randint(1, 150_000, n)))
+    return out
+
+
+def run_engine(torch, model, params, impl=None):
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, max_slots=8, max_seq=1024, policy="stamp-it",
+                        prefix_cache_entries=16, params=params, impl=impl,
+                        device=model.device)
+    reqs = [eng.submit(p, max_new_tokens=32) for p in prompts()]
+    events = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.sched.has_work():
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        eng.step()
+        e.record()
+        events.append((s, e))
+        check(eng.steps < 2000, "engine did not converge")
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    return eng, reqs, wall, step_ms
+
+
+def phase_engine(torch, model, params):
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    # warm-up pass (allocator, cuBLAS handles, kernel loads), not counted
+    run_engine(torch, model, params)
+    paged_attention_kernel.launches = 0
+    flash_attention_kernel.launches = 0
+    eng, reqs, wall, step_ms = run_engine(torch, model, params)
+    launches = {"paged_attention": paged_attention_kernel.launches,
+                "flash_attention": flash_attention_kernel.launches}
+    st = eng.stats()
+    check(all(r.done and len(r.generated) == 32 for r in reqs),
+          "not every request finished with 32 tokens")
+    vocab = model.cfg.vocab_size
+    check(all(0 <= t < vocab for r in reqs for t in r.generated),
+          "token out of vocabulary range")
+    check(st["dispatches_per_step"] == 1, f"dispatches/step {st}")
+    check(launches["paged_attention"] == N_LAYERS * st["decode_dispatches"],
+          f"paged launches {launches} vs {st['decode_dispatches']}")
+    check(launches["flash_attention"] == N_LAYERS * st["prefill_chunks"],
+          f"flash launches {launches} vs {st['prefill_chunks']}")
+    check(all(v > 0 for v in launches.values()), f"launches {launches}")
+    check(st["pool_unreclaimed"] == 0, "pages left unreclaimed")
+    # the same requests through the plain attention: how many of the
+    # greedy tokens agree (bf16 rounding may flip near-ties; reported)
+    _, preqs, pwall, _ = run_engine(torch, model, params, impl="plain")
+    agree = sum(a == b for r, p in zip(reqs, preqs)
+                for a, b in zip(r.generated, p.generated))
+    first_agree = sum(r.generated[0] == p.generated[0]
+                      for r, p in zip(reqs, preqs))
+    emit({"phase": "engine", "ok": True, "requests": len(reqs),
+          "prompt_lens": list(PROMPT_LENS), "max_new_tokens": 32,
+          "wall_s": wall, "decode_tokens_per_s": st["tokens_emitted"] / wall,
+          "median_step_ms": statistics.median(step_ms),
+          "steps": st["steps"], "decode_dispatches": st["decode_dispatches"],
+          "prefill_chunks": st["prefill_chunks"],
+          "dispatches_per_step": st["dispatches_per_step"],
+          "launches": launches, "host_us_per_step": st["host_us_per_step"],
+          "pool": {k: st[k] for k in ("free_pages", "pool_unreclaimed",
+                                      "pool_freed", "scan_steps",
+                                      "prefix_hits", "prefix_misses")},
+          "plain_wall_s": pwall, "plain_token_agreement":
+              agree / (32 * len(reqs)),
+          "plain_first_token_agreement": first_agree / len(reqs)})
+    return launches, wall
+
+
+def phase_small_reference(torch):
+    """Smoke width, f32: the engine through the kernels against the engine
+    through the plain versions, token for token."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine
+    import numpy as np
+
+    model = Model(smoke_config(ARCHS["qwen2-0.5b"]))
+    params = model.init_params(0)
+    rs = np.random.RandomState(3)
+    ps = [list(rs.randint(1, 500, n)) for n in (20, 300, 130, 513)]
+    out = {}
+    for impl in (None, "plain"):
+        eng = ServingEngine(model, max_slots=2, max_seq=768, params=params,
+                            impl=impl)
+        reqs = [eng.submit(p, max_new_tokens=8) for p in ps]
+        eng.run_until_done()
+        out[impl] = [r.generated for r in reqs]
+    check(out[None] == out["plain"], "smoke-width tokens differ")
+    emit({"phase": "small_reference", "ok": True,
+          "tokens": sum(len(g) for g in out[None])})
+
+
+def phase_kernel_table(torch, launches, errs):
+    """Each kernel at the engine's shapes: kernel, plain and library time
+    beside the bound, all in bf16 (the compute dtype)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    saved = (paged_attention_kernel.launches, flash_attention_kernel.launches)
+    bf = torch.bfloat16
+    elt = 2
+    H, Hkv, D = 14, 2, 64
+    # paged: the 8 slots mid-decode (prompt + 16 generated + the new token)
+    lengths = [n + 17 for n in PROMPT_LENS]
+    n_kv = 8  # pow2 bucket of ceil(max len / 128), capped at mb = 9
+    q, kp, vp, table, lens = paged_inputs(torch, bf, lengths)
+    k_ms = time_ms(lambda: paged_attention_kernel(q, kp, vp, table, lens,
+                                                  n_kv=n_kv))
+    p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens,
+                                               n_kv=n_kv,
+                                               global_pages=True))
+    tok = sum(lengths)
+    n_bytes = (2 * q.numel() * elt + tok * Hkv * D * 2 * elt
+               + table.numel() * 4 + lens.numel() * 4)
+    flops = 4 * H * D * tok
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    paged = {"name": "paged_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "replaces": "src/repro/kernels/paged_attention.py:128",
+             "launches": launches["paged_attention"],
+             "max_abs_err": errs["paged_attention", "bfloat16"],
+             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": None,
+             "library_note": "no single PyTorch call attends over pages "
+                             "named by a block table",
+             "shape": f"B=8 lengths={lengths} n_kv={n_kv}"}
+    # flash: the last chunk of the 900-token prompt (start 768, 8 pages)
+    off, S_kv, S_q = 768, 1024, 128
+    q, k, v = flash_inputs(torch, bf, S_kv)
+    k_ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=True,
+                                                  q_offset=off))
+    p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=True,
+                                               q_offset=off))
+    qpos = torch.arange(S_q, device=q.device)[:, None] + off
+    mask = torch.arange(S_kv, device=q.device)[None, :] <= qpos
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    keys = sum(min(off + i + 1, S_kv) for i in range(S_q))
+    kv_rows = min(off + S_q, S_kv)
+    n_bytes = (2 * q.numel() * elt + 2 * kv_rows * Hkv * D * elt)
+    flops = 4 * H * D * keys
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    flash = {"name": "flash_attention", "route": "cuda",
+             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "replaces": "src/repro/kernels/flash_attention.py:85",
+             "launches": launches["flash_attention"],
+             "max_abs_err": errs["flash_attention", "bfloat16"],
+             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+             "bound_by": b_by, "library_ms": l_ms,
+             "library_note": "scaled_dot_product_attention, boolean causal "
+                             "mask, enable_gqa=True (timed only)",
+             "shape": f"S_q={S_q} S_kv={S_kv} q_offset={off}"}
+    paged_attention_kernel.launches, flash_attention_kernel.launches = saved
+    return [paged, flash]
+
+
+def phase_profile(torch, model, params, wall_unprofiled: float):
+    """Device time by kernel over one whole engine run (torch.profiler).
+    Only device-side events count (operator events would count their
+    kernels twice); the busy share is given against the profiled wall
+    time and against the unprofiled run's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng, _, _, _ = run_engine(torch, model, params)
+        wall = time.perf_counter() - t0
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    emit({"phase": "profile", "ok": True, "wall_s": wall,
+          "wall_unprofiled_s": wall_unprofiled, "device_busy_s": busy_s,
+          "busy_share_profiled": busy_s / wall,
+          "busy_share_vs_unprofiled_wall": busy_s / wall_unprofiled,
+          "kernel_launches": sum(r[2] for r in rows),
+          "engine_steps": eng.steps,
+          "top": [{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
+                  for us, k, n in rows[:12]]})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--profile", action="store_true",
+                    help="add a torch.profiler window over an engine run")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is "
+              "False)", file=sys.stderr)
+        return 2
+    if not (SRC / "repro_torch" / "__init__.py").is_file():
+        print(f"chip_smoke: {SRC / 'repro_torch'} not found; run from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = "device"
+    try:
+        phase_device(torch)
+        phase = "build"
+        phase_build()
+        phase = "kernel_parity"
+        errs = phase_parity(torch)
+        phase = "small_reference"
+        phase_small_reference(torch)
+
+        phase = "init"
+        from repro_torch.configs import ARCHS
+        from repro_torch.models import Model
+
+        t0 = time.perf_counter()
+        model = Model(ARCHS["qwen2-0.5b"])
+        seeded = model.init_params(seed=0)
+        p_own = model.compute_params(seeded)
+        params = model.compute_params(conditioned(model, seeded))
+        del seeded
+        torch.cuda.synchronize()
+        emit({"phase": "init", "ok": True, "params": model.n_params(),
+              "seconds": time.perf_counter() - t0,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+        with torch.no_grad():
+            phase = "layers"
+            phase_layers(torch, model, p_own)
+            phase = "model"
+            phase_model(torch, model, params, p_own)
+            del p_own
+            phase = "engine"
+            launches, wall = phase_engine(torch, model, params)
+            phase = "kernel_table"
+            table = phase_kernel_table(torch, launches, errs)
+            if args.profile:
+                phase = "profile"
+                phase_profile(torch, model, params, wall)
+    except Exception as exc:  # report which phase failed, then fail
+        emit({"phase": phase, "ok": False,
+              "error": f"{type(exc).__name__}: {exc}"})
+        return 1
+    emit({"kernels": table})
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,57 @@
+"""Device dispatch for the attention kernels of the serving path.
+
+The tensor's device decides: a CUDA tensor goes to the hand-written
+kernel, a CPU tensor to the plain PyTorch version.  There is no
+environment switch and no fallback: a kernel that fails to build or to
+launch raises.  ``impl="plain"`` forces the plain version on any device;
+it exists so tests and ``chip_smoke.py`` can hold the kernels against
+the plain versions on the card.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from . import ref
+from .flash_attention import flash_attention_kernel
+from .paged_attention import paged_attention_kernel
+
+
+def _plain(x: torch.Tensor, impl: Optional[str]) -> bool:
+    if impl == "plain":
+        return True
+    if impl is not None:
+        raise ValueError(f"impl must be None or 'plain', got {impl!r}")
+    if x.device.type == "cuda":
+        return False
+    if x.device.type == "cpu":
+        return True
+    raise ValueError(f"no attention path for device {x.device}")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    q_offset: int = 0, impl: Optional[str] = None):
+    if _plain(q, impl):
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   q_offset=q_offset)
+    return flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                  q_offset=q_offset)
+
+
+def paged_attention(q, k_pool, v_pool, block_table, lengths, *,
+                    n_kv: Optional[int] = None, global_pages: bool = False,
+                    impl: Optional[str] = None):
+    """``n_kv`` bounds the page sweep to the first ``n_kv`` table
+    columns; ``global_pages`` makes table entries slot-flattened global
+    page ids (``slot * N_pool + page``)."""
+    if _plain(q, impl):
+        return ref.paged_attention(q, k_pool, v_pool, block_table, lengths,
+                                   n_kv=n_kv, global_pages=global_pages)
+    if not global_pages:
+        raise NotImplementedError(
+            "the per-slot variant of the paged decode kernel is not ported "
+            "yet (ROADMAP.md, Queue B)")
+    return paged_attention_kernel(q, k_pool, v_pool, block_table, lengths,
+                                  n_kv=n_kv)

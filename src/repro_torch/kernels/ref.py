@@ -1,0 +1,155 @@
+"""Plain PyTorch versions of the attention kernels on the serving path.
+
+Each function computes what its CUDA kernel computes, with tensor ops
+only.  The CPU tests run them (there is no card there), ``ops`` routes
+CPU tensors to them, and ``chip_smoke.py`` holds each kernel against
+them on the card.  They follow the JAX package's oracles
+(``repro/kernels/ref.py``) step for step: the same ``NEG_INF`` fill for
+masked scores, the same ``max(l, 1e-30)`` clamp, and the same cast of
+the softmax weights to the value dtype before the PV product, so fully
+masked rows and tiles behave identically.
+
+  * ``flash_attention``   — chunked online-softmax causal attention with
+                            a query offset and GQA (O(S * chunk) memory)
+  * ``decode_attention``  — one query token against a contiguous cache
+                            with per-sequence lengths
+  * ``paged_attention``   — decode attention over a paged KV pool and
+                            block tables (gathers the pages first)
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Flash attention (prefill chunk)
+# ---------------------------------------------------------------------------
+def flash_attention(
+    q: torch.Tensor,  # (B, S_q, H, D)
+    k: torch.Tensor,  # (B, S_kv, Hkv, D)
+    v: torch.Tensor,  # (B, S_kv, Hkv, D)
+    *,
+    causal: bool = True,
+    window: int = 0,  # 0 = full; >0 = sliding window (causal only)
+    q_offset: int = 0,  # absolute position of q[0] relative to kv[0]
+    chunk: int = 2048,
+) -> torch.Tensor:
+    """Online-softmax attention over KV chunks (the flash recurrence).
+
+    Scores and the accumulator are f32; operands are widened from their
+    storage dtype, which is exact, so each product equals the bf16 x bf16
+    -> f32 product of the tensor cores.  GQA: H must be a multiple of
+    Hkv.  Returns (B, S_q, H, D) in q.dtype.
+    """
+    B, S_q, H, D = q.shape
+    S_kv, Hkv = k.shape[1], k.shape[2]
+    if H % Hkv:
+        raise ValueError(f"{H} query heads do not group over {Hkv} kv heads")
+    G = H // Hkv
+    chunk = max(min(chunk, S_kv), 1)
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+
+    qg = q.permute(0, 2, 1, 3).reshape(B, Hkv, G, S_q, D).float()
+    kT = k.permute(0, 2, 1, 3)  # (B, Hkv, S_kv, D)
+    vT = v.permute(0, 2, 1, 3)
+    q_pos = q_offset + torch.arange(S_q, device=dev)
+
+    acc = torch.zeros((B, Hkv, G, S_q, D), dtype=torch.float32, device=dev)
+    m = torch.full((B, Hkv, G, S_q), NEG_INF, dtype=torch.float32,
+                   device=dev)
+    l = torch.zeros((B, Hkv, G, S_q), dtype=torch.float32, device=dev)
+    for j0 in range(0, S_kv, chunk):
+        kj = kT[:, :, j0:j0 + chunk]
+        vj = vT[:, :, j0:j0 + chunk]
+        kv_pos = j0 + torch.arange(kj.shape[2], device=dev)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qg, kj.float()) * scale
+        mask = torch.ones((S_q, kj.shape[2]), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        if window:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), vj.float())
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    out = out.reshape(B, H, S_q, D).permute(0, 2, 1, 3)
+    return out.to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode attention (contiguous cache)
+# ---------------------------------------------------------------------------
+def decode_attention(
+    q: torch.Tensor,        # (B, H, D) — one new token per sequence
+    k_cache: torch.Tensor,  # (B, S_max, Hkv, D)
+    v_cache: torch.Tensor,  # (B, S_max, Hkv, D)
+    lengths: torch.Tensor,  # (B,) int32 — valid cache prefix per sequence
+) -> torch.Tensor:
+    B, H, D = q.shape
+    S, Hkv = k_cache.shape[1], k_cache.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    qg = q.reshape(B, Hkv, G, D).float()
+    kT = k_cache.permute(0, 2, 1, 3)  # (B, Hkv, S, D) storage dtype
+    vT = v_cache.permute(0, 2, 1, 3)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, kT.float()) * scale
+    mask = (torch.arange(S, device=q.device)[None, :]
+            < lengths.to(q.device)[:, None])  # (B, S)
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgs,bhsd->bhgd", p.to(vT.dtype).float(),
+                       vT.float())
+    return out.reshape(B, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Paged decode attention (block tables)
+# ---------------------------------------------------------------------------
+def paged_attention(
+    q: torch.Tensor,            # (B, H, D)
+    k_pool: torch.Tensor,       # (B, N_pool, block, Hkv, D) per-slot pools
+    v_pool: torch.Tensor,       # (B, N_pool, block, Hkv, D)
+    block_table: torch.Tensor,  # (B, max_blocks) int32
+    lengths: torch.Tensor,      # (B,) int32
+    *,
+    n_kv: Optional[int] = None,
+    global_pages: bool = False,
+) -> torch.Tensor:
+    """Gather the pages each row names, then run decode attention.
+
+    ``global_pages`` flattens the slot axis away: table entries are then
+    GLOBAL ids ``slot * N_pool + page`` and a row may name pages that
+    another slot owns.  Otherwise entries are page ids within the row's
+    own slot.  ``n_kv`` bounds the sweep to the first ``n_kv`` table
+    columns; positions at or past a row's length are masked either way.
+    """
+    if n_kv is not None and n_kv < block_table.shape[1]:
+        block_table = block_table[:, :n_kv]
+    B, H, D = q.shape
+    n_pool, block, Hkv = k_pool.shape[1], k_pool.shape[2], k_pool.shape[3]
+    max_blocks = block_table.shape[1]
+    idx = block_table.long()
+    if global_pages:
+        kfl = k_pool.reshape(-1, block, Hkv, D)
+        vfl = v_pool.reshape(-1, block, Hkv, D)
+        k = kfl[idx]  # (B, MB, block, Hkv, D)
+        v = vfl[idx]
+    else:
+        rows = torch.arange(B, device=q.device)[:, None]
+        k = k_pool[rows, idx]
+        v = v_pool[rows, idx]
+    k = k.reshape(B, max_blocks * block, Hkv, D)
+    v = v.reshape(B, max_blocks * block, Hkv, D)
+    return decode_attention(q, k, v, lengths)

@@ -1,0 +1,189 @@
+"""Dense decoder-only stack on the paged KV cache (the serving path).
+
+Mirrors the main-path parts of the JAX package's
+``repro/models/transformer.py``: the param and cache spec trees, one
+chunk of a chunked prefill, and the dense decode step.  Layer params and
+cache pools are stacked over a leading ``layers`` axis, as there; JAX's
+``lax.scan`` over that axis is a Python loop here.  Both steps update the
+cache pools in place and return the same cache dict.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..configs.base import ModelConfig
+from . import layers as L
+from .param import ParamSpec
+
+#: KV page size (tokens per page)
+BLOCK_SIZE = 128
+#: tensor-parallel width of the JAX package's meshes; the pool's page
+#: count is rounded to a multiple of it exactly as there, so page ids
+#: and pool statistics agree between the two packages
+TP_WIDTH = 16
+
+
+# ---------------------------------------------------------------------------
+# Param specs
+# ---------------------------------------------------------------------------
+def _decoder_layer_specs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
+    return {
+        "norm1": {"scale": ParamSpec((n, cfg.d_model), ("layers", "embed"),
+                                     init="ones")},
+        "attn": L.attention_specs(cfg, n),
+        "norm2": {"scale": ParamSpec((n, cfg.d_model), ("layers", "embed"),
+                                     init="ones")},
+        "mlp": L.mlp_specs(cfg, n),
+    }
+
+
+def build_specs(cfg: ModelConfig) -> Dict[str, Any]:
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue A)")
+    return {
+        "embed": L.embed_specs(cfg),
+        "layers": _decoder_layer_specs(cfg, cfg.num_layers),
+        "final_norm": {"scale": ParamSpec((cfg.d_model,), ("embed",),
+                                          init="ones")},
+    }
+
+
+# ---------------------------------------------------------------------------
+# Cache specs
+# ---------------------------------------------------------------------------
+def cache_layout(cfg: ModelConfig) -> str:
+    if cfg.family == "ssm":
+        return "ssm"
+    if cfg.family == "hybrid":
+        return "hybrid"
+    if cfg.sliding_window > 0:
+        return "rolling"
+    return "paged"
+
+
+def paged_blocks_sharded_cfg(cfg: ModelConfig) -> bool:
+    """True when kv heads do not divide the TP width (the JAX package
+    then stripes pool PAGES over its `model` axis)."""
+    hkv = cfg.num_kv_heads or cfg.num_heads
+    return hkv % TP_WIDTH != 0
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
+                pool_slack: int = 0) -> Dict[str, Any]:
+    """ParamSpec tree of the paged decode cache: per-slot pools
+    ``(L, batch, n_pool, BLOCK_SIZE, Hkv, D)`` in the compute dtype.
+
+    ``n_pool`` is ceil(max_seq / block) + 1 + ``pool_slack`` pages, rounded
+    up to a multiple of ``TP_WIDTH`` when the JAX package would stripe
+    pages (and no slack was asked for) — the same rule, so the host pool
+    sized from this dimension matches the JAX engine's page for page.
+    """
+    if cache_layout(cfg) != "paged":
+        raise NotImplementedError(
+            f"cache layout {cache_layout(cfg)!r} is not ported yet")
+    Hkv = cfg.num_kv_heads or cfg.num_heads
+    D = cfg.resolved_head_dim
+    dtype = getattr(torch, cfg.dtype)
+    mb = -(-max_seq // BLOCK_SIZE) + 1 + pool_slack
+    if pool_slack == 0 and paged_blocks_sharded_cfg(cfg):
+        mb = -(-mb // TP_WIDTH) * TP_WIDTH
+    blocks_ax = "blocks" if paged_blocks_sharded_cfg(cfg) else None
+    shape = (cfg.num_layers, batch, mb, BLOCK_SIZE, Hkv, D)
+    axes = ("layers", "batch", blocks_ax, None, "kv_heads", None)
+    return {"layers": {
+        "k_pool": ParamSpec(shape, axes, dtype=dtype, init="zeros"),
+        "v_pool": ParamSpec(shape, axes, dtype=dtype, init="zeros"),
+    }}
+
+
+def _layer(tree, i: int):
+    """Layer ``i`` of a tree stacked over a leading layers axis (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# Chunked prefill
+# ---------------------------------------------------------------------------
+def prefill_chunk(params, cache, batch, cfg: ModelConfig, *,
+                  n_kv: Optional[int] = None, global_pages: bool = True,
+                  impl: Optional[str] = None):
+    """One chunk of an incremental (chunked) prefill.
+
+    Processes ``C = tokens.shape[1]`` prompt positions starting at
+    absolute position ``start`` for one slot: every layer writes the
+    chunk's K/V into its pages (``pages``; spare entries name the scratch
+    page 0) and attends the chunk's queries causally over the first
+    ``n_kv`` pages of ``row`` (:func:`layers.attention_chunk`).
+
+    ``batch``: {"tokens": (1, C) int32, "start": int, "row": (mb,) int32
+                block-table row (global ids), "pages": (C // BLOCK_SIZE,)
+                int32 global ids, "last_index": int — position of the
+                final prompt token WITHIN the chunk}
+    ``start`` and ``last_index`` are host integers: the host chose them,
+    so the chunk lane never reads the device.  Returns (logits (1, V) at
+    ``last_index``, cache), the pools updated in place.
+    """
+    if not global_pages:
+        raise NotImplementedError(
+            "only global page ids are ported (ROADMAP.md, Queue B)")
+    tokens = batch["tokens"]
+    C = tokens.shape[1]
+    row, pages = batch["row"], batch["pages"]
+    start = int(batch["start"])
+    if n_kv is None:
+        n_kv = row.shape[0]
+    positions = start + torch.arange(C, dtype=torch.int32,
+                                     device=tokens.device)
+    x = L.embed_tokens(params["embed"], tokens, cfg)
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        cl = _layer(cache["layers"], i)
+        a_in = L.apply_norm(lp["norm1"], x, cfg)
+        a, _ = L.attention_chunk(lp["attn"], a_in, cfg, cl, row=row,
+                                 pages=pages, positions=positions,
+                                 q_offset=start, n_kv=n_kv, impl=impl)
+        x = x + a
+        m_in = L.apply_norm(lp["norm2"], x, cfg)
+        x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    x_last = x[:, int(batch["last_index"])]
+    return L.unembed(params["embed"], x_last, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode step
+# ---------------------------------------------------------------------------
+def decode_step(params, cache, batch, cfg: ModelConfig, *,
+                n_kv: Optional[int] = None, global_pages: bool = True,
+                impl: Optional[str] = None):
+    """One token for every sequence in the batch against the paged cache.
+
+    ``batch``: {"tokens": (B, 1) int32, "lengths": (B,) int32,
+                "block_table": (B, MB) int32 global page ids}
+    ``n_kv`` bounds the paged KV sweep.  Returns (logits (B, V), cache),
+    the pools updated in place.
+    """
+    if not global_pages:
+        raise NotImplementedError(
+            "only global page ids are ported (ROADMAP.md, Queue B)")
+    lengths = batch["lengths"]
+    block_table = batch["block_table"]
+    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        cl = _layer(cache["layers"], i)
+        a_in = L.apply_norm(lp["norm1"], x, cfg)
+        a, _ = L.attention_decode(lp["attn"], a_in, cfg, cl, lengths,
+                                  block_table=block_table, n_kv=n_kv,
+                                  impl=impl)
+        x = x + a
+        m_in = L.apply_norm(lp["norm2"], x, cfg)
+        x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    return L.unembed(params["embed"], x[:, 0], cfg), cache

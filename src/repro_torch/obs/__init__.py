@@ -1,0 +1,25 @@
+"""Observability plane: typed metrics registry, retire->reclaim latency
+tracing, and per-request lifecycle spans (copies of the JAX package's
+framework-free modules; the exporters are not ported yet)."""
+
+from .metrics import (
+    NULL_INSTRUMENT,
+    STATS_KEY_ALIASES,
+    STEP_BUCKETS,
+    Counter,
+    Gauge,
+    Histogram,
+    Registry,
+    apply_aliases,
+    get_registry,
+    set_registry,
+)
+from .reclaim_trace import ReclaimTracer
+from .spans import PHASES, Span, SpanRecorder
+
+__all__ = [
+    "Counter", "Gauge", "Histogram", "Registry", "ReclaimTracer",
+    "Span", "SpanRecorder", "PHASES",
+    "STATS_KEY_ALIASES", "STEP_BUCKETS", "NULL_INSTRUMENT",
+    "apply_aliases", "get_registry", "set_registry",
+]

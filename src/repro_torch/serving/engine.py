@@ -1,0 +1,589 @@
+"""Continuous-batching serving engine: a thin composition root over the
+three serving planes (the JAX package's ``repro/serving/engine.py``,
+chunked-prefill greedy path).
+
+  * **Policy plane** (:mod:`repro_torch.memory.policy`) — the BlockPool is
+    written once against :class:`ReclamationPolicy`; ``stamp-it`` and
+    ``epoch`` are selectable via ``ServingEngine(policy=...)``.  The policy
+    must never change MODEL OUTPUTS — only pool pressure.
+  * **Device plane** (:mod:`repro_torch.serving.device_state`) — all
+    decode state lives on the card; one engine step is exactly ONE fused
+    step (reset + prefill chunk + admit + teacher-force + device-decided
+    page growth + decode + greedy sample), asserted via
+    ``stats()["dispatches_per_step"] == 1``.
+  * **Scheduler plane** (:mod:`repro_torch.serving.scheduler`) —
+    admission, continuous batching, pipeline-lag completion, and the
+    deterministic host mirrors that let the pool allocate without ever
+    reading device state.
+
+CUDA launches are asynchronous: up to ``pipeline_depth`` steps are in
+flight at once, each holding a step handle from the reclamation policy
+between dispatch and host-observed completion.  Pages freed by a finished
+request (or evicted from the prefix cache) are *retired*, not reused,
+until the policy proves no in-flight step can read them.  The host syncs
+with the card only where it reads a completed step's tokens.
+
+Not ported yet (ROADMAP.md, Queue A): sampled decoding, the speculative
+lane, copy-on-write forks, whole-prompt prefill (``chunk_tokens=0``), the
+tier handoff and the cluster plane.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ..configs.base import ShapeConfig
+from ..device import DeviceLike, resolve_device
+from ..memory.block_pool import BlockPool, PoolExhausted
+from ..memory.prefix_cache import PrefixCache, block_key, prefix_block_keys
+from ..models import Model
+from ..models.transformer import BLOCK_SIZE, cache_layout
+from ..obs.metrics import Registry, apply_aliases
+from ..obs.spans import SpanRecorder
+from .device_state import DeviceState
+from .scheduler import Request, Scheduler
+
+
+def _pow2_bucket(n: int) -> int:
+    """Smallest power of two >= n (n >= 1)."""
+    return 1 << (n - 1).bit_length()
+
+
+class ServingEngine:
+    def __init__(
+        self,
+        model: Model,
+        *,
+        max_slots: int = 4,
+        max_seq: int = 256,
+        policy: Any = "stamp-it",
+        pipeline_depth: int = 2,
+        prefix_cache_entries: int = 0,
+        extra_pages_per_slot: int = 0,
+        chunk_tokens: int = BLOCK_SIZE,
+        seed: int = 0,
+        temperature: float = 0.0,
+        params: Any = None,
+        speculate_k: int = 0,
+        registry: Optional[Registry] = None,
+        spans: Optional[SpanRecorder] = None,
+        device: DeviceLike = "cuda",
+        impl: Optional[str] = None,
+    ) -> None:
+        cfg = model.cfg
+        if cache_layout(cfg) != "paged":
+            raise ValueError("the engine drives paged-layout archs")
+        dev = resolve_device(device)
+        if dev != model.device:
+            raise ValueError(f"engine device {dev} != model device "
+                             f"{model.device}")
+        if speculate_k:
+            raise NotImplementedError(
+                "the speculative lane is not ported yet (ROADMAP.md)")
+        if chunk_tokens == 0:
+            raise NotImplementedError(
+                "whole-prompt prefill (chunk_tokens=0) is not ported yet "
+                "(ROADMAP.md); chunked prefill is the default")
+        if chunk_tokens < 0 or chunk_tokens % BLOCK_SIZE:
+            raise ValueError(
+                "chunk_tokens must be a positive multiple of BLOCK_SIZE "
+                f"({BLOCK_SIZE})")
+        self.model = model
+        self.cfg = cfg
+        self.device = dev
+        self.max_slots = max_slots
+        self.max_seq = max_seq
+        self.block = BLOCK_SIZE
+        self.mb = -(-max_seq // BLOCK_SIZE) + 1
+        self.pipeline_depth = pipeline_depth
+        self.chunk_tokens = chunk_tokens
+        self.replica_id = 0
+
+        shape = ShapeConfig("engine", "decode", max_seq, max_slots)
+        if params is None:
+            params = model.init_params(seed)
+        # the steps read weights in the compute dtype: cast once here
+        params = model.compute_params(params)
+        cache = model.init_cache(shape, pool_slack=extra_pages_per_slot)
+
+        # page 0 of each slot is the scratch page: inactive slots keep a
+        # zeroed block-table row, so their (discarded) decode writes land
+        # in page 0 instead of corrupting allocated pages.  The host pool
+        # is sized from the DEVICE pool dim (cache_specs rounds pages up
+        # to a TP_WIDTH multiple, as the JAX package does).
+        pool_pages = int(cache["layers"]["k_pool"].shape[2])
+        self.pool = BlockPool(max_slots, pool_pages, policy=policy,
+                              registry=registry)
+        self.obs = self.pool.trace.registry
+        self.spans = (spans if spans is not None
+                      else SpanRecorder(enabled=self.obs.enabled))
+        for s in range(max_slots):
+            got = self.pool.alloc(s, 1)
+            if got != [0]:
+                raise RuntimeError("page 0 must be the scratch page")
+        self.prefix_cache = PrefixCache(self.pool, prefix_cache_entries)
+
+        self.sched = Scheduler(max_slots, self.mb, self.block,
+                               pipeline_depth, n_pool=pool_pages)
+        self.dev = DeviceState(
+            model, params, cache, max_slots=max_slots, mb=self.mb,
+            block=self.block, chunk_tokens=chunk_tokens,
+            temperature=temperature, impl=impl,
+        )
+
+        # page-ref cache: rebuilt only when the active page set changes
+        self._page_refs: List[tuple] = []
+        self._refs_dirty = True
+
+        self.steps = 0
+        self.decode_steps = 0  # engine steps that dispatched device work
+        self.admissions = 0  # requests admitted
+        self.prefill_chunks = 0  # chunk-lane rides
+        self.host_ns = 0  # host-side bookkeeping time in _dispatch_decode
+        self.busy_s = 0.0  # cumulative step() wall time
+        self.backpressure_syncs = 0  # PoolExhausted -> force-sync events
+        self.chunk_backpressure = 0  # ... of which mid chunked prefill
+        # chunk-lane per-step state (consumed by _dispatch_decode)
+        self._chunk_rr = 0  # round-robin pointer over admitting slots
+        self._chunk_need_pages = 0  # staged chunk's KV-sweep page bound
+        self._chunk_finalizing: Optional[Request] = None
+        self.tokens_emitted = 0  # host-observed generated tokens
+
+    # ------------------------------------------------------------------
+    # public API
+    # ------------------------------------------------------------------
+    def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
+               eos_id: Optional[int] = None) -> Request:
+        req = self.sched.submit(prompt, max_new_tokens, eos_id)
+        if self.spans.enabled:
+            self.spans.begin(self._srid(req), "queue", step=self.steps,
+                             replica=self.replica_id,
+                             prompt_len=len(req.prompt))
+        return req
+
+    def fork_submit(self, *args, **kwargs):
+        raise NotImplementedError(
+            "copy-on-write forks are not ported yet (ROADMAP.md, Queue A)")
+
+    def _srid(self, req: Request) -> str:
+        return f"r{self.replica_id}.{req.rid}"
+
+    def _span_admit(self, req: Request) -> None:
+        """Close the queue phase, open prefill (all admission paths)."""
+        if not self.spans.enabled:
+            return
+        srid = self._srid(req)
+        self.spans.end(srid, "queue", step=self.steps)
+        self.spans.begin(srid, "prefill", step=self.steps,
+                         replica=self.replica_id)
+
+    def run_until_done(self, max_steps: int = 10_000) -> List[Request]:
+        start = self.steps
+        while self.sched.has_work():
+            self.step()
+            if self.steps - start > max_steps:
+                raise RuntimeError("engine did not converge")
+        return self.sched.finished
+
+    def step(self) -> None:
+        self.steps += 1
+        _t0 = time.time()
+        # 1. retire the oldest in-flight step if the pipeline is full
+        while self.sched.pipeline_full():
+            self._complete_oldest()
+        # 2. admissions (chunked admissions only OCCUPY a slot here; their
+        #    prompt tokens ride the fused step one chunk at a time)
+        while self.sched.waiting and self.sched.free_slots:
+            if not self._admit(self.sched.waiting[0]):
+                break
+            self.sched.waiting.popleft()
+        # 3. advance at most one prefill chunk (round-robin over the
+        #    admitting slots — the interleaving policy)
+        chunk_staged = bool(self.sched.admitting) and self._advance_chunk()
+        # 4. one fused step for decode work and/or the staged chunk
+        if self.sched.active or chunk_staged:
+            self._dispatch_decode()
+        elif self.sched.inflight:
+            self._complete_oldest()
+        self.busy_s += time.time() - _t0
+
+    def drain(self) -> None:
+        while self.sched.inflight:
+            self._complete_oldest()
+        self.prefix_cache.drain()
+        self.pool.reclaim()
+
+    def hold(self, tag: str = "hold"):
+        """Pin this engine's stamp domain (see ReclamationPolicy.hold)."""
+        return self.pool.hold(tag)
+
+    # ------------------------------------------------------------------
+    # admission
+    # ------------------------------------------------------------------
+    def _admit(self, req: Request) -> bool:
+        slot = self.sched.free_slots[-1]
+        prompt = req.prompt
+        n_blocks = max(-(-len(prompt) // self.block), 1)
+        # prefix-cache lookup over full prompt blocks
+        keys = prefix_block_keys(prompt, self.block)
+        hits = self.prefix_cache.lookup(keys) if keys else []
+
+        # keep at least the final prompt token out of the "hit" span so a
+        # fully-cached prompt still runs one forced step to emit token 1
+        n_hit_tokens = min(len(hits) * self.block, len(prompt) - 1)
+        suffix = prompt[n_hit_tokens:]
+        # replay only pays off for short suffixes; a long one takes the
+        # chunked prefill, which rewrites EVERY page
+        if n_hit_tokens and len(suffix) <= 2 * self.block:
+            # short suffix after a cache hit: teacher-force through decode
+            try:
+                pages = self.pool.alloc(slot, n_blocks)
+            except PoolExhausted:
+                self.prefix_cache.unpin(hits)
+                return False
+            self.dev.copy_pages(
+                [e.slot for e in hits], [e.page for e in hits],
+                slot, pages[: len(hits)],
+            )
+            self.prefix_cache.unpin(hits)
+            self._refs_dirty = True
+            req._first_dev = None  # type: ignore[attr-defined]
+            self.sched.bind_slot(req, slot, pages, n_hit_tokens)
+            req._tf_suffix = list(suffix)  # type: ignore[attr-defined]
+            self.dev.stage_admit(slot, n_hit_tokens,
+                                 self.sched.block_table[slot], n_blocks)
+            self.admissions += 1
+            self._span_admit(req)
+            return True
+        self.prefix_cache.unpin(hits)
+
+        # chunked admission: occupy the slot now; pages are allocated
+        # incrementally and the prompt rides the fused step one chunk per
+        # step (_advance_chunk).  The chunk hold is the paper's long-lived
+        # critical region at admission granularity: pages retired anywhere
+        # in the domain while this prefill is mid-flight stay unreclaimed
+        # until it completes.
+        self.sched.bind_admitting(req, slot)
+        req._chunk_hold = self.pool.hold(  # type: ignore[attr-defined]
+            "chunk-prefill")
+        req._first_dev = None  # type: ignore[attr-defined]
+        req._tf_suffix = []  # type: ignore[attr-defined]
+        self.admissions += 1
+        self._span_admit(req)
+        return True
+
+    # ------------------------------------------------------------------
+    # chunked prefill (inside the fused step)
+    # ------------------------------------------------------------------
+    def _advance_chunk(self) -> bool:
+        """Stage the next prefill chunk for ONE admitting slot (round-
+        robin interleaving policy); a slot stalled on pool exhaustion
+        yields its turn.  Returns True iff a chunk was staged."""
+        sched = self.sched
+        slots = sorted(sched.admitting)
+        order = ([s for s in slots if s >= self._chunk_rr]
+                 + [s for s in slots if s < self._chunk_rr])
+        for slot in order:
+            if self._stage_chunk(slot, sched.admitting[slot]):
+                self._chunk_rr = slot + 1
+                return True
+        return False
+
+    def _stage_chunk(self, slot: int, req: Request) -> bool:
+        sched = self.sched
+        P = len(req.prompt)
+        C = self.chunk_tokens
+        start = req.chunk_pos
+        end = min(start + C, P)
+        # incremental allocation: exactly the pages this chunk's valid
+        # tokens land in (the padded tail of the last chunk writes to the
+        # scratch page 0, like every other masked lane)
+        need = min(-(-end // self.block), req.total_pages(self.block))
+        n_new = need - req.n_pages
+        if n_new > 0:
+            pages = self._alloc_chunk_pages(slot, req, n_new)
+            if pages is None:
+                return False  # back-pressure: stall, retry next step
+            sched.add_chunk_pages(slot, pages)
+            self._refs_dirty = True
+        toks = np.zeros((C,), np.int32)
+        toks[: end - start] = req.prompt[start:end]
+        nc = C // self.block
+        fb = start // self.block
+        spages = sched.slot_pages[slot]
+        write_pages = np.asarray(
+            [sched.gid(spages[fb + j]) if fb + j < len(spages) else 0
+             for j in range(nc)], np.int32)
+        is_last = end >= P
+        last_index = (P - 1 - start) if is_last else (C - 1)
+        self.dev.stage_chunk(slot, toks, start,
+                             sched.block_table[slot].copy(), write_pages,
+                             is_last, last_index)
+        self._chunk_need_pages = need
+        req.chunk_pos = end
+        self.prefill_chunks += 1
+        if self.spans.enabled:
+            self.spans.event(self._srid(req), "chunk", step=self.steps,
+                             replica=self.replica_id,
+                             index=start // max(C, 1), start=start,
+                             end=end)
+        if is_last:
+            self._chunk_finalizing = req
+            hold = getattr(req, "_chunk_hold", None)
+            if hold is not None:
+                hold.release()
+                req._chunk_hold = None  # type: ignore[attr-defined]
+            # prompt fully staged: promote to the decode lane.  The admit
+            # below applies in the SAME step as the final chunk — the
+            # chunk lane runs first and leaves token 1 in first_buf, so
+            # this step already decodes token 2.
+            sched.promote(slot, P)
+            self.dev.stage_admit(slot, P, sched.block_table[slot],
+                                 req.n_pages, token_from_buf=True,
+                                 set_token=True)
+        return True
+
+    def _alloc_chunk_pages(self, slot: int, req: Request,
+                           n: int) -> Optional[List[int]]:
+        """Allocate one chunk's pages, cycling the chunk holds under
+        back-pressure: release them (un-parking every page they pinned),
+        force-sync the pipeline, reclaim, re-open, retry."""
+        try:
+            return self.pool.alloc(slot, n)
+        except PoolExhausted:
+            pass
+        self.backpressure_syncs += 1
+        self.chunk_backpressure += 1
+        self._cycle_chunk_holds()
+        try:
+            return self.pool.alloc(slot, n)
+        except PoolExhausted:
+            return None
+
+    def _cycle_chunk_holds(self) -> None:
+        """Back-pressure valve: release every admitting request's chunk
+        hold, force-sync the pipeline so no step can still read the pages
+        they pinned, reclaim, and re-open fresh holds.  Safe because a
+        mid-prefill slot's OWN pages are allocated (never retired), so the
+        hold is a domain-wide courtesy pin, not a correctness pin."""
+        reqs = [r for r in self.sched.admitting.values()
+                if getattr(r, "_chunk_hold", None) is not None]
+        for r in reqs:
+            r._chunk_hold.release()
+        while self.sched.inflight:
+            self._complete_oldest()
+        self.pool.reclaim()
+        for r in reqs:
+            r._chunk_hold = self.pool.hold(  # type: ignore[attr-defined]
+                "chunk-prefill")
+
+    # ------------------------------------------------------------------
+    # decode dispatch (ONE fused device step)
+    # ------------------------------------------------------------------
+    def _dispatch_decode(self) -> None:
+        t0 = time.perf_counter_ns()
+        sched = self.sched
+        # page growth: the DEVICE decides via its lengths; the host runs
+        # the same deterministic rule on its mirror to pop the free-list
+        # candidates the device will consume, and to detect exhaustion
+        # (back-pressure) BEFORE dispatch
+        grow: Dict[int, int] = {}
+        # snapshot: the back-pressure force-sync below may _finish (and
+        # remove from active) any request, including this one
+        for slot, req in list(sched.active.items()):
+            need = min(int(sched.lengths[slot]) // self.block + 1, self.mb)
+            if req.done or req.n_pages >= need:
+                continue
+            if need - req.n_pages != 1:
+                raise RuntimeError("host mirror drifted from the device")
+            try:
+                (page,) = self.pool.alloc(slot, 1)
+            except PoolExhausted:
+                # back-pressure: force-sync everything — cycling any open
+                # chunk holds first, so their parked retires can reclaim —
+                # and retry once (device wait: out of the host-ns timer)
+                self.backpressure_syncs += 1
+                self.host_ns += time.perf_counter_ns() - t0
+                self._cycle_chunk_holds()
+                t0 = time.perf_counter_ns()
+                if req.done:
+                    continue  # force-sync finished this very request
+                (page,) = self.pool.alloc(slot, 1)
+            grow[slot] = sched.append_page(slot, page)
+            self._refs_dirty = True
+        if not sched.active and not self.dev.has_pending_chunk():
+            return  # every active request finished during force-sync
+
+        # teacher-forced suffix tokens (prefix-cache admissions) override
+        # the sampled token chain for their slots
+        tf: Dict[int, int] = {}
+        for slot, req in sched.active.items():
+            suffix = getattr(req, "_tf_suffix", [])
+            if suffix:
+                tf[slot] = suffix.pop(0)
+
+        if self._refs_dirty:
+            self._page_refs = sched.page_refs()
+            self._refs_dirty = False
+
+        # bucketed bound on the KV sweep: pages any active sequence — or
+        # the staged prefill chunk's gather — can touch this step (the
+        # power-of-two bucket keeps the chunk gather's shapes few)
+        n_need = max(sched.max_need_pages(), self._chunk_need_pages, 1)
+        n_kv = min(max(_pow2_bucket(n_need), 1), self.mb)
+        self.host_ns += time.perf_counter_ns() - t0
+
+        stamp = self.pool.begin_step(self._page_refs)
+        tokens, chunk_first = self.dev.dispatch(tf, grow, n_kv)
+        if self._chunk_finalizing is not None:
+            # the final chunk's on-device first token; the host reads it
+            # at this request's first pipeline-lagged completion
+            self._chunk_finalizing._first_dev = (  # type: ignore
+                chunk_first)
+            self._chunk_finalizing = None
+        self._chunk_need_pages = 0
+        self.decode_steps += 1
+        sched.inflight.append(
+            (stamp, tokens, dict(sched.active), sched.lengths.copy(), None)
+        )
+        sched.advance_lengths()
+
+    # ------------------------------------------------------------------
+    # completion (the pipeline-lagged sync point)
+    # ------------------------------------------------------------------
+    def _complete_oldest(self) -> None:
+        if not self.sched.inflight:
+            return
+        stamp, tokens_dev, active, lengths_snap, _ = (
+            self.sched.inflight.popleft()
+        )
+        tokens = tokens_dev.cpu().numpy()  # sync point
+        self.pool.complete_step(stamp)
+        for slot, req in active.items():
+            if req.done:
+                continue
+            first_dev = getattr(req, "_first_dev", None)
+            if first_dev is not None:
+                # the step consuming token 1 has completed, so this read
+                # returns a ready value — no pipeline stall
+                self._emit(req, int(first_dev.item()))
+                req._first_dev = None  # type: ignore[attr-defined]
+            # this step consumed the token at position lengths_snap[slot];
+            # its output is a real sample only past the prompt
+            pos = int(lengths_snap[slot])
+            if pos + 1 < len(req.prompt):
+                continue  # teacher-forcing internal step
+            tok = int(tokens[slot, 0])
+            self._emit(req, tok)
+            hit_eos = req.eos_id is not None and tok == req.eos_id
+            if len(req.generated) >= req.max_new_tokens or hit_eos:
+                self._finish(slot, req)
+
+    def _emit(self, req: Request, tok: int) -> None:
+        """Host-observed token emission: the ONLY place generated tokens
+        appear."""
+        req.generated.append(tok)
+        req.token_times.append(time.time())
+        req.token_busy.append(self.busy_s)
+        self.tokens_emitted += 1
+        if not req.first_token_at:
+            req.first_token_at = time.time()
+            if self.spans.enabled:
+                srid = self._srid(req)
+                self.spans.end(srid, "prefill", step=self.steps)
+                self.spans.event(srid, "first-token", step=self.steps,
+                                 replica=self.replica_id)
+                self.spans.begin(srid, "decode", step=self.steps,
+                                 replica=self.replica_id)
+
+    def _finish(self, slot: int, req: Request) -> None:
+        req.done = True
+        req.finished_at = time.time()
+        self.sched.finished.append(req)
+        refs = self.sched.release_slot(slot)
+        # donate full prompt blocks to the prefix cache; retire the rest
+        # as one batch
+        donated = set()
+        for i in range(len(req.prompt) // self.block):
+            if i >= len(refs):
+                continue
+            key = block_key(req.prompt[: (i + 1) * self.block])
+            if self.prefix_cache.insert(key, slot, refs[i][1]):
+                donated.add(refs[i])
+        to_free = [r for r in refs if r not in donated]
+        if to_free:
+            self.pool.free_refs(to_free)
+        self._refs_dirty = True
+        self.dev.stage_reset(slot)
+        if self.spans.enabled:
+            srid = self._srid(req)
+            self.spans.end_open(srid, step=self.steps)
+            self.spans.event(srid, "finish", step=self.steps,
+                             replica=self.replica_id,
+                             tokens=len(req.generated))
+
+    # ------------------------------------------------------------------
+    def publish(self) -> None:
+        """Mirror this engine's counters into the metrics registry
+        (pull-style).  The pool publishes its own memory-plane
+        instruments."""
+        reg = self.obs
+        if not reg.enabled:
+            return
+        self.pool.publish()
+        lab = dict(policy=self.pool.policy_name, replica=self.replica_id)
+        g = reg.gauge
+        g("engine_steps", **lab).set(self.steps)
+        g("requests_finished", **lab).set(len(self.sched.finished))
+        g("admissions", **lab).set(self.admissions)
+        g("tokens_emitted", **lab).set(self.tokens_emitted)
+        g("queue_depth", **lab).set(len(self.sched.waiting))
+        g("active_slots", **lab).set(len(self.sched.active))
+        g("inflight_steps", **lab).set(len(self.sched.inflight))
+        g("prefill_chunks", **lab).set(self.prefill_chunks)
+        g("chunk_backpressure", **lab).set(self.chunk_backpressure)
+        g("backpressure_syncs", **lab).set(self.backpressure_syncs)
+        g("prefix_hits", **lab).set(self.prefix_cache.hits)
+        g("prefix_misses", **lab).set(self.prefix_cache.misses)
+
+    def stats(self) -> Dict[str, Any]:
+        return apply_aliases({
+            "scan_steps": (self.pool.scan_steps
+                           + self.pool.ledger_scan_steps),
+            "replica_id": self.replica_id,
+            "steps": self.steps,
+            "finished": len(self.sched.finished),
+            "admissions": self.admissions,
+            "free_pages": self.pool.free_pages_total(),
+            # includes the device plane's operand-staging time
+            "host_us_per_step": (
+                (self.host_ns + self.dev.stage_ns) / 1e3
+                / max(self.steps, 1)
+            ),
+            # numerator tracked by the device plane, denominator by the
+            # engine: a reintroduced per-step extra launch shows as > 1
+            "dispatches_per_step": (
+                self.dev.decode_dispatches / max(self.decode_steps, 1)
+            ),
+            "decode_dispatches": self.dev.decode_dispatches,
+            "admission_dispatches": self.dev.admission_dispatches,
+            "chunk_tokens": self.chunk_tokens,
+            "prefill_chunks": self.prefill_chunks,
+            "chunk_backpressure": self.chunk_backpressure,
+            "chunk_shapes": sorted(self.dev.chunk_shapes),
+            "backpressure_syncs": self.backpressure_syncs,
+            "pool_unreclaimed": self.pool.unreclaimed(),
+            "pool_freed": self.pool.freed_total,
+            "pool_scan_steps": self.pool.scan_steps,
+            "ledger_scan_steps": self.pool.ledger_scan_steps,
+            "prefix_hits": self.prefix_cache.hits,
+            "prefix_misses": self.prefix_cache.misses,
+            "prefix_evictions": self.prefix_cache.evictions,
+            "tokens_emitted": self.tokens_emitted,
+            "tokens_per_dispatch": (
+                self.tokens_emitted / max(self.dev.decode_dispatches, 1)
+            ),
+        })

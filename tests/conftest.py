@@ -1,0 +1,6 @@
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA card and nvcc; skips where "
+        "torch.cuda.is_available() is False",
+    )

@@ -1,0 +1,65 @@
+"""The PyTorch package stands alone: importing it and running an engine
+step pulls in neither JAX nor the JAX package, and its entry points run
+on the card unless told otherwise."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+_CHILD = r"""
+import sys
+import numpy as np
+import repro_torch
+from repro_torch.configs import ARCHS, smoke_config
+from repro_torch.models import Model
+from repro_torch.serving import ServingEngine
+
+eng = ServingEngine(Model(smoke_config(ARCHS["qwen2-0.5b"]), device="cpu"),
+                    max_slots=2, max_seq=256, device="cpu")
+eng.submit(list(np.arange(1, 40)), max_new_tokens=2)
+eng.step()
+eng.run_until_done()
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax_and_no_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _CHILD], cwd=ROOT, capture_output=True,
+        text=True, timeout=300,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "JAX_PLATFORMS": "cpu"},
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_sources_name_no_jax_import():
+    pat = re.compile(r"^\s*(import jax|from jax|from repro\b|import repro\b)",
+                     re.M)
+    files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 10
+    hits = [f for f in files if pat.search(f.read_text())]
+    assert hits == []
+
+
+def test_engine_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid")
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine
+
+    model = Model(smoke_config(ARCHS["qwen2-0.5b"]), device="cpu")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ServingEngine(model, max_slots=1, max_seq=256)
