@@ -4,16 +4,19 @@
     python3 chip_smoke.py [--profile]
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
-holds each kernel against its plain PyTorch version at the serving path's
-full-width shapes, runs full-width qwen2-0.5b (random weights from a
+holds each kernel against its plain PyTorch version at the full-width
+shapes of its path, runs full-width qwen2-0.5b (random weights from a
 seed) through ``Model`` and a ``ServingEngine`` that serves 8 requests,
-checks that the engine's attention went through the kernels (launch
-counts), and times each kernel beside its plain version, its bound and a
-library call.  Every phase prints one JSON line; the card's name and
-power limit print as ``nvidia-smi`` gives them; the line before the last
-is the ``{"kernels": [...]}`` table and the last line is
-``{"ok": true, "device": {...}}``.  Any failed check exits nonzero.
-``--profile`` adds a torch.profiler window over engine steps.
+then full-width mamba2-2.7b through ``Model.prefill`` (8 prompts of 1024
+tokens) and 32 greedy ``Model.decode_step`` calls, checks that each path
+went through its kernels (launch counts), and times each kernel beside
+its plain version, its bound and a library call.  Every phase prints one
+JSON line; the card's name and power limit print as ``nvidia-smi`` gives
+them; the line before the last is the ``{"kernels": [...]}`` table and
+the last line is ``{"ok": true, "device": {...}}``.  Any failed check
+exits nonzero.
+``--profile`` adds torch.profiler windows over engine steps, one SSM
+prefill and SSM decode steps.
 
 Needs a CUDA device and the repository's ``src/``; imports neither JAX
 nor the JAX package.
@@ -38,6 +41,11 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 N_LAYERS = 24  # qwen2-0.5b
+SSM_LAYERS = 64  # mamba2-2.7b
+# the SSM prefill: 8 prompts of 1024 tokens; the scan runs chunks of 128
+# over mamba2-2.7b's 80 heads of 64 with state 128
+SSM_BATCH, SSM_SEQ, SSM_STEPS = 8, 1024, 32
+SSD_SHAPE = dict(B=SSM_BATCH, S=SSM_SEQ, H=80, P=64, N=128, chunk=128)
 # kernel-vs-plain tolerances: f32 sums in another order over up to ~1k
 # keys; bf16 softmax weights round before (kernel) or after (plain)
 # normalisation, the gap tests/test_kernels.py allows the Pallas bodies
@@ -46,6 +54,11 @@ KERNEL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 # layers: kernel and plain attention round differently at each layer and
 # the differences compound; held to 10% of the largest logit
 LOGIT_REL_TOL = 0.10
+# full-width mamba2 (seeded init) in f32 compute, kernel vs plain scan
+# and prefill+decode vs prefill: the scans agree to ~1e-6, the decode
+# step's recurrence sums in another order than the chunked form; held to
+# 1e-3 of the largest magnitude through 64 layers
+SSM_F32_REL_TOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -535,19 +548,292 @@ def phase_kernel_table(torch, launches, errs):
     return [paged, flash]
 
 
-def phase_profile(torch, model, params, wall_unprofiled: float):
-    """Device time by kernel over one whole engine run (torch.profiler).
-    Only device-side events count (operator events would count their
-    kernels twice); the busy share is given against the profiled wall
-    time and against the unprofiled run's."""
-    from torch.autograd import DeviceType
+# ---------------------------------------------------------------------------
+# the SSM path: mamba2-2.7b prefill (SSD scan kernel) and greedy decode
+# ---------------------------------------------------------------------------
+def ssd_inputs(torch, dtype, B, S, H, P, N, seed=2):
+    """Scan operands as ``mamba_full`` makes them: x, B and C in the
+    activation dtype, dt = softplus(...) and a = -exp(...) in f32."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, S, H, P), generator=g, device=dev) * 0.3
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=dev) - 1.0)
+    a = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.3)
+    b = torch.randn((B, S, 1, N), generator=g, device=dev) * 0.3
+    c = torch.randn((B, S, 1, N), generator=g, device=dev) * 0.3
+    d = torch.randn((H,), generator=g, device=dev)
+    return x.to(dtype), dt, a, b.to(dtype), c.to(dtype), d
+
+
+def phase_ssd_parity(torch):
+    """The SSD kernel against the plain scan, y and the final state, each
+    held to the dtype's tolerance times its largest magnitude: the
+    prefill shape in f32 and bf16, one short chunk (S = 127), and a
+    smoke shape whose head count is not a multiple of 8."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
+
+    full = SSD_SHAPE
+    cases = [dict(full), dict(full, S=127, chunk=127),
+             dict(B=2, S=256, H=6, P=32, N=16, chunk=128)]
+    rows, errs = [], {}
+    for case in cases:
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            chunk = case["chunk"]
+            shape = {k: v for k, v in case.items() if k != "chunk"}
+            x, dt, a, b, c, d = ssd_inputs(torch, dtype, **shape)
+            got = ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=chunk,
+                                        d_skip=d)
+            want = ref.ssd_chunk_scan(x, dt, a, b, c, chunk=chunk, d_skip=d)
+            torch.cuda.synchronize()
+            row = {"kernel": "ssd_scan", "dtype": dname,
+                   "case": " ".join(f"{k}={v}" for k, v in case.items()),
+                   "tol_rel": KERNEL_TOL[dname]}
+            for name, g_, w_ in (("y", got[0], want[0]),
+                                 ("state", got[1], want[1])):
+                check(bool(torch.isfinite(g_).all()), f"ssd {name} not finite")
+                e, scale = max_err(g_, w_), float(w_.float().abs().max())
+                row[f"{name}_max_abs_err"], row[f"{name}_max_abs"] = e, scale
+                check(e <= KERNEL_TOL[dname] * scale,
+                      f"ssd {dname} {case} {name}: err {e} at scale {scale}")
+            rows.append(row)
+            if case == full:
+                errs["ssd_scan", dname] = row["y_max_abs_err"]
+    emit({"phase": "ssd_parity", "ok": True, "cases": rows})
+    return errs
+
+
+def ssm_prompts(vocab: int):
+    import numpy as np
+
+    rs = np.random.RandomState(1)
+    return rs.randint(1, vocab, (SSM_BATCH, SSM_SEQ)).astype(np.int32)
+
+
+def load_decode_cache(torch, model, pcache, batch: int):
+    """The prefill cache (final state, bf16 conv tails) cast into the
+    decode cache's f32 layout."""
+    from repro_torch.configs import ShapeConfig
+
+    cache = model.init_cache(ShapeConfig("serve", "decode", SSM_SEQ, batch))
+    for k, dst in cache["layers"].items():
+        dst.copy_(pcache[k])
+    return cache
+
+
+def rel_err(a, b) -> dict:
+    scale = float(b.float().abs().max())
+    e = max_err(a, b)
+    return {"max_abs_err": e, "max_abs": scale, "rel": e / max(scale, 1e-30)}
+
+
+def phase_ssm_layers(torch, model, params, tokens):
+    """Layer by layer at full width, bf16: at every layer the kernel and
+    the plain scan get the SAME input (the plain path's hidden state), so
+    a difference is that layer's alone.  The block output is held to 4
+    bf16 ulps of its largest magnitude, the layer's final state (f32 in
+    both) to the f32 kernel tolerance of its largest magnitude."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    h = L.embed_tokens(params["embed"], tokens, cfg)
+    worst = {"out": (0.0, 1.0, -1), "state": (0.0, 1.0, -1)}
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["layers"], i)
+        m_in = L.apply_norm(lp["norm"], h, cfg)
+        got, got_c = S.mamba_full(lp["mamba"], m_in, cfg)
+        want, want_c = S.mamba_full(lp["mamba"], m_in, cfg, impl="plain")
+        for name, a, b, tol in (
+                ("out", got, want, None),
+                ("state", got_c["state"], want_c["state"],
+                 KERNEL_TOL["float32"])):
+            e, scale = max_err(a, b), float(b.float().abs().max())
+            limit = 4 * bf16_ulp(scale) if tol is None else tol * scale
+            check(e <= limit, f"layer {i} {name}: err {e} at scale {scale}")
+            if e / scale >= worst[name][0] / worst[name][1]:
+                worst[name] = (e, scale, i)
+        h = h + want
+        del got, got_c, want, want_c
+    torch.cuda.synchronize()
+    emit({"phase": "ssm_layers", "ok": True, "arch": cfg.name,
+          "batch": SSM_BATCH, "seq": SSM_SEQ,
+          "tol": {"out": "4 bf16 ulps of max|out|",
+                  "state": f"{KERNEL_TOL['float32']} of max|state|"},
+          "worst": {k: {"max_abs_err": v[0], "max_abs": v[1], "layer": v[2]}
+                    for k, v in worst.items()}})
+
+
+def _logit_err(a, b) -> dict:
+    out = rel_err(a, b)
+    out["argmax_agree"] = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    return out
+
+
+def _prefill_pair(torch, model, params, tokens):
+    """Prefill logits and every layer's final state, kernel vs plain;
+    also returns the plain logits."""
+    logits_k, cache_k = model.prefill(params, {"tokens": tokens})
+    logits_p, cache_p = model.prefill(params, {"tokens": tokens},
+                                      impl="plain")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits_k).all()), "non-finite prefill logits")
+    states = [rel_err(cache_k["state"][i], cache_p["state"][i])["rel"]
+              for i in range(model.cfg.num_layers)]
+    return _logit_err(logits_k, logits_p), states, logits_p
+
+
+def _teacher_forcing(torch, model, params, tokens, n=127):
+    """Prefill of ``n`` tokens plus one decode step against a prefill of
+    ``n + 1`` tokens, on the last logits."""
+    _, pc = model.prefill(params, {"tokens": tokens[:, :n]})
+    cache = load_decode_cache(torch, model, pc, tokens.shape[0])
+    del pc
+    got, _ = model.decode_step(params, cache, {"tokens": tokens[:, n:n + 1]})
+    want, _ = model.prefill(params, {"tokens": tokens[:, :n + 1]})
+    torch.cuda.synchronize()
+    return _logit_err(got, want)
+
+
+def phase_ssm_model(torch, model, params, model32, params32, tokens):
+    """Full-width prefill through the kernel against the plain scan, and
+    teacher forcing (prefill 127 + one decode step against prefill 128).
+    Held in f32 compute, where both scans are exact to ~1e-6 and what
+    remains is the model's amplification of that; in bf16 compute (the
+    serving dtype) reported: each layer may round y one bf16 ulp apart
+    and 64 layers amplify it (phase ssm_layers holds each layer); the
+    plain bf16 model against the plain f32 model gives the size of bf16's
+    own rounding at this depth, for scale."""
+    logit32, states32, plain32 = _prefill_pair(torch, model32, params32,
+                                               tokens)
+    check(logit32["rel"] <= SSM_F32_REL_TOL, f"f32 logits {logit32}")
+    check(max(states32) <= SSM_F32_REL_TOL,
+          f"f32 state rel {max(states32)}")
+    tf32 = _teacher_forcing(torch, model32, params32, tokens)
+    check(tf32["rel"] <= SSM_F32_REL_TOL, f"f32 teacher forcing {tf32}")
+    logit16, states16, plain16 = _prefill_pair(torch, model, params,
+                                               tokens)
+    bf16_vs_f32 = _logit_err(plain16, plain32)
+    tf16 = _teacher_forcing(torch, model, params, tokens)
+    emit({"phase": "ssm_model", "ok": True, "arch": model.cfg.name,
+          "batch": SSM_BATCH, "seq": SSM_SEQ, "tol_rel_f32": SSM_F32_REL_TOL,
+          "f32": {"prefill_logits": logit32,
+                  "state_rel_worst_layer": max(states32),
+                  "teacher_forcing_127_plus_1": tf32},
+          "bf16_reported": {"prefill_logits": logit16,
+                            "state_rel_by_layer": states16,
+                            "teacher_forcing_127_plus_1": tf16,
+                            "plain_bf16_vs_plain_f32": bf16_vs_f32}})
+
+
+def phase_ssm_generate(torch, model, params, tokens):
+    """The main SSM path with the launch counts set to 0: one prefill of
+    the 8 prompts, the decode cache loaded, 32 greedy decode steps."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
+
+    kernels = {"ssd_scan": ssd_chunk_scan_kernel,
+               "paged_attention": paged_attention_kernel,
+               "flash_attention": flash_attention_kernel}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    logits, pc = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    cache = load_decode_cache(torch, model, pc, SSM_BATCH)
+    del pc
+    nxt = logits.argmax(-1).to(torch.int32)
+    generated, events = [nxt], []
+    t1 = time.perf_counter()
+    for _ in range(SSM_STEPS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        logits, cache = model.decode_step(params, cache,
+                                          {"tokens": nxt[:, None]})
+        nxt = logits.argmax(-1).to(torch.int32)
+        e.record()
+        events.append((s, e))
+        generated.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    launches = {n: k.launches for n, k in kernels.items()}
+    check(launches == {"ssd_scan": SSM_LAYERS, "paged_attention": 0,
+                       "flash_attention": 0},
+          f"launches {launches}: want {SSM_LAYERS} SSD scans per prefill")
+    check(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+    toks = torch.stack(generated, 1)
+    check(toks.shape == (SSM_BATCH, SSM_STEPS + 1), f"tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all()),
+          "token out of vocabulary range")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    emit({"phase": "ssm_generate", "ok": True, "arch": model.cfg.name,
+          "batch": SSM_BATCH, "prompt_tokens": SSM_SEQ,
+          "decode_steps": SSM_STEPS, "launches": launches,
+          "prefill_ms": prefill_ms,
+          "median_decode_step_ms": statistics.median(step_ms),
+          "decode_tokens_per_s": SSM_BATCH * SSM_STEPS / decode_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "first_tokens": toks[:, :4].tolist()})
+    return launches
+
+
+def ssd_table_row(torch, launches, errs):
+    """The SSD kernel at the prefill shape, bf16: kernel and plain time
+    beside the bound."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
+
+    saved = ssd_chunk_scan_kernel.launches
+    sh = SSD_SHAPE
+    B, S, H, P, N, L = (sh[k] for k in ("B", "S", "H", "P", "N", "chunk"))
+    x, dt, a, b, c, d = ssd_inputs(torch, torch.bfloat16, B, S, H, P, N)
+    k_ms = time_ms(lambda: ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=L,
+                                                 d_skip=d), iters=20)
+    p_ms = time_ms(lambda: ref.ssd_chunk_scan(x, dt, a, b, c, chunk=L,
+                                              d_skip=d), iters=5, warmup=2)
+    ssd_chunk_scan_kernel.launches = saved
+    # each input read once, each output written once: x and y (bf16), dt
+    # (f32), B and C (bf16), a and d (f32), the final state (f32)
+    n_bytes = (2 * x.numel() * 2 + dt.numel() * 4 + 2 * b.numel() * 2
+               + 2 * H * 4 + B * H * P * N * 4)
+    # causal pairs j <= i of each chunk; scores C.B once (shared by the
+    # heads), the intra product, the chunk states and the inter term
+    n_chunks, pairs = S // L, L * (L + 1) // 2
+    flops = 2 * B * n_chunks * (pairs * N + H * pairs * P
+                                + 2 * H * L * P * N)
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    return {"name": "ssd_scan", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+            "replaces": "src/repro/kernels/ssd_scan.py:83",
+            "launches": launches["ssd_scan"],
+            "max_abs_err": errs["ssd_scan", "bfloat16"],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None,
+            "library_note": "no single PyTorch call computes the SSD scan",
+            "shape": " ".join(f"{k}={v}" for k, v in sh.items()),
+            "bytes": n_bytes, "flops": flops}
+
+
+def _profiler():
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        eng, _, _, _ = run_engine(torch, model, params)
-        wall = time.perf_counter() - t0
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
+def _device_rows(prof):
+    """(device µs, kernel name, calls) of each device-side event, largest
+    first.  Operator events are left out: they would count their kernels
+    twice."""
+    from torch.autograd import DeviceType
+
     rows = []
     for ev in prof.key_averages():
         if ev.device_type != DeviceType.CUDA:
@@ -557,6 +843,53 @@ def phase_profile(torch, model, params, wall_unprofiled: float):
             dev_us = ev.self_cuda_time_total
         rows.append((dev_us, ev.key, ev.count))
     rows.sort(reverse=True)
+    return rows
+
+
+def phase_ssm_profile(torch, model, params, tokens, steps: int = 8):
+    """Device time by kernel over one SSM prefill and over ``steps``
+    greedy decode steps (torch.profiler), each against its wall time."""
+    out = {}
+    for window in ("prefill", "decode"):
+        if window == "decode":
+            logits, pc = model.prefill(params, {"tokens": tokens})
+            cache = load_decode_cache(torch, model, pc, SSM_BATCH)
+            del pc
+            nxt = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        with _profiler() as prof:
+            t0 = time.perf_counter()
+            if window == "prefill":
+                model.prefill(params, {"tokens": tokens})
+            else:
+                for _ in range(steps):
+                    logits, cache = model.decode_step(
+                        params, cache, {"tokens": nxt[:, None]})
+                    nxt = logits.argmax(-1).to(torch.int32)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        rows = _device_rows(prof)
+        busy_s = sum(r[0] for r in rows) / 1e6
+        out[window] = {
+            "wall_s": wall, "device_busy_s": busy_s,
+            "busy_share_profiled": busy_s / wall,
+            "kernel_launches": sum(r[2] for r in rows),
+            "top": [{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
+                    for us, k, n in rows[:10]]}
+    out["decode"]["steps"] = steps
+    emit({"phase": "ssm_profile", "ok": True, **out})
+
+
+def phase_profile(torch, model, params, wall_unprofiled: float):
+    """Device time by kernel over one whole engine run (torch.profiler).
+    Only device-side events count (operator events would count their
+    kernels twice); the busy share is given against the profiled wall
+    time and against the unprofiled run's."""
+    with _profiler() as prof:
+        t0 = time.perf_counter()
+        eng, _, _, _ = run_engine(torch, model, params)
+        wall = time.perf_counter() - t0
+    rows = _device_rows(prof)
     busy_s = sum(r[0] for r in rows) / 1e6
     emit({"phase": "profile", "ok": True, "wall_s": wall,
           "wall_unprofiled_s": wall_unprofiled, "device_busy_s": busy_s,
@@ -571,7 +904,8 @@ def phase_profile(torch, model, params, wall_unprofiled: float):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler window over an engine run")
+                    help="add torch.profiler windows over an engine run, "
+                         "an SSM prefill and SSM decode steps")
     args = ap.parse_args()
 
     import torch
@@ -624,6 +958,38 @@ def main() -> int:
             if args.profile:
                 phase = "profile"
                 phase_profile(torch, model, params, wall)
+            del model, params
+            torch.cuda.empty_cache()
+
+            phase = "ssd_parity"
+            errs.update(phase_ssd_parity(torch))
+            phase = "ssm_init"
+            t0 = time.perf_counter()
+            cfg = ARCHS["mamba2-2.7b"]
+            model = Model(cfg)
+            model32 = Model(cfg.scaled(dtype="float32"))
+            params32 = model.init_params(seed=0)
+            params = model.compute_params(params32)
+            tokens = torch.from_numpy(
+                ssm_prompts(model.cfg.vocab_size)).to(model.device)
+            torch.cuda.synchronize()
+            emit({"phase": "ssm_init", "ok": True, "arch": model.cfg.name,
+                  "params": model.n_params(),
+                  "seconds": time.perf_counter() - t0,
+                  "mem_gb": torch.cuda.memory_allocated() / 1e9})
+            phase = "ssm_layers"
+            phase_ssm_layers(torch, model, params, tokens)
+            phase = "ssm_model"
+            phase_ssm_model(torch, model, params, model32, params32, tokens)
+            del model32, params32
+            torch.cuda.empty_cache()
+            phase = "ssm_generate"
+            ssm_launches = phase_ssm_generate(torch, model, params, tokens)
+            phase = "ssd_table"
+            table.append(ssd_table_row(torch, ssm_launches, errs))
+            if args.profile:
+                phase = "ssm_profile"
+                phase_ssm_profile(torch, model, params, tokens)
     except Exception as exc:  # report which phase failed, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

@@ -25,7 +25,7 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("paged_attention", "flash_attention")
+SOURCES = ("paged_attention", "flash_attention", "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -44,6 +44,10 @@ _SIGNATURES = {
         "repro_flash_attention": (
             [_INT, _INT, _VP, _VP, _VP, _VP] + [_INT] * 8 + [_F32, _VP],
             _INT),
+    },
+    "ssd_scan": {
+        "repro_ssd_chunk_scan": (
+            [_INT, _INT] + [_VP] * 8 + [_INT] * 6 + [_VP], _INT),
     },
 }
 

@@ -1,4 +1,4 @@
-"""Device dispatch for the attention kernels of the serving path.
+"""Device dispatch for the kernels of the ported paths.
 
 The tensor's device decides: a CUDA tensor goes to the hand-written
 kernel, a CPU tensor to the plain PyTorch version.  There is no
@@ -17,6 +17,8 @@ import torch
 from . import ref
 from .flash_attention import flash_attention_kernel
 from .paged_attention import paged_attention_kernel
+from .ssd_scan import check_args as _ssd_check
+from .ssd_scan import ssd_chunk_scan_kernel
 
 
 def _plain(x: torch.Tensor, impl: Optional[str]) -> bool:
@@ -28,7 +30,7 @@ def _plain(x: torch.Tensor, impl: Optional[str]) -> bool:
         return False
     if x.device.type == "cpu":
         return True
-    raise ValueError(f"no attention path for device {x.device}")
+    raise ValueError(f"no kernel path for device {x.device}")
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
@@ -55,3 +57,22 @@ def paged_attention(q, k_pool, v_pool, block_table, lengths, *,
             "yet (ROADMAP.md, Queue B)")
     return paged_attention_kernel(q, k_pool, v_pool, block_table, lengths,
                                   n_kv=n_kv)
+
+
+def ssd_chunk_scan(x, dt, a, b, c, *, chunk: int = 128, d_skip=None,
+                   init_state=None, impl: Optional[str] = None):
+    """The Mamba2 SSD scan over whole chunks of ``min(chunk, S)`` tokens.
+    Raises, on every device, where the TPU kernel's wrapper asserts: more
+    than one B/C group, an initial state, or ``S`` not a multiple of the
+    chunk."""
+    chunk = _ssd_check(x, b, c, chunk=chunk, init_state=init_state)
+    if _plain(x, impl):
+        return ref.ssd_chunk_scan(x, dt, a, b, c, chunk=chunk,
+                                  d_skip=d_skip)
+    return ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=chunk, d_skip=d_skip)
+
+
+def ssd_decode_step(x, dt, a, b, c, state, *, d_skip=None):
+    """The single-token SSD recurrence.  The plain version on every
+    device, as in the JAX package: it is not a TPU kernel there either."""
+    return ref.ssd_decode_step(x, dt, a, b, c, state, d_skip=d_skip)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the attention kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the ported paths.
 
 Each function computes what its CUDA kernel computes, with tensor ops
 only.  The CPU tests run them (there is no card there), ``ops`` routes
@@ -15,12 +15,15 @@ masked rows and tiles behave identically.
                             with per-sequence lengths
   * ``paged_attention``   — decode attention over a paged KV pool and
                             block tables (gathers the pages first)
+  * ``ssd_chunk_scan``    — the Mamba2 SSD chunked scan (dual form
+                            within a chunk, state recurrence across)
+  * ``ssd_decode_step``   — the single-token SSD recurrence
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -153,3 +156,115 @@ def paged_attention(
     k = k.reshape(B, max_blocks * block, Hkv, D)
     v = v.reshape(B, max_blocks * block, Hkv, D)
     return decode_attention(q, k, v, lengths)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD chunked scan
+# ---------------------------------------------------------------------------
+def ssd_chunk_scan(
+    x: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,   # (B, S, H)   — positive step sizes (post-softplus)
+    a: torch.Tensor,    # (H,)        — negative state decay rates
+    b: torch.Tensor,    # (B, S, G, N)
+    c: torch.Tensor,    # (B, S, G, N)
+    *,
+    chunk: int = 128,
+    d_skip: Optional[torch.Tensor] = None,  # (H,) skip connection
+    init_state: Optional[torch.Tensor] = None,  # (B, H, P, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """State-space duality (Dao & Gu 2024), chunked form.
+
+    Returns (y: (B,S,H,P) in x's dtype, final_state: (B,H,P,N) f32).
+    Heads are grouped over b/c (G groups; H % G == 0).  All arithmetic is
+    f32.  The intra-chunk decay is ``where(tri, exp(diff), 0)``: above the
+    diagonal ``diff > 0`` can overflow, and ``inf * 0`` would be NaN.
+    """
+    Bb, S, H, P = x.shape
+    G, N = b.shape[2], b.shape[3]
+    if H % G:
+        raise ValueError(f"{H} heads do not group over {G} B/C groups")
+    hg = H // G
+    if S % chunk:
+        raise ValueError(f"seq {S} must be a multiple of chunk {chunk}")
+    nc = S // chunk
+
+    xf = x.float().reshape(Bb, nc, chunk, H, P)
+    dtf = dt.float().reshape(Bb, nc, chunk, H)
+    bf = b.float().reshape(Bb, nc, chunk, G, N)
+    cf = c.float().reshape(Bb, nc, chunk, G, N)
+    af = a.float()
+
+    # broadcast groups to heads
+    bh = torch.repeat_interleave(bf, hg, dim=3)  # (B,nc,L,H,N)
+    ch = torch.repeat_interleave(cf, hg, dim=3)
+
+    da = dtf * af[None, None, None, :]          # (B,nc,L,H)  (negative)
+    cum = torch.cumsum(da, dim=2)               # within-chunk cumulative
+    total = cum[:, :, -1, :]                    # (B,nc,H)
+
+    # ---- intra-chunk (quadratic within the chunk) ----
+    # decay[i,j] = exp(cum_i - cum_j) for j <= i
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,L,L,H)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=x.device))
+    decay = torch.where(tri[None, None, :, :, None], torch.exp(diff),
+                        torch.zeros((), device=x.device))
+    scores = torch.einsum("bclhn,bcshn->bclsh", ch, bh)   # C_i . B_j
+    w = scores * decay * dtf[:, :, None, :, :]            # weight x_j by dt_j
+    y_intra = torch.einsum("bclsh,bcshp->bclhp", w, xf)
+
+    # ---- chunk states ----
+    # state_c = sum_j exp(total - cum_j) * dt_j * B_j (x) x_j
+    to_end = torch.exp(total[:, :, None, :] - cum)        # (B,nc,L,H)
+    sw = to_end * dtf                                     # (B,nc,L,H)
+    states = torch.einsum("bclhn,bclh,bclhp->bchpn", bh, sw, xf)
+
+    # ---- inter-chunk recurrence over nc ----
+    s_prev = (init_state.float() if init_state is not None
+              else torch.zeros((Bb, H, P, N), dtype=torch.float32,
+                               device=x.device))
+    entering = []  # the state *entering* each chunk
+    for ic in range(nc):
+        entering.append(s_prev)
+        s_prev = (s_prev * torch.exp(total[:, ic])[:, :, None, None]
+                  + states[:, ic])
+    final_state = s_prev
+    entering = torch.stack(entering, dim=1)  # (B,nc,H,P,N)
+
+    # ---- inter-chunk contribution ----
+    from_start = torch.exp(cum)                           # (B,nc,L,H)
+    y_inter = torch.einsum("bclhn,bclh,bchpn->bclhp", ch, from_start,
+                           entering)
+
+    y = y_intra + y_inter
+    if d_skip is not None:
+        y = y + d_skip.float()[None, None, None, :, None] * xf
+    return y.reshape(Bb, S, H, P).to(x.dtype), final_state
+
+
+def ssd_decode_step(
+    x: torch.Tensor,      # (B, H, P)
+    dt: torch.Tensor,     # (B, H)
+    a: torch.Tensor,      # (H,)
+    b: torch.Tensor,      # (B, G, N)
+    c: torch.Tensor,      # (B, G, N)
+    state: torch.Tensor,  # (B, H, P, N)
+    *,
+    d_skip: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-token SSD recurrence: s' = s*exp(dt*a) + dt * (B (x) x).
+    Returns (y (B,H,P) in x's dtype, new state f32)."""
+    Bb, H, P = x.shape
+    G = b.shape[1]
+    hg = H // G
+    xf = x.float()
+    dtf = dt.float()
+    bh = torch.repeat_interleave(b.float(), hg, dim=1)  # (B,H,N)
+    ch = torch.repeat_interleave(c.float(), hg, dim=1)
+    decay = torch.exp(dtf * a.float()[None, :])  # (B,H)
+    upd = dtf[:, :, None, None] * xf[:, :, :, None] * bh[:, :, None, :]
+    state_new = state.float() * decay[:, :, None, None] + upd
+    y = torch.einsum("bhpn,bhn->bhp", state_new, ch)
+    if d_skip is not None:
+        y = y + d_skip.float()[None, :, None] * xf
+    return y.to(x.dtype), state_new

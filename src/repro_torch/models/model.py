@@ -1,8 +1,10 @@
 """Model facade: one object per architecture config, bound to a device.
 
-Mirrors the JAX package's ``repro/models/model.py`` for the serving
-path: params, the paged decode cache, one prefill chunk and one decode
-step.  The model lives on the card unless the caller asks for the CPU.
+Mirrors the JAX package's ``repro/models/model.py`` for the ported
+paths: params, the decode cache (paged for the dense family, state and
+conv tails for the SSM family), the whole-prompt prefill (SSM), one
+prefill chunk (dense) and one decode step.  The model lives on the card
+unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -15,6 +17,11 @@ from ..configs.base import ModelConfig, ShapeConfig
 from ..device import DeviceLike, resolve_device
 from . import transformer as T
 from .param import count_params, init_params
+
+#: leaves (by the last two keys of their path) that the JAX package reads
+#: in f32 whatever the compute dtype (``repro/models/ssm.py``)
+_F32_LEAVES = {("mamba", "dt_bias"), ("mamba", "a_log"),
+               ("mamba", "d_skip"), ("mamba", "norm")}
 
 
 class Model:
@@ -33,15 +40,19 @@ class Model:
     def compute_params(self, params):
         """The tree the serving steps read: every weight cast ONCE to the
         compute dtype (the layers would cast at each call otherwise —
-        at full width a re-read of ~2 GB of f32 weights per step).  Norm
-        scales stay f32, as the norms read them.  The numbers equal the
-        per-call casts of the JAX package."""
+        at full width a re-read of ~2 GB of f32 weights per step).  The
+        leaves the JAX package reads in f32 stay f32: norm scales, and
+        the Mamba2 ``dt_bias``, ``a_log``, ``d_skip`` and gated-norm
+        weight ``norm``.  The numbers equal the per-call casts of the JAX
+        package."""
         dt = getattr(torch, self.cfg.dtype)
 
         def cast(tree, path=()):
             if isinstance(tree, dict):
                 return {k: cast(v, path + (k,)) for k, v in tree.items()}
-            return tree if "scale" in path else tree.to(dt)
+            if "scale" in path or path[-2:] in _F32_LEAVES:
+                return tree
+            return tree.to(dt)
 
         return cast(params)
 
@@ -56,13 +67,24 @@ class Model:
                              pool_slack=pool_slack)
 
     def init_cache(self, shape: ShapeConfig, pool_slack: int = 0):
-        """Zeroed paged cache on the model's device."""
+        """Zeroed decode cache on the model's device."""
         return init_params(self.cache_specs(shape, pool_slack), 0,
                            self.device)
+
+    def uses_block_table(self) -> bool:
+        layout = T.cache_layout(self.cfg)
+        return layout in ("paged", "hybrid") or self.cfg.is_encdec
 
     # ------------------------------------------------------------------
     # Forward entry points
     # ------------------------------------------------------------------
+    def prefill(self, params, batch, *, impl: Optional[str] = None):
+        """Whole-prompt prefill (SSM family): last-position logits and
+        the per-layer cache (see :func:`repro_torch.models.transformer.
+        forward_prefill`).  ``impl="plain"`` runs the plain SSD scan in
+        place of the kernel (comparison only)."""
+        return T.forward_prefill(params, batch, self.cfg, impl=impl)
+
     def prefill_chunk(self, params, cache, batch, *,
                       n_kv: Optional[int] = None, global_pages: bool = True,
                       impl: Optional[str] = None):
@@ -76,7 +98,8 @@ class Model:
     def decode_step(self, params, cache, batch, *,
                     n_kv: Optional[int] = None, global_pages: bool = True,
                     impl: Optional[str] = None):
-        """One token for every slot; ``n_kv`` bounds the paged sweep."""
+        """One token for every slot; ``n_kv`` bounds the paged sweep
+        (dense).  The SSM family needs only ``batch["tokens"]``."""
         return T.decode_step(params, cache, batch, self.cfg, n_kv=n_kv,
                              global_pages=global_pages, impl=impl)
 

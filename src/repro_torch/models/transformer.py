@@ -1,11 +1,13 @@
-"""Dense decoder-only stack on the paged KV cache (the serving path).
+"""Decoder stacks of the ported paths: the dense model on the paged KV
+cache (the serving path) and the Mamba2 SSM stack.
 
 Mirrors the main-path parts of the JAX package's
-``repro/models/transformer.py``: the param and cache spec trees, one
-chunk of a chunked prefill, and the dense decode step.  Layer params and
-cache pools are stacked over a leading ``layers`` axis, as there; JAX's
-``lax.scan`` over that axis is a Python loop here.  Both steps update the
-cache pools in place and return the same cache dict.
+``repro/models/transformer.py``: the param and cache spec trees, the
+whole-prompt prefill of the SSM family, one chunk of a chunked prefill
+(dense), and the decode step (dense and SSM).  Layer params and caches
+are stacked over a leading ``layers`` axis, as there; JAX's ``lax.scan``
+over that axis is a Python loop here.  The decode and chunk steps update
+the cache in place and return the same cache dict.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from ..configs.base import ModelConfig
 from . import layers as L
+from . import ssm as S
 from .param import ParamSpec
 
 #: KV page size (tokens per page)
@@ -41,15 +44,22 @@ def _decoder_layer_specs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
 
 
 def build_specs(cfg: ModelConfig) -> Dict[str, Any]:
-    if cfg.family != "dense":
+    specs: Dict[str, Any] = {"embed": L.embed_specs(cfg)}
+    if cfg.family == "dense":
+        specs["layers"] = _decoder_layer_specs(cfg, cfg.num_layers)
+    elif cfg.family == "ssm":
+        specs["layers"] = {
+            "norm": {"scale": ParamSpec((cfg.num_layers, cfg.d_model),
+                                        ("layers", "embed"), init="ones")},
+            "mamba": S.mamba_specs(cfg, cfg.num_layers),
+        }
+    else:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet (ROADMAP.md, Queue A)")
-    return {
-        "embed": L.embed_specs(cfg),
-        "layers": _decoder_layer_specs(cfg, cfg.num_layers),
-        "final_norm": {"scale": ParamSpec((cfg.d_model,), ("embed",),
-                                          init="ones")},
+    specs["final_norm"] = {
+        "scale": ParamSpec((cfg.d_model,), ("embed",), init="ones")
     }
+    return specs
 
 
 # ---------------------------------------------------------------------------
@@ -72,19 +82,48 @@ def paged_blocks_sharded_cfg(cfg: ModelConfig) -> bool:
     return hkv % TP_WIDTH != 0
 
 
+def _ssm_cache_specs(cfg: ModelConfig, n_layers: int, batch: int):
+    H, P = cfg.ssm_heads, cfg.ssm_head_dim
+    G, N = cfg.ssm_groups, cfg.ssm_state
+    W = cfg.ssm_conv_width
+    DI = cfg.ssm_inner
+    f32 = torch.float32
+    return {
+        "state": ParamSpec((n_layers, batch, H, P, N),
+                           ("layers", "batch", "ssm_heads", None, None),
+                           dtype=f32, init="zeros"),
+        "conv_x": ParamSpec((n_layers, batch, W - 1, DI),
+                            ("layers", "batch", None, "ssm_inner"),
+                            dtype=f32, init="zeros"),
+        "conv_b": ParamSpec((n_layers, batch, W - 1, G * N),
+                            ("layers", "batch", None, None),
+                            dtype=f32, init="zeros"),
+        "conv_c": ParamSpec((n_layers, batch, W - 1, G * N),
+                            ("layers", "batch", None, None),
+                            dtype=f32, init="zeros"),
+    }
+
+
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
                 pool_slack: int = 0) -> Dict[str, Any]:
-    """ParamSpec tree of the paged decode cache: per-slot pools
-    ``(L, batch, n_pool, BLOCK_SIZE, Hkv, D)`` in the compute dtype.
+    """ParamSpec tree of the decode cache of this architecture.
 
-    ``n_pool`` is ceil(max_seq / block) + 1 + ``pool_slack`` pages, rounded
-    up to a multiple of ``TP_WIDTH`` when the JAX package would stripe
-    pages (and no slack was asked for) — the same rule, so the host pool
-    sized from this dimension matches the JAX engine's page for page.
+    SSM: the f32 state ``(L, batch, H, P, N)`` and the conv tails
+    ``(L, batch, W - 1, C)`` of x, B and C (``max_seq`` plays no part).
+
+    Paged (dense): per-slot pools ``(L, batch, n_pool, BLOCK_SIZE, Hkv,
+    D)`` in the compute dtype.  ``n_pool`` is ceil(max_seq / block) + 1 +
+    ``pool_slack`` pages, rounded up to a multiple of ``TP_WIDTH`` when
+    the JAX package would stripe pages (and no slack was asked for) — the
+    same rule, so the host pool sized from this dimension matches the JAX
+    engine's page for page.
     """
-    if cache_layout(cfg) != "paged":
+    layout = cache_layout(cfg)
+    if layout == "ssm":
+        return {"layers": _ssm_cache_specs(cfg, cfg.num_layers, batch)}
+    if layout != "paged":
         raise NotImplementedError(
-            f"cache layout {cache_layout(cfg)!r} is not ported yet")
+            f"cache layout {layout!r} is not ported yet")
     Hkv = cfg.num_kv_heads or cfg.num_heads
     D = cfg.resolved_head_dim
     dtype = getattr(torch, cfg.dtype)
@@ -105,6 +144,67 @@ def _layer(tree, i: int):
     if isinstance(tree, dict):
         return {k: _layer(v, i) for k, v in tree.items()}
     return tree[i]
+
+
+def _stack(trees):
+    """Per-layer trees -> one tree stacked over a leading layers axis."""
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _copy_into(dst, src) -> None:
+    """Write a tree into a tree of the same layout, in place."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _copy_into(dst[k], src[k])
+    else:
+        dst.copy_(src)
+
+
+# ---------------------------------------------------------------------------
+# SSM stack and whole-prompt prefill
+# ---------------------------------------------------------------------------
+def run_ssm_stack(params, x, cfg: ModelConfig, *, emit_cache: bool = False,
+                  impl: Optional[str] = None):
+    """Full-sequence pass over the stacked Mamba2 layers.  Returns (x,
+    caches stacked over layers, or None)."""
+    caches = []
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        m_in = L.apply_norm(lp["norm"], x, cfg)
+        m, cache = S.mamba_full(lp["mamba"], m_in, cfg, impl=impl)
+        x = x + m
+        if emit_cache:
+            caches.append(cache)
+    return x, (_stack(caches) if emit_cache else None)
+
+
+def forward_prefill(params, batch, cfg: ModelConfig, *,
+                    impl: Optional[str] = None):
+    """Prefill: full-sequence pass emitting last-position logits + the
+    per-layer caches (for the SSM family: final state and conv tails).
+
+    ``batch``: {"tokens": (B, S) int32, "last_index": optional (B,) —
+    the per-sequence logit position; default: position -1}.
+    ``impl="plain"`` runs the plain kernels' versions (comparison only).
+    Whole-prompt prefill of the dense family (the legacy serving mode) is
+    not ported (ROADMAP.md, Queue A): the dense path prefills in chunks.
+    """
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"whole-prompt prefill of family {cfg.family!r} is not ported "
+            "yet (ROADMAP.md, Queue A); the dense path prefills in chunks")
+    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    x, cache = run_ssm_stack(params, x, cfg, emit_cache=True, impl=impl)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    last_index = batch.get("last_index")
+    if last_index is None:
+        x_last = x[:, -1]
+    else:
+        rows = torch.arange(x.shape[0], device=x.device)
+        x_last = x[rows, last_index.to(x.device).long()]
+    return L.unembed(params["embed"], x_last, cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -162,13 +262,27 @@ def prefill_chunk(params, cache, batch, cfg: ModelConfig, *,
 def decode_step(params, cache, batch, cfg: ModelConfig, *,
                 n_kv: Optional[int] = None, global_pages: bool = True,
                 impl: Optional[str] = None):
-    """One token for every sequence in the batch against the paged cache.
+    """One token for every sequence in the batch against the cache.
 
     ``batch``: {"tokens": (B, 1) int32, "lengths": (B,) int32,
                 "block_table": (B, MB) int32 global page ids}
     ``n_kv`` bounds the paged KV sweep.  Returns (logits (B, V), cache),
     the pools updated in place.
+
+    SSM layout: ``batch`` needs only "tokens"; each layer's state and
+    conv tails are replaced in place by the step's new f32 values.
     """
+    if cache_layout(cfg) == "ssm":
+        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            cl = _layer(cache["layers"], i)
+            m_in = L.apply_norm(lp["norm"], x, cfg)
+            m, new_c = S.mamba_decode(lp["mamba"], m_in, cfg, cl)
+            _copy_into(cl, new_c)
+            x = x + m
+        x = L.apply_norm(params["final_norm"], x, cfg)
+        return L.unembed(params["embed"], x[:, 0], cfg), cache
     if not global_pages:
         raise NotImplementedError(
             "only global page ids are ported (ROADMAP.md, Queue B)")

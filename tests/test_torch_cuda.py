@@ -1,5 +1,6 @@
-"""The CUDA kernels against their plain versions on the card, and the
-engine through the kernels against the engine through the plain versions.
+"""The CUDA kernels against their plain versions on the card, the engine
+through the kernels against the engine through the plain versions, and a
+full-width Mamba2 layer with the SSD kernel against the plain scan.
 Marked ``cuda``: each test skips where there is no card.  On a machine
 with one, run ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py`` (the first test builds the kernels with nvcc).
@@ -18,6 +19,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +112,70 @@ def test_engine_kernels_match_plain_tokens(card):
         assert eng.stats()["dispatches_per_step"] == 1
         out[impl] = [r.generated for r in reqs]
     assert out[None] == out["plain"]
+
+
+def _ssd_inputs(card, dtype, B, S, H, P, N, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    x = (torch.randn((B, S, H, P), generator=g, device=card) * 0.3)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, S, H), generator=g, device=card) - 1.0)
+    a = -torch.exp(torch.randn((H,), generator=g, device=card) * 0.3)
+    b = torch.randn((B, S, 1, N), generator=g, device=card) * 0.3
+    c = torch.randn((B, S, 1, N), generator=g, device=card) * 0.3
+    d = torch.randn((H,), generator=g, device=card)
+    return x.to(dtype), dt, a, b.to(dtype), c.to(dtype), d
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S,H,P,N,chunk",
+    [(1, 128, 4, 32, 16, 64), (2, 256, 8, 64, 32, 128),
+     (1, 256, 16, 32, 64, 64), (2, 127, 80, 64, 128, 127),
+     (2, 512, 80, 64, 128, 128), (1, 96, 6, 32, 16, 128)],
+)
+def test_ssd_kernel_matches_plain(card, dtype, B, S, H, P, N, chunk):
+    """y and the final state, held to the tolerance of the dtype times
+    the largest magnitude of each (the state sums up to 128 rows)."""
+    x, dt, a, b, c, d = _ssd_inputs(card, dtype, B, S, H, P, N,
+                                    B * S + H + N)
+    before = ssd_chunk_scan_kernel.launches
+    got_y, got_s = ops.ssd_chunk_scan(x, dt, a, b, c, chunk=chunk, d_skip=d)
+    torch.cuda.synchronize()
+    assert ssd_chunk_scan_kernel.launches == before + 1
+    want_y, want_s = ref.ssd_chunk_scan(x, dt, a, b, c, chunk=min(chunk, S),
+                                        d_skip=d)
+    assert got_y.dtype == dtype and got_s.dtype == torch.float32
+    tol = TOL[dtype]["atol"]
+    for got, want in ((got_y, want_y), (got_s, want_s)):
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * scale, (err, scale)
+
+
+def test_full_width_mamba_layer_kernel_matches_plain(card):
+    """One full-width mamba2-2.7b layer (bf16, seeded init), 2 sequences
+    of 256 tokens: the block output and its cache through the kernel
+    against the plain scan, within 2e-2 of each one's largest magnitude
+    (bf16 activations round the scan's output once either way)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+
+    cfg = ARCHS["mamba2-2.7b"].scaled(num_layers=1)
+    model = Model(cfg, device=card)
+    params = model.compute_params(model.init_params(0))
+    lp = T._layer(params["layers"], 0)["mamba"]
+    g = torch.Generator(device=card).manual_seed(5)
+    xin = torch.randn((2, 256, cfg.d_model), generator=g,
+                      device=card).to(torch.bfloat16)
+    before = ssd_chunk_scan_kernel.launches
+    got, got_c = S.mamba_full(lp, xin, cfg)
+    want, want_c = S.mamba_full(lp, xin, cfg, impl="plain")
+    torch.cuda.synchronize()
+    assert ssd_chunk_scan_kernel.launches == before + 1
+    pairs = [(got, want)] + [(got_c[k], want_c[k]) for k in want_c]
+    for a, b in pairs:
+        assert a.dtype == b.dtype and a.shape == b.shape
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= 2e-2 * scale

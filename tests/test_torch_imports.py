@@ -1,6 +1,6 @@
-"""The PyTorch package stands alone: importing it and running an engine
-step pulls in neither JAX nor the JAX package, and its entry points run
-on the card unless told otherwise."""
+"""The PyTorch package stands alone: importing it, running an engine
+step and an SSM prefill and decode pulls in neither JAX nor the JAX
+package, and its entry points run on the card unless told otherwise."""
 
 import pathlib
 import re
@@ -25,6 +25,18 @@ eng = ServingEngine(Model(smoke_config(ARCHS["qwen2-0.5b"]), device="cpu"),
 eng.submit(list(np.arange(1, 40)), max_new_tokens=2)
 eng.step()
 eng.run_until_done()
+
+import torch
+from repro_torch.configs import ShapeConfig
+
+ssm = Model(smoke_config(ARCHS["mamba2-2.7b"]), device="cpu")
+params = ssm.init_params(0)
+tokens = torch.arange(1, 65, dtype=torch.int32).reshape(2, 32)
+logits, pcache = ssm.prefill(params, {"tokens": tokens})
+cache = ssm.init_cache(ShapeConfig("serve", "decode", 64, 2))
+for k, dst in cache["layers"].items():
+    dst.copy_(pcache[k])
+ssm.decode_step(params, cache, {"tokens": logits.argmax(-1)[:, None]})
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))

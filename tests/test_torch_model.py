@@ -25,12 +25,21 @@ TOL = dict(rtol=1e-4, atol=1e-4)
 SLOTS, MAX_SEQ = 3, 512
 
 
+def _pair(name):
+    jm = JaxModel(jax_smoke(JAX_ARCHS[name]))
+    np_params = jax.tree.map(np.asarray, jm.init_params(0))
+    tm = Model(smoke_config(ARCHS[name]), device="cpu")
+    return jm, np_params, tm
+
+
 @pytest.fixture(scope="module")
 def models():
-    jm = JaxModel(jax_smoke(JAX_ARCHS["qwen2-0.5b"]))
-    np_params = jax.tree.map(np.asarray, jm.init_params(0))
-    tm = Model(smoke_config(ARCHS["qwen2-0.5b"]), device="cpu")
-    return jm, np_params, tm
+    return _pair("qwen2-0.5b")
+
+
+@pytest.fixture(scope="module")
+def ssm_models():
+    return _pair("mamba2-2.7b")
 
 
 def _leaves(tree, prefix=""):
@@ -42,31 +51,37 @@ def _leaves(tree, prefix=""):
     return {prefix: tree}
 
 
-def test_bridge_covers_every_leaf(models):
-    jm, np_params, tm = models
-    bridged = _leaves(params_from_numpy(np_params, "cpu"))
-    src = _leaves(np_params)
-    assert bridged.keys() == src.keys()
-    for path, a in src.items():
-        t = bridged[path]
-        assert tuple(t.shape) == a.shape, path
-        np.testing.assert_array_equal(t.numpy(), a)
-    # the port declares the same tree, leaf for leaf
-    specs = _leaves(tm.param_specs)
-    assert specs.keys() == src.keys()
-    for path, s in specs.items():
-        assert tuple(s.shape) == src[path].shape, path
-    assert tm.n_params() == jm.n_params()
+def test_bridge_covers_every_leaf(models, ssm_models):
+    """qwen2 and mamba2: every leaf bridges unchanged, and the port
+    declares the same tree, leaf for leaf."""
+    for jm, np_params, tm in (models, ssm_models):
+        bridged = _leaves(params_from_numpy(np_params, "cpu"))
+        src = _leaves(np_params)
+        assert bridged.keys() == src.keys()
+        for path, a in src.items():
+            t = bridged[path]
+            assert tuple(t.shape) == a.shape, path
+            np.testing.assert_array_equal(t.numpy(), a)
+        specs = _leaves(tm.param_specs)
+        assert specs.keys() == src.keys()
+        for path, s in specs.items():
+            assert tuple(s.shape) == src[path].shape, path
+        assert tm.n_params() == jm.n_params()
 
 
-def test_cache_specs_match(models):
-    jm, _, tm = models
+def test_cache_specs_match(models, ssm_models):
+    """The paged pools (qwen2) and the state and conv tails (mamba2):
+    the same leaves, shapes and dtypes as the JAX package declares."""
     shape = ShapeConfig("engine", "decode", MAX_SEQ, SLOTS)
-    jc = _leaves(jm.cache_specs(shape))
-    tc = _leaves(tm.cache_specs(shape))
-    assert jc.keys() == tc.keys()
-    for path in jc:
-        assert tuple(tc[path].shape) == tuple(jc[path].shape), path
+    for jm, _, tm in (models, ssm_models):
+        jc = _leaves(jm.cache_specs(shape))
+        tc = _leaves(tm.cache_specs(shape))
+        assert jc.keys() == tc.keys()
+        for path in jc:
+            assert tuple(tc[path].shape) == tuple(jc[path].shape), path
+            assert (str(tc[path].dtype)
+                    == f"torch.{jnp.dtype(jc[path].dtype).name}"), path
+        assert tm.uses_block_table() == jm.uses_block_table()
 
 
 def _random_cache(jm, seed):
@@ -149,8 +164,10 @@ def test_prefill_chunks_and_decode_match(models):
 
 
 def test_compute_params_cast_once():
-    """Full-width compute dtype: weights cast to bf16 once, norm scales
-    kept f32 — the values the JAX layers cast to at each call."""
+    """Full-width compute dtype: weights cast to bf16 once; norm scales
+    and the Mamba2 leaves the JAX package reads in f32 (dt_bias, a_log,
+    d_skip, the gated-norm weight) kept f32 bit for bit — the values the
+    JAX layers cast to at each call."""
     tm = Model(ARCHS["qwen2-0.5b"].scaled(num_layers=1, vocab_size=64),
                device="cpu")
     tree = {"layers": {"attn": {"wq": torch.ones(2, 3) / 3},
@@ -162,6 +179,30 @@ def test_compute_params_cast_once():
         out["layers"]["attn"]["wq"].float().numpy(),
         np.asarray(jnp.asarray(np.ones((2, 3), np.float32) / 3)
                    .astype(jnp.bfloat16).astype(jnp.float32)))
+
+    # mamba2 at full width: random values that bf16 cannot hold exactly
+    sm = Model(ARCHS["mamba2-2.7b"].scaled(num_layers=2, vocab_size=64),
+               device="cpu")
+    rs = np.random.RandomState(0)
+    f32_leaves = ("dt_bias", "a_log", "d_skip", "norm")
+    mamba = {k: rs.standard_normal((2, 8)).astype(np.float32)
+             for k in f32_leaves + ("wz", "conv_x")}
+    for k in f32_leaves:
+        v = mamba[k]
+        assert not np.array_equal(
+            np.asarray(jnp.asarray(v).astype(jnp.bfloat16)
+                       .astype(jnp.float32)), v)
+    out = sm.compute_params(params_from_numpy(
+        {"layers": {"mamba": mamba}}, "cpu"))["layers"]["mamba"]
+    for k in f32_leaves:
+        assert out[k].dtype == torch.float32, k
+        np.testing.assert_array_equal(out[k].numpy(), mamba[k])
+    for k in ("wz", "conv_x"):
+        assert out[k].dtype == torch.bfloat16, k
+        np.testing.assert_array_equal(
+            out[k].float().numpy(),
+            np.asarray(jnp.asarray(mamba[k]).astype(jnp.bfloat16)
+                       .astype(jnp.float32)))
 
 
 def test_model_defaults_to_the_card():
