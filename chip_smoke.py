@@ -5,18 +5,27 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version at the full-width
-shapes of its path, runs full-width qwen2-0.5b (random weights from a
-seed) through ``Model`` and a ``ServingEngine`` that serves 8 requests,
-then full-width mamba2-2.7b through ``Model.prefill`` (8 prompts of 1024
-tokens) and 32 greedy ``Model.decode_step`` calls, checks that each path
-went through its kernels (launch counts), and times each kernel beside
-its plain version, its bound and a library call.  Every phase prints one
-JSON line; the card's name and power limit print as ``nvidia-smi`` gives
-them; the line before the last is the ``{"kernels": [...]}`` table and
-the last line is ``{"ok": true, "device": {...}}``.  Any failed check
-exits nonzero.
-``--profile`` adds torch.profiler windows over engine steps, one SSM
-prefill and SSM decode steps.
+shapes of its path, and drives three paths at published width with
+random weights from a seed:
+
+  * qwen2-0.5b through ``Model`` and a ``ServingEngine`` that serves 8
+    requests (paged decode and flash prefill kernels, global page ids);
+  * mamba2-2.7b through ``Model.prefill`` (8 prompts of 1024 tokens, the
+    SSD scan kernel) and 32 greedy ``Model.decode_step`` calls;
+  * seamless-m4t-medium through ``Model.prefill`` (an encoder over 8 x
+    1024 frame embeddings, a decoder over 128-token prompts: the flash
+    kernel, non-causal and causal) and 32 greedy ``Model.decode_step``
+    calls (per-slot paged self-attention and the contiguous cross-
+    attention decode kernel).
+
+It checks that each path went through its kernels (launch counts), and
+times each kernel beside its plain version, its bound and a library
+call.  Every phase prints one JSON line; the card's name and power limit
+print as ``nvidia-smi`` gives them; the line before the last is the
+``{"kernels": [...]}`` table and the last line is ``{"ok": true,
+"device": {...}}``.  Any failed check exits nonzero.
+``--profile`` adds torch.profiler windows over engine steps, and over a
+prefill and decode steps of the SSM and encoder-decoder models.
 
 Needs a CUDA device and the repository's ``src/``; imports neither JAX
 nor the JAX package.
@@ -59,6 +68,13 @@ LOGIT_REL_TOL = 0.10
 # step's recurrence sums in another order than the chunked form; held to
 # 1e-3 of the largest magnitude through 64 layers
 SSM_F32_REL_TOL = 1e-3
+# seamless-m4t-medium: 8 utterances of 1024 frames (~20 s of audio each)
+# with 128-token decoder prompts, then 32 greedy steps; the decoder's
+# self-attention pool holds 256 positions (3 pages of 128 per slot)
+ED_BATCH, ED_FRAMES, ED_PROMPT, ED_STEPS, ED_MAX_SEQ = 8, 1024, 128, 32, 256
+# full width in f32 compute, kernels vs plain and prefill+decode vs
+# prefill: held to 1e-3 of the largest magnitude through 24 layers
+ED_F32_REL_TOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -119,13 +135,47 @@ def paged_inputs(torch, dtype, lengths, *, n_pool=16, mb=9, H=14, Hkv=2,
     return q, kp, vp, table, lens
 
 
-def flash_inputs(torch, dtype, S_kv, *, S_q=128, H=14, Hkv=2, D=64, seed=1):
+def flash_inputs(torch, dtype, S_kv, *, S_q=128, H=14, Hkv=2, D=64, B=1,
+                 seed=1):
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
-    q = (torch.randn((1, S_q, H, D), generator=g, device=dev) * 0.3)
-    k = (torch.randn((1, S_kv, Hkv, D), generator=g, device=dev) * 0.3)
-    v = (torch.randn((1, S_kv, Hkv, D), generator=g, device=dev) * 0.3)
+    q = (torch.randn((B, S_q, H, D), generator=g, device=dev) * 0.3)
+    k = (torch.randn((B, S_kv, Hkv, D), generator=g, device=dev) * 0.3)
+    v = (torch.randn((B, S_kv, Hkv, D), generator=g, device=dev) * 0.3)
     return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def decode_inputs(torch, dtype, lengths, *, S_max=4096, H=16, Hkv=16, D=64,
+                  seed=3):
+    """Cross-attention decode operands: one query per sequence against a
+    contiguous (B, S_max, Hkv, D) cache, ``lengths`` valid rows each."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    B = len(lengths)
+    q = (torch.randn((B, H, D), generator=g, device=dev) * 0.3).to(dtype)
+    k = (torch.randn((B, S_max, Hkv, D), generator=g, device=dev)
+         * 0.3).to(dtype)
+    v = (torch.randn((B, S_max, Hkv, D), generator=g, device=dev)
+         * 0.3).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    return q, k, v, lens
+
+
+def local_table(torch, B, n_pool, mb, seed=0):
+    """Per-slot page ids: each row a permutation of its own pool's pages,
+    rows different from each other wherever the pool has room for it."""
+    import math
+
+    import numpy as np
+
+    rs = np.random.RandomState(seed)
+    distinct = math.perm(n_pool, mb)
+    rows = []
+    while len(rows) < B:
+        r = tuple(int(p) for p in rs.permutation(n_pool)[:mb])
+        if r not in rows or len(rows) >= distinct:
+            rows.append(r)
+    return torch.tensor(rows, dtype=torch.int32, device="cuda")
 
 
 def max_err(a, b) -> float:
@@ -177,7 +227,8 @@ def phase_parity(torch):
     for dname in ("float32", "bfloat16"):
         dtype = getattr(torch, dname)
         q, kp, vp, table, lens = paged_inputs(torch, dtype, lengths)
-        got = paged_attention_kernel(q, kp, vp, table, lens, n_kv=8)
+        got = paged_attention_kernel(q, kp, vp, table, lens, n_kv=8,
+                                     global_pages=True)
         want = ref.paged_attention(q, kp, vp, table, lens, n_kv=8,
                                    global_pages=True)
         torch.cuda.synchronize()
@@ -222,7 +273,7 @@ def _chunks(torch, model, params, cache, slot, prompt, n_pool, mb, impl):
             {"tokens": toks.to(dev), "start": start, "row": row.to(dev),
              "pages": row[start // 128:start // 128 + 1].to(dev),
              "last_index": len(seg) - 1},
-            n_kv=n_kv, impl=impl)
+            n_kv=n_kv, global_pages=True, impl=impl)
         logits.append(out)
     return logits, row
 
@@ -234,17 +285,30 @@ def conditioned(model, params):
     sqrt(shape[-2]) — the head count for wq/wk/wv, head_dim for wo — so at
     full width attention scores spread ~170 wide: every head is a hard
     argmax that one rounding step can flip, and two correct attention
-    paths part ways within a few layers (phase "layers" shows it)."""
+    paths part ways within a few layers (phase "layers" shows it).
+    Dense: ``layers.attn``; encoder-decoder: ``enc_layers.attn``,
+    ``dec_layers.self_attn`` and ``dec_layers.cross_attn``."""
     import math
 
     cfg = model.cfg
     M, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
-    attn = dict(params["layers"]["attn"])
-    attn["wq"] = attn["wq"] * math.sqrt(H / M)
-    attn["wk"] = attn["wk"] * math.sqrt(Hkv / M)
-    attn["wv"] = attn["wv"] * math.sqrt(Hkv / M)
-    attn["wo"] = attn["wo"] / math.sqrt(H)
-    return dict(params, layers=dict(params["layers"], attn=attn))
+
+    def cond(attn):
+        attn = dict(attn)
+        attn["wq"] = attn["wq"] * math.sqrt(H / M)
+        attn["wk"] = attn["wk"] * math.sqrt(Hkv / M)
+        attn["wv"] = attn["wv"] * math.sqrt(Hkv / M)
+        attn["wo"] = attn["wo"] / math.sqrt(H)
+        return attn
+
+    if cfg.is_encdec:
+        enc, dec = params["enc_layers"], params["dec_layers"]
+        return dict(params,
+                    enc_layers=dict(enc, attn=cond(enc["attn"])),
+                    dec_layers=dict(dec, self_attn=cond(dec["self_attn"]),
+                                    cross_attn=cond(dec["cross_attn"])))
+    return dict(params, layers=dict(params["layers"],
+                                    attn=cond(params["layers"]["attn"])))
 
 
 def bf16_ulp(x: float) -> float:
@@ -290,11 +354,13 @@ def phase_layers(torch, model, params):
                 if kind == "chunk":
                     a, _ = L.attention_chunk(
                         lp["attn"], a_in, cfg, cl, row=row, pages=row[:1],
-                        positions=pos, q_offset=0, n_kv=1, impl=impl)
+                        positions=pos, q_offset=0, n_kv=1,
+                        global_pages=True, impl=impl)
                 else:
                     a, _ = L.attention_decode(
                         lp["attn"], a_in, cfg, cl, lengths,
-                        block_table=table, n_kv=2, impl=impl)
+                        block_table=table, n_kv=2, global_pages=True,
+                        impl=impl)
                 outs.append(a)
             e = max_err(outs[0], outs[1])
             scale = float(outs[1].float().abs().max())
@@ -333,7 +399,8 @@ def model_logits(torch, model, params, impl):
     dec, _ = model.decode_step(
         params, cache,
         {"tokens": tokens.cuda(), "lengths": lengths.cuda(),
-         "block_table": table.cuda()}, n_kv=4, impl=impl)
+         "block_table": table.cuda()}, n_kv=4, global_pages=True,
+        impl=impl)
     torch.cuda.synchronize()
     return out + [dec]
 
@@ -498,7 +565,8 @@ def phase_kernel_table(torch, launches, errs):
     n_kv = 8  # pow2 bucket of ceil(max len / 128), capped at mb = 9
     q, kp, vp, table, lens = paged_inputs(torch, bf, lengths)
     k_ms = time_ms(lambda: paged_attention_kernel(q, kp, vp, table, lens,
-                                                  n_kv=n_kv))
+                                                  n_kv=n_kv,
+                                                  global_pages=True))
     p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens,
                                                n_kv=n_kv,
                                                global_pages=True))
@@ -732,13 +800,15 @@ def phase_ssm_model(torch, model, params, model32, params32, tokens):
 def phase_ssm_generate(torch, model, params, tokens):
     """The main SSM path with the launch counts set to 0: one prefill of
     the 8 prompts, the decode cache loaded, 32 greedy decode steps."""
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.paged_attention import paged_attention_kernel
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
 
     kernels = {"ssd_scan": ssd_chunk_scan_kernel,
                "paged_attention": paged_attention_kernel,
-               "flash_attention": flash_attention_kernel}
+               "flash_attention": flash_attention_kernel,
+               "decode_attention": decode_attention_kernel}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
@@ -766,7 +836,7 @@ def phase_ssm_generate(torch, model, params, tokens):
     decode_s = time.perf_counter() - t1
     launches = {n: k.launches for n, k in kernels.items()}
     check(launches == {"ssd_scan": SSM_LAYERS, "paged_attention": 0,
-                       "flash_attention": 0},
+                       "flash_attention": 0, "decode_attention": 0},
           f"launches {launches}: want {SSM_LAYERS} SSD scans per prefill")
     check(bool(torch.isfinite(logits).all()), "non-finite decode logits")
     toks = torch.stack(generated, 1)
@@ -822,6 +892,470 @@ def ssd_table_row(torch, launches, errs):
             "bytes": n_bytes, "flops": flops}
 
 
+# ---------------------------------------------------------------------------
+# the encoder-decoder path: seamless-m4t-medium prefill and greedy decode
+# ---------------------------------------------------------------------------
+def phase_decode_parity(torch):
+    """The contiguous decode kernel against the plain version: seamless's
+    cross-attention shape (B 8, S_max 4096, 16 heads over 16 kv heads of
+    64) with lengths from 0 (uniform weights over all S_max rows) to
+    S_max, a GQA group of 7 (H 14, Hkv 2), and D 32 and 128."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+
+    lengths = [0, 1, 127, 128, 1000, 1024, 4095, 4096]
+    cases = [dict(H=16, Hkv=16, D=64), dict(H=14, Hkv=2, D=64),
+             dict(H=16, Hkv=16, D=32), dict(H=16, Hkv=16, D=128)]
+    rows, errs = [], {}
+    for case in cases:
+        for dname in ("float32", "bfloat16"):
+            q, k, v, lens = decode_inputs(torch, getattr(torch, dname),
+                                          lengths, **case)
+            got = decode_attention_kernel(q, k, v, lens)
+            want = ref.decode_attention(q, k, v, lens)
+            torch.cuda.synchronize()
+            e = max_err(got, want)
+            rows.append({"kernel": "decode_attention", "dtype": dname,
+                         "case": "B=8 S_max=4096 " + " ".join(
+                             f"{n}={x}" for n, x in case.items()),
+                         "lengths": lengths, "max_abs_err": e,
+                         "tol": KERNEL_TOL[dname]})
+            check(e <= KERNEL_TOL[dname], f"decode {dname} {case} err {e}")
+            if case is cases[0]:
+                errs["decode_attention", dname] = e
+    emit({"phase": "decode_parity", "ok": True, "cases": rows})
+    return errs
+
+
+def phase_per_slot_parity(torch):
+    """The paged kernel with per-slot (local) page ids against the plain
+    version: phase kernel_parity's paged shape with a different
+    permutation of each slot's pages in each row, and seamless's
+    self-attention pool (3 pages of 128 per slot, 16 kv heads of 64)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    cases = [
+        (dict(n_pool=16, mb=9, H=14, Hkv=2, D=64), 8,
+         [1001, 645, 129, 388, 901, 261, 0, 1]),
+        (dict(n_pool=3, mb=3, H=16, Hkv=16, D=64), 3,
+         [160, 129, 145, 1, 0, 128, 256, 300]),
+    ]
+    rows, errs = [], {}
+    for shape, n_kv, lengths in cases:
+        for dname in ("float32", "bfloat16"):
+            q, kp, vp, _, lens = paged_inputs(
+                torch, getattr(torch, dname), lengths, **shape)
+            table = local_table(torch, len(lengths), shape["n_pool"],
+                                shape["mb"])
+            got = paged_attention_kernel(q, kp, vp, table, lens, n_kv=n_kv,
+                                         global_pages=False)
+            want = ref.paged_attention(q, kp, vp, table, lens, n_kv=n_kv,
+                                       global_pages=False)
+            torch.cuda.synchronize()
+            e = max_err(got, want)
+            rows.append({"kernel": "paged_attention (per-slot pages)",
+                         "dtype": dname, "case": "B=8 " + " ".join(
+                             f"{n}={x}" for n, x in shape.items())
+                         + f" n_kv={n_kv}", "lengths": lengths,
+                         "max_abs_err": e, "tol": KERNEL_TOL[dname]})
+            check(e <= KERNEL_TOL[dname], f"per-slot {dname} {shape} err {e}")
+            if shape["n_pool"] == 3:
+                errs["paged_attention_per_slot", dname] = e
+    emit({"phase": "per_slot_parity", "ok": True, "cases": rows})
+    return errs
+
+
+def phase_flash_noncausal_parity(torch):
+    """The flash kernel without the causal mask: the encoder's
+    self-attention (S_q = S_kv = 1024) and the decoder prefill's
+    cross-attention (S_q 128 over S_kv 1024), 16 heads of 64, B 2."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    rows, errs = [], {}
+    for S_q, S_kv in ((1024, 1024), (128, 1024)):
+        for dname in ("float32", "bfloat16"):
+            q, k, v = flash_inputs(torch, getattr(torch, dname), S_kv,
+                                   S_q=S_q, H=16, Hkv=16, D=64, B=2)
+            got = flash_attention_kernel(q, k, v, causal=False)
+            want = ref.flash_attention(q, k, v, causal=False)
+            torch.cuda.synchronize()
+            e = max_err(got, want)
+            rows.append({"kernel": "flash_attention (non-causal)",
+                         "dtype": dname, "case": f"B=2 S_q={S_q} "
+                         f"S_kv={S_kv} H=16 Hkv=16 D=64",
+                         "max_abs_err": e, "tol": KERNEL_TOL[dname]})
+            check(e <= KERNEL_TOL[dname], f"flash non-causal {dname} "
+                                          f"{S_q}x{S_kv} err {e}")
+            if S_q == S_kv:
+                errs["flash_encoder", dname] = e
+    emit({"phase": "flash_noncausal_parity", "ok": True, "cases": rows})
+    return errs
+
+
+def encdec_inputs(torch, model, seed=4):
+    """8 utterances of ED_FRAMES frame embeddings (seeded normal x 0.02,
+    as the JAX package's ``Model.synthetic_batch`` makes them; the audio
+    frontend is a stub in both packages) and ED_PROMPT decoder tokens."""
+    import numpy as np
+
+    cfg = model.cfg
+    rs = np.random.RandomState(seed)
+    enc = (rs.standard_normal((ED_BATCH, ED_FRAMES, cfg.d_model))
+           * 0.02).astype(np.float32)
+    toks = rs.randint(1, cfg.vocab_size, (ED_BATCH, ED_PROMPT))
+    return (torch.from_numpy(enc).to(model.device),
+            torch.from_numpy(toks.astype(np.int32)).to(model.device))
+
+
+def load_encdec_cache(torch, model, pcache, table):
+    """The encoder-decoder's prefill cache in its decode cache: each row's
+    self-attention K/V page by page into the per-slot pages its
+    block-table row names (the last page zero-padded), the encoder
+    output's K/V into the first rows of the (L, B, 4096, Hkv, D) cross
+    cache, and ``enc_len`` set to the encoder length."""
+    from repro_torch.configs import ShapeConfig
+
+    B = table.shape[0]
+    cache = model.init_cache(ShapeConfig("serve", "decode", ED_MAX_SEQ, B))
+    pages = table.tolist()
+    S = pcache["self_k"].shape[2]
+    for j in range(-(-S // 128)):
+        for name, pool in (("self_k", "k_pool"), ("self_v", "v_pool")):
+            seg = pcache[name][:, :, j * 128:(j + 1) * 128]
+            for b in range(B):
+                cache["self"][pool][:, b, pages[b][j], :seg.shape[2]] = \
+                    seg[:, b]
+    n_enc = pcache["cross_k"].shape[2]
+    cache["cross_k"][:, :, :n_enc] = pcache["cross_k"]
+    cache["cross_v"][:, :, :n_enc] = pcache["cross_v"]
+    cache["enc_len"].fill_(n_enc)
+    return cache
+
+
+def phase_encdec_layers(torch, model, params, enc, toks, table):
+    """Layer by layer at full width, bf16: at every layer each attention
+    runs through the kernels and through the plain versions on the SAME
+    input (the plain path's hidden state), so a difference is that
+    layer's alone — the encoder's non-causal self-attention, the decoder
+    prefill's causal self-attention and cross-attention (flash kernel),
+    and one decode step's per-slot paged self-attention and cross-
+    attention over the cross cache (decode kernel).  Held to 4 bf16 ulps
+    of the output's largest magnitude."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    worst = {}
+
+    def hold(kind, i, outs):
+        e = max_err(outs[0], outs[1])
+        scale = float(outs[1].float().abs().max())
+        check(e <= 4 * bf16_ulp(scale),
+              f"{kind} layer {i}: err {e} at scale {scale}")
+        w = worst.get(kind, (0.0, 1.0, -1))
+        if e / scale >= w[0] / w[1]:
+            worst[kind] = (e, scale, i)
+
+    impls = (None, "plain")
+    h = enc.to(getattr(torch, cfg.dtype))
+    for i in range(cfg.encoder_layers):
+        lp = T._layer(params["enc_layers"], i)
+        a_in = L.apply_norm(lp["norm1"], h, cfg)
+        outs = [L.attention_full(lp["attn"], a_in, cfg, causal=False,
+                                 impl=impl)[0] for impl in impls]
+        hold("encoder", i, outs)
+        h = h + outs[1]
+        h = h + L.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], h, cfg),
+                            cfg)
+    enc_out = L.apply_norm(params["enc_norm"], h, cfg)
+    x = L.embed_tokens(params["embed"], toks, cfg)
+    kvs = {"self_k": [], "self_v": [], "cross_k": [], "cross_v": []}
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["dec_layers"], i)
+        a_in = L.apply_norm(lp["norm1"], x, cfg)
+        res = [L.attention_full(lp["self_attn"], a_in, cfg, causal=True,
+                                impl=impl) for impl in impls]
+        hold("decoder_self", i, [r[0] for r in res])
+        x = x + res[1][0]
+        kvs["self_k"].append(res[1][1][0])
+        kvs["self_v"].append(res[1][1][1])
+        x_in = L.apply_norm(lp["norm_x"], x, cfg)
+        res = [L.attention_full(lp["cross_attn"], x_in, cfg, causal=False,
+                                kv_x=enc_out, impl=impl) for impl in impls]
+        hold("decoder_cross", i, [r[0] for r in res])
+        x = x + res[1][0]
+        kvs["cross_k"].append(res[1][1][0])
+        kvs["cross_v"].append(res[1][1][1])
+        x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], x, cfg),
+                            cfg)
+    cache = load_encdec_cache(torch, model,
+                              {k: torch.stack(v) for k, v in kvs.items()},
+                              table)
+    del kvs
+    lengths = torch.full((ED_BATCH,), ED_PROMPT, dtype=torch.int32,
+                         device=model.device)
+    x = L.embed_tokens(params["embed"], toks[:, -1:], cfg)
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["dec_layers"], i)
+        a_in = L.apply_norm(lp["norm1"], x, cfg)
+        # both write the same new K/V row before attending
+        outs = [L.attention_decode(lp["self_attn"], a_in, cfg,
+                                   T._layer(cache["self"], i), lengths,
+                                   block_table=table, impl=impl)[0]
+                for impl in impls]
+        hold("decode_self_paged", i, outs)
+        x = x + outs[1]
+        x_in = L.apply_norm(lp["norm_x"], x, cfg)
+        cross = {"k": cache["cross_k"][i], "v": cache["cross_v"][i],
+                 "len": cache["enc_len"]}
+        outs = [L.attention_decode(lp["cross_attn"], x_in, cfg, cross,
+                                   lengths, cross=True, impl=impl)[0]
+                for impl in impls]
+        hold("decode_cross", i, outs)
+        x = x + outs[1]
+        x = x + L.apply_mlp(lp["mlp"], L.apply_norm(lp["norm2"], x, cfg),
+                            cfg)
+    torch.cuda.synchronize()
+    emit({"phase": "encdec_layers", "ok": True, "arch": cfg.name,
+          "batch": ED_BATCH, "frames": ED_FRAMES, "prompt": ED_PROMPT,
+          "tol": "4 bf16 ulps of max|out|",
+          "worst": {k: {"max_abs_err": v[0], "max_abs": v[1], "layer": v[2]}
+                    for k, v in worst.items()}})
+
+
+def _encdec_prefill_pair(torch, model, params, enc, toks):
+    """Prefill logits and the four caches, kernels vs plain; also returns
+    the plain logits."""
+    batch = {"enc_embeds": enc, "tokens": toks}
+    logits_k, cache_k = model.prefill(params, batch)
+    logits_p, cache_p = model.prefill(params, batch, impl="plain")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits_k).all()), "non-finite prefill logits")
+    caches = {k: rel_err(cache_k[k], cache_p[k]) for k in cache_p}
+    return _logit_err(logits_k, logits_p), caches, logits_p
+
+
+def _encdec_teacher_forcing(torch, model, params, enc, toks, table, n=127):
+    """Prefill of ``n`` decoder tokens plus one decode step of token n
+    against a prefill of ``n + 1`` tokens, on the last logits."""
+    _, pc = model.prefill(params, {"enc_embeds": enc, "tokens": toks[:, :n]})
+    cache = load_encdec_cache(torch, model, pc, table)
+    del pc
+    got, _ = model.decode_step(params, cache, {
+        "tokens": toks[:, n:n + 1], "block_table": table,
+        "lengths": torch.full((toks.shape[0],), n, dtype=torch.int32,
+                              device=toks.device)})
+    want, _ = model.prefill(params, {"enc_embeds": enc,
+                                     "tokens": toks[:, :n + 1]})
+    torch.cuda.synchronize()
+    return _logit_err(got, want)
+
+
+def phase_encdec_model(torch, model, params, model32, params32, enc, toks,
+                       table):
+    """Full-width prefill through the kernels against the plain versions
+    (logits and all four caches), and teacher forcing (prefill 127 + one
+    decode step against prefill 128).  Held in f32 compute; reported in
+    bf16 compute, beside the plain bf16 model against the plain f32
+    model for scale."""
+    logit32, caches32, plain32 = _encdec_prefill_pair(torch, model32,
+                                                      params32, enc, toks)
+    check(logit32["rel"] <= ED_F32_REL_TOL, f"f32 logits {logit32}")
+    for k, e in caches32.items():
+        check(e["rel"] <= ED_F32_REL_TOL, f"f32 cache {k} {e}")
+    tf32 = _encdec_teacher_forcing(torch, model32, params32, enc, toks,
+                                   table)
+    check(tf32["rel"] <= ED_F32_REL_TOL, f"f32 teacher forcing {tf32}")
+    logit16, caches16, plain16 = _encdec_prefill_pair(torch, model, params,
+                                                      enc, toks)
+    bf16_vs_f32 = _logit_err(plain16, plain32)
+    tf16 = _encdec_teacher_forcing(torch, model, params, enc, toks, table)
+    emit({"phase": "encdec_model", "ok": True, "arch": model.cfg.name,
+          "batch": ED_BATCH, "frames": ED_FRAMES, "prompt": ED_PROMPT,
+          "tol_rel_f32": ED_F32_REL_TOL,
+          "f32": {"prefill_logits": logit32, "caches": caches32,
+                  "teacher_forcing_127_plus_1": tf32},
+          "bf16_reported": {"prefill_logits": logit16, "caches": caches16,
+                            "teacher_forcing_127_plus_1": tf16,
+                            "plain_bf16_vs_plain_f32": bf16_vs_f32}})
+
+
+def phase_encdec_generate(torch, model, params, enc, toks, table):
+    """The main encoder-decoder path with the launch counts set to 0: one
+    prefill (encoder over the frames, decoder over the prompts), the
+    decode cache loaded, ED_STEPS greedy decode steps with per-slot page
+    ids (``decode_step``'s default).  The prompts fill exactly one page,
+    so the first step writes the second page."""
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
+
+    kernels = {"flash_attention": flash_attention_kernel,
+               "decode_attention": decode_attention_kernel,
+               "paged_attention": paged_attention_kernel,
+               "ssd_scan": ssd_chunk_scan_kernel}
+    L = model.cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    t0 = time.perf_counter()
+    logits, pc = model.prefill(params, {"enc_embeds": enc, "tokens": toks})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    at_prefill = {n: k.launches for n, k in kernels.items()}
+    check(at_prefill == {"flash_attention": model.cfg.encoder_layers + 2 * L,
+                         "decode_attention": 0, "paged_attention": 0,
+                         "ssd_scan": 0},
+          f"prefill launches {at_prefill}")
+    cache = load_encdec_cache(torch, model, pc, table)
+    del pc
+    lengths = torch.full((ED_BATCH,), ED_PROMPT, dtype=torch.int32,
+                         device=model.device)
+    nxt = logits.argmax(-1).to(torch.int32)
+    generated, events = [nxt], []
+    t1 = time.perf_counter()
+    for _ in range(ED_STEPS):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        logits, cache = model.decode_step(params, cache, {
+            "tokens": nxt[:, None], "lengths": lengths,
+            "block_table": table})
+        nxt = logits.argmax(-1).to(torch.int32)
+        lengths = lengths + 1
+        e.record()
+        events.append((s, e))
+        generated.append(nxt)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = dict(at_prefill, decode_attention=L * ED_STEPS,
+                paged_attention=L * ED_STEPS)
+    check(launches == want, f"launches {launches}, want {want}")
+    check(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+    toks_out = torch.stack(generated, 1)
+    check(toks_out.shape == (ED_BATCH, ED_STEPS + 1),
+          f"tokens {toks_out.shape}")
+    check(bool(((toks_out >= 0) & (toks_out < model.cfg.vocab_size)).all()),
+          "token out of vocabulary range")
+    step_ms = [s.elapsed_time(e) for s, e in events]
+    emit({"phase": "encdec_generate", "ok": True, "arch": model.cfg.name,
+          "batch": ED_BATCH, "frames": ED_FRAMES,
+          "prompt_tokens": ED_PROMPT, "decode_steps": ED_STEPS,
+          "launches": launches, "prefill_ms": prefill_ms,
+          "median_decode_step_ms": statistics.median(step_ms),
+          "decode_tokens_per_s": ED_BATCH * ED_STEPS / decode_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "first_tokens": toks_out[:, :4].tolist()})
+    return launches
+
+
+def encdec_table_rows(torch, launches, errs):
+    """The three kernels of the encoder-decoder path at its shapes, bf16:
+    kernel, plain and library time beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    saved = (decode_attention_kernel.launches,
+             paged_attention_kernel.launches,
+             flash_attention_kernel.launches)
+    bf, elt = torch.bfloat16, 2
+    H, Hkv, D = 16, 16, 64
+    rows = []
+
+    # cross-attention decode: enc_len ED_FRAMES in every row of the
+    # (B, 4096, Hkv, D) cross cache
+    lengths = [ED_FRAMES] * ED_BATCH
+    q, k, v, lens = decode_inputs(torch, bf, lengths)
+    k_ms = time_ms(lambda: decode_attention_kernel(q, k, v, lens))
+    p_ms = time_ms(lambda: ref.decode_attention(q, k, v, lens), iters=20)
+    S_max = k.shape[1]
+    mask = (torch.arange(S_max, device=q.device)[None, :]
+            < lens[:, None])[:, None, None, :]
+    qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    n_rows = sum(lengths)
+    n_bytes = (2 * q.numel() * elt + n_rows * Hkv * D * 2 * elt
+               + lens.numel() * 4)
+    b_ms, b_by = bound_ms(n_bytes, 4 * H * D * n_rows, "bfloat16")
+    rows.append({"name": "decode_attention", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+                 "replaces": "src/repro/kernels/paged_attention.py:74",
+                 "launches": launches["decode_attention"],
+                 "max_abs_err": errs["decode_attention", "bfloat16"],
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": l_ms,
+                 "library_note": "scaled_dot_product_attention, boolean "
+                                 "length mask over S_max, enable_gqa=True "
+                                 "(timed only)",
+                 "shape": f"B={ED_BATCH} S_max={S_max} lengths={ED_FRAMES} "
+                          f"H={H} Hkv={Hkv} D={D}", "bytes": n_bytes})
+
+    # per-slot paged self-attention at the last decode step: 3 pages of
+    # 128 per slot, ED_PROMPT + ED_STEPS positions in every row
+    lengths = [ED_PROMPT + ED_STEPS] * ED_BATCH
+    q, kp, vp, _, lens = paged_inputs(torch, bf, lengths, n_pool=3, mb=3,
+                                      H=H, Hkv=Hkv, D=D)
+    table = local_table(torch, ED_BATCH, 3, 3)
+    k_ms = time_ms(lambda: paged_attention_kernel(q, kp, vp, table, lens))
+    p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens))
+    n_rows = sum(lengths)
+    n_bytes = (2 * q.numel() * elt + n_rows * Hkv * D * 2 * elt
+               + table.numel() * 4 + lens.numel() * 4)
+    b_ms, b_by = bound_ms(n_bytes, 4 * H * D * n_rows, "bfloat16")
+    rows.append({"name": "paged_attention_per_slot", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+                 "replaces": "src/repro/kernels/paged_attention.py:128 "
+                             "(global_pages=False, :171-177)",
+                 "launches": launches["paged_attention"],
+                 "max_abs_err": errs["paged_attention_per_slot", "bfloat16"],
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None,
+                 "library_note": "no single PyTorch call attends over pages "
+                                 "named by a block table",
+                 "shape": f"B={ED_BATCH} n_pool=3 lengths="
+                          f"{ED_PROMPT + ED_STEPS} H={H} Hkv={Hkv} D={D}",
+                 "bytes": n_bytes})
+
+    # the encoder's self-attention: non-causal, ED_FRAMES x ED_FRAMES
+    S = ED_FRAMES
+    q, k, v = flash_inputs(torch, bf, S, S_q=S, H=H, Hkv=Hkv, D=D,
+                           B=ED_BATCH)
+    k_ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=False),
+                   iters=10, warmup=2)
+    p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=False),
+                   iters=10, warmup=2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    l_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
+                   iters=10, warmup=2)
+    n_bytes = 4 * q.numel() * elt
+    flops = 4 * ED_BATCH * H * S * S * D
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    rows.append({"name": "flash_attention_encoder", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:85",
+                 "launches": launches["flash_attention"],
+                 "max_abs_err": errs["flash_encoder", "bfloat16"],
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": l_ms,
+                 "library_note": "scaled_dot_product_attention, no mask "
+                                 "(timed only)",
+                 "shape": f"B={ED_BATCH} S_q=S_kv={S} non-causal H={H} "
+                          f"Hkv={Hkv} D={D}", "flops": flops})
+    (decode_attention_kernel.launches, paged_attention_kernel.launches,
+     flash_attention_kernel.launches) = saved
+    return rows
+
+
 def _profiler():
     from torch.profiler import ProfilerActivity, profile
 
@@ -846,38 +1380,75 @@ def _device_rows(prof):
     return rows
 
 
-def phase_ssm_profile(torch, model, params, tokens, steps: int = 8):
-    """Device time by kernel over one SSM prefill and over ``steps``
-    greedy decode steps (torch.profiler), each against its wall time."""
-    out = {}
-    for window in ("prefill", "decode"):
-        if window == "decode":
-            logits, pc = model.prefill(params, {"tokens": tokens})
-            cache = load_decode_cache(torch, model, pc, SSM_BATCH)
-            del pc
-            nxt = logits.argmax(-1).to(torch.int32)
+def _profile_window(torch, fn) -> dict:
+    """Device time by kernel over one call of ``fn`` (torch.profiler),
+    against the call's wall time."""
+    torch.cuda.synchronize()
+    with _profiler() as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with _profiler() as prof:
-            t0 = time.perf_counter()
-            if window == "prefill":
-                model.prefill(params, {"tokens": tokens})
-            else:
-                for _ in range(steps):
-                    logits, cache = model.decode_step(
-                        params, cache, {"tokens": nxt[:, None]})
-                    nxt = logits.argmax(-1).to(torch.int32)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        rows = _device_rows(prof)
-        busy_s = sum(r[0] for r in rows) / 1e6
-        out[window] = {
-            "wall_s": wall, "device_busy_s": busy_s,
+        wall = time.perf_counter() - t0
+    rows = _device_rows(prof)
+    busy_s = sum(r[0] for r in rows) / 1e6
+    return {"wall_s": wall, "device_busy_s": busy_s,
             "busy_share_profiled": busy_s / wall,
             "kernel_launches": sum(r[2] for r in rows),
             "top": [{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
                     for us, k, n in rows[:10]]}
-    out["decode"]["steps"] = steps
+
+
+def _profile_decode(torch, model, params, logits, cache, batch, steps):
+    """``steps`` greedy decode steps from ``logits`` in one profiled
+    window; ``batch`` holds any inputs besides the tokens (lengths
+    advance by one a step when present)."""
+    state = {"nxt": logits.argmax(-1).to(torch.int32), "cache": cache,
+             "batch": dict(batch)}
+
+    def run():
+        for _ in range(steps):
+            b = dict(state["batch"], tokens=state["nxt"][:, None])
+            out, state["cache"] = model.decode_step(params, state["cache"],
+                                                    b)
+            state["nxt"] = out.argmax(-1).to(torch.int32)
+            if "lengths" in b:
+                state["batch"]["lengths"] = b["lengths"] + 1
+
+    out = _profile_window(torch, run)
+    out["steps"] = steps
+    return out
+
+
+def phase_ssm_profile(torch, model, params, tokens, steps: int = 8):
+    """Device time by kernel over one SSM prefill and over ``steps``
+    greedy decode steps (torch.profiler), each against its wall time."""
+    batch = {"tokens": tokens}
+    out = {"prefill": _profile_window(
+        torch, lambda: model.prefill(params, batch))}
+    logits, pc = model.prefill(params, batch)
+    cache = load_decode_cache(torch, model, pc, SSM_BATCH)
+    del pc
+    out["decode"] = _profile_decode(torch, model, params, logits, cache, {},
+                                    steps)
     emit({"phase": "ssm_profile", "ok": True, **out})
+
+
+def phase_encdec_profile(torch, model, params, enc, toks, table,
+                         steps: int = 8):
+    """Device time by kernel over one encoder-decoder prefill and over
+    ``steps`` greedy decode steps (torch.profiler)."""
+    batch = {"enc_embeds": enc, "tokens": toks}
+    out = {"prefill": _profile_window(
+        torch, lambda: model.prefill(params, batch))}
+    logits, pc = model.prefill(params, batch)
+    cache = load_encdec_cache(torch, model, pc, table)
+    del pc
+    lengths = torch.full((ED_BATCH,), ED_PROMPT, dtype=torch.int32,
+                         device=model.device)
+    out["decode"] = _profile_decode(
+        torch, model, params, logits, cache,
+        {"lengths": lengths, "block_table": table}, steps)
+    emit({"phase": "encdec_profile", "ok": True, **out})
 
 
 def phase_profile(torch, model, params, wall_unprofiled: float):
@@ -905,7 +1476,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler windows over an engine run, "
-                         "an SSM prefill and SSM decode steps")
+                         "and over a prefill and decode steps of the SSM "
+                         "and the encoder-decoder models")
     args = ap.parse_args()
 
     import torch
@@ -932,7 +1504,7 @@ def main() -> int:
         phase_small_reference(torch)
 
         phase = "init"
-        from repro_torch.configs import ARCHS
+        from repro_torch.configs import ARCHS, ShapeConfig
         from repro_torch.models import Model
 
         t0 = time.perf_counter()
@@ -990,6 +1562,49 @@ def main() -> int:
             if args.profile:
                 phase = "ssm_profile"
                 phase_ssm_profile(torch, model, params, tokens)
+            del model, params, tokens
+            torch.cuda.empty_cache()
+
+            phase = "decode_parity"
+            errs.update(phase_decode_parity(torch))
+            phase = "per_slot_parity"
+            errs.update(phase_per_slot_parity(torch))
+            phase = "flash_noncausal_parity"
+            errs.update(phase_flash_noncausal_parity(torch))
+            phase = "encdec_init"
+            t0 = time.perf_counter()
+            cfg = ARCHS["seamless-m4t-medium"]
+            model = Model(cfg)
+            model32 = Model(cfg.scaled(dtype="float32"))
+            params32 = conditioned(model, model.init_params(seed=0))
+            params = model.compute_params(params32)
+            enc, toks = encdec_inputs(torch, model)
+            pool = model.cache_specs(ShapeConfig(
+                "serve", "decode", ED_MAX_SEQ, ED_BATCH))["self"]["k_pool"]
+            ed_table = local_table(torch, ED_BATCH, pool.shape[2],
+                                   -(-ED_MAX_SEQ // 128) + 1)
+            torch.cuda.synchronize()
+            emit({"phase": "encdec_init", "ok": True, "arch": cfg.name,
+                  "params": model.n_params(),
+                  "seconds": time.perf_counter() - t0,
+                  "block_table": ed_table.tolist(),
+                  "mem_gb": torch.cuda.memory_allocated() / 1e9})
+            phase = "encdec_layers"
+            phase_encdec_layers(torch, model, params, enc, toks, ed_table)
+            phase = "encdec_model"
+            phase_encdec_model(torch, model, params, model32, params32, enc,
+                               toks, ed_table)
+            del model32, params32
+            torch.cuda.empty_cache()
+            phase = "encdec_generate"
+            ed_launches = phase_encdec_generate(torch, model, params, enc,
+                                                toks, ed_table)
+            phase = "encdec_table"
+            table += encdec_table_rows(torch, ed_launches, errs)
+            if args.profile:
+                phase = "encdec_profile"
+                phase_encdec_profile(torch, model, params, enc, toks,
+                                     ed_table)
     except Exception as exc:  # report which phase failed, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

@@ -25,7 +25,8 @@ from typing import Dict, Iterable, Tuple
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("paged_attention", "flash_attention", "ssd_scan")
+SOURCES = ("paged_attention", "decode_attention", "flash_attention",
+           "ssd_scan")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -37,8 +38,11 @@ _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "paged_attention": {
         "repro_paged_attention": (
-            [_INT, _INT, _VP, _VP, _VP, _VP, _VP, _VP]
-            + [_INT] * 7 + [_F32, _VP], _INT),
+            [_INT, _INT] + [_VP] * 6 + [_INT] * 9 + [_F32, _VP], _INT),
+    },
+    "decode_attention": {
+        "repro_decode_attention": (
+            [_INT, _INT] + [_VP] * 5 + [_INT] * 6 + [_F32, _VP], _INT),
     },
     "flash_attention": {
         "repro_flash_attention": (

@@ -62,6 +62,132 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// ---------------------------------------------------------------------------
+// Single-token GQA decode attention for one (sequence, kv head): the block
+// body shared by the paged kernel (paged_attention.cu) and the contiguous
+// one (decode_attention.cu), which differ only in where a tile's rows lie.
+//
+// The block streams n_tiles tiles of `block` key/value rows.  Tile ik's
+// rows for this kv head start at element offset tile_off(ik) of k and v,
+// consecutive rows row_stride elements apart.  For each tile it
+//   1. stages the tile's K and V rows in shared memory (f32, rows padded
+//      by one word so per-token reads fall in distinct banks);
+//   2. scores all G query rows of the group against the tile in f32 (G
+//      need not be a power of two: qwen2-0.5b has G = 7);
+//   3. updates the online softmax (m, l) per row with one warp per row
+//      and accumulates p @ V in f32, p rounded to the value dtype first.
+// Positions >= length are masked to kNegInf.  Once a row has seen a real
+// key, every later masked position contributes exp(-1e30 - m) == 0
+// exactly, so callers stop at the last tile holding a valid position; a
+// row with length <= 0 has none and sweeps every tile, as the TPU kernels
+// do (uniform weights over the masked window).  The output is
+// acc / max(l, 1e-30), stored in T.
+// ---------------------------------------------------------------------------
+inline size_t decode_smem_bytes(int G, int D, int block) {
+  return sizeof(float) *
+         (2 * static_cast<size_t>(block) * (D + 1) + 2 * G * D + G * block +
+          3 * G);
+}
+
+template <typename T, typename TileOffset>
+__device__ __forceinline__ void decode_block(
+    const T* __restrict__ q_g,  // the group's G query rows, (G, D)
+    const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ out_g,      // (G, D)
+    int G, int D, int block, int64_t row_stride, int length, int n_tiles,
+    float scale, TileOffset tile_off, float* smem) {
+  const int ld = D + 1;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int n_warps = blockDim.x >> 5;
+
+  float* ks = smem;               // block * ld
+  float* vs = ks + block * ld;    // block * ld
+  float* qs = vs + block * ld;    // G * D
+  float* acc = qs + G * D;        // G * D
+  float* ps = acc + G * D;        // G * block: scores, then weights
+  float* m_s = ps + G * block;    // G
+  float* l_s = m_s + G;           // G
+  float* a_s = l_s + G;           // G
+
+  for (int i = tid; i < G * D; i += blockDim.x) {
+    qs[i] = to_float(q_g[i]);
+    acc[i] = 0.f;
+  }
+  for (int g = tid; g < G; g += blockDim.x) {
+    m_s[g] = kNegInf;
+    l_s[g] = 0.f;
+  }
+  __syncthreads();
+
+  for (int ik = 0; ik < n_tiles; ++ik) {
+    const int64_t off = tile_off(ik);
+    const T* kp = k + off;
+    const T* vp = v + off;
+    for (int i = tid; i < block * D; i += blockDim.x) {
+      const int t = i / D;
+      const int d = i - t * D;
+      ks[t * ld + d] = to_float(kp[t * row_stride + d]);
+      vs[t * ld + d] = to_float(vp[t * row_stride + d]);
+    }
+    __syncthreads();
+
+    // scores: one thread per token, all G rows of the group
+    for (int t = tid; t < block; t += blockDim.x) {
+      const float* kr = ks + t * ld;
+      const bool valid = ik * block + t < length;
+      for (int g = 0; g < G; ++g) {
+        const float* qr = qs + g * D;
+        float s = 0.f;
+        for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
+        ps[g * block + t] = valid ? s * scale : kNegInf;
+      }
+    }
+    __syncthreads();
+
+    // online softmax: one warp per query row
+    for (int g = warp; g < G; g += n_warps) {
+      float* pr = ps + g * block;
+      float mx = kNegInf;
+      for (int t = lane; t < block; t += 32) mx = fmaxf(mx, pr[t]);
+      mx = warp_max(mx);
+      const float m_prev = m_s[g];
+      const float m_new = fmaxf(m_prev, mx);
+      float sum = 0.f;
+      for (int t = lane; t < block; t += 32) {
+        const float p = expf(pr[t] - m_new);
+        sum += p;
+        pr[t] = round_to<T>(p);
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_new);
+        a_s[g] = alpha;
+        l_s[g] = l_s[g] * alpha + sum;
+        m_s[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * alpha + p @ V
+    for (int i = tid; i < G * D; i += blockDim.x) {
+      const int g = i / D;
+      const int d = i - g * D;
+      const float* pr = ps + g * block;
+      float o = 0.f;
+      for (int t = 0; t < block; ++t) o = fmaf(pr[t], vs[t * ld + d], o);
+      acc[i] = acc[i] * a_s[g] + o;
+    }
+    __syncthreads();
+  }
+
+  for (int i = tid; i < G * D; i += blockDim.x) {
+    const int g = i / D;
+    out_g[i] = from_float<T>(acc[i] / fmaxf(l_s[g], 1e-30f));
+  }
+}
+
 }  // namespace repro
 
 extern "C" const char* repro_error_string(int code) {

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from . import ref
+from .decode_attention import decode_attention_kernel
 from .flash_attention import flash_attention_kernel
 from .paged_attention import paged_attention_kernel
 from .ssd_scan import check_args as _ssd_check
@@ -51,12 +52,17 @@ def paged_attention(q, k_pool, v_pool, block_table, lengths, *,
     if _plain(q, impl):
         return ref.paged_attention(q, k_pool, v_pool, block_table, lengths,
                                    n_kv=n_kv, global_pages=global_pages)
-    if not global_pages:
-        raise NotImplementedError(
-            "the per-slot variant of the paged decode kernel is not ported "
-            "yet (ROADMAP.md, Queue B)")
     return paged_attention_kernel(q, k_pool, v_pool, block_table, lengths,
-                                  n_kv=n_kv)
+                                  n_kv=n_kv, global_pages=global_pages)
+
+
+def decode_attention(q, k_cache, v_cache, lengths, *,
+                     impl: Optional[str] = None):
+    """One query token per sequence against a contiguous ``(B, S_max,
+    Hkv, D)`` cache whose first ``lengths[b]`` rows are valid."""
+    if _plain(q, impl):
+        return ref.decode_attention(q, k_cache, v_cache, lengths)
+    return decode_attention_kernel(q, k_cache, v_cache, lengths)
 
 
 def ssd_chunk_scan(x, dt, a, b, c, *, chunk: int = 128, d_skip=None,

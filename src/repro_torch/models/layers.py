@@ -1,10 +1,12 @@
-"""Transformer building blocks of the dense paged-KV serving path.
+"""Transformer building blocks of the ported paths.
 
 Plain functions over parameter dicts, as in the JAX package
-(``repro/models/layers.py``), with the same tree layout.  This is the
-dense subset the serving engine runs: RMS/LayerNorm, RoPE, the QKV
-projection, paged decode attention over global page ids, chunked-prefill
-attention, the SwiGLU MLP and the (tied) embedding.
+(``repro/models/layers.py``), with the same tree layout: RMS/LayerNorm,
+RoPE, the QKV projection, whole-sequence attention (the encoder, the
+decoder's self-attention and cross-attention of the encoder-decoder
+family), single-token decode attention over the paged cache (global or
+per-slot page ids) and over the fixed cross-attention cache,
+chunked-prefill attention, the SwiGLU MLP and the embedding.
 
 Weights are used in the activation dtype; each function casts with
 ``.to(dt)``, which is free when the caller already cast the tree once
@@ -111,28 +113,87 @@ def _project_qkv(p, x: torch.Tensor, cfg: ModelConfig):
     return q, k, v
 
 
+def attention_full(
+    p,
+    x: torch.Tensor,  # (B, S, M)
+    cfg: ModelConfig,
+    *,
+    causal: bool = True,
+    kv_x: Optional[torch.Tensor] = None,  # cross-attention source (B, S_kv, M)
+    impl: Optional[str] = None,
+):
+    """Full-sequence attention: the encoder (``causal=False``), the
+    decoder's causal self-attention, and cross-attention over ``kv_x``.
+    RoPE at positions 0 .. S-1 is applied to q and k unless ``kv_x`` is
+    given, as in the JAX package: cross-attention keys carry no
+    positions.
+
+    Returns ``(out (B, S, M), (k, v))`` so a prefill can fill the cache.
+    """
+    S = x.shape[1]
+    dt = x.dtype
+    src = kv_x if kv_x is not None else x
+    q = _in_proj(x, p["wq"].to(dt))
+    k = _in_proj(src, p["wk"].to(dt))
+    v = _in_proj(src, p["wv"].to(dt))
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    if kv_x is None:
+        pos = torch.arange(S, device=x.device)
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    out = ops.flash_attention(q, k, v, causal=causal,
+                              window=cfg.sliding_window, impl=impl)
+    return _out_proj(out, p["wo"].to(dt)), (k, v)
+
+
 def attention_decode(
     p,
     x: torch.Tensor,  # (B, 1, M) — one new token per sequence
     cfg: ModelConfig,
-    cache: Dict[str, torch.Tensor],  # per-layer pools (no leading L dim)
+    cache: Dict[str, torch.Tensor],  # per-layer slice (no leading L dim)
     lengths: torch.Tensor,  # (B,) int32 tokens already in cache
     *,
-    block_table: torch.Tensor,  # (B, max_blocks) int32 global page ids
+    block_table: Optional[torch.Tensor] = None,  # (B, max_blocks) int32
     n_kv: Optional[int] = None,  # bound on the paged KV sweep
+    global_pages: bool = False,  # table holds slot-flattened global ids
+    cross: bool = False,
     impl: Optional[str] = None,
 ):
-    """Single-token decode against the paged cache, global page ids.
+    """Single-token decode against the paged cache, or cross-attention.
 
-    Table entries are ``slot * N_pool + page`` into the slot-flattened
-    pool, so a row may name pages another slot owns.  The new token's K/V
-    land at ``lengths`` (inactive slots' rows are all zero, so their
-    writes fall on global page 0, slot 0's scratch page, which nothing
-    reads), then the paged kernel attends over ``lengths + 1`` positions.
+    Paged (``block_table`` given): the new token's K/V land at position
+    ``lengths`` of each row, then the paged kernel attends over
+    ``lengths + 1`` positions.  With ``global_pages`` table entries are
+    ``slot * N_pool + page`` into the slot-flattened pool, so a row may
+    name pages another slot owns (inactive slots' rows are all zero, so
+    their writes fall on global page 0, slot 0's scratch page, which
+    nothing reads); otherwise they are page ids inside the row's own pool
+    (an inactive row writes its own scratch page 0).
+
+    Cross-attention (``cross=True``): the query, without RoPE, attends
+    over the fixed cache ``{"k", "v", "len"}`` of the encoder output;
+    nothing is written.
+
     Returns ``(out (B, 1, M), cache)``; the pools are updated in place.
+    The rolling and contiguous layouts of the JAX package are not ported
+    (ROADMAP.md, Queue A).
     """
     B = x.shape[0]
     dt = x.dtype
+    if cross:
+        q = _in_proj(x, p["wq"].to(dt))
+        if "bq" in p:
+            q = q + p["bq"].to(dt)
+        out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
+                                   cache["len"], impl=impl)
+        return _out_proj(out, p["wo"].to(dt))[:, None], cache
+    if block_table is None:
+        raise NotImplementedError(
+            "the rolling and contiguous decode caches are not ported yet "
+            "(ROADMAP.md, Queue A)")
     q, k_new, v_new = _project_qkv(p, x, cfg)
     pos = lengths[:, None]
     q1 = apply_rope(q, pos, cfg.rope_theta)[:, 0]  # (B, H, D)
@@ -142,14 +203,19 @@ def attention_decode(
     kp, vp = cache["k_pool"], cache["v_pool"]
     n_slots, n_pool, block, Hkv, D = kp.shape
     rows = torch.arange(B, device=x.device)
-    page_g = block_table[rows, (lengths // block).long()].long()
+    page = block_table[rows, (lengths // block).long()].long()
     offs = (lengths % block).long()
-    kp.view(n_slots * n_pool, block, Hkv, D).index_put_(
-        (page_g, offs), k1.to(kp.dtype))
-    vp.view(n_slots * n_pool, block, Hkv, D).index_put_(
-        (page_g, offs), v1.to(vp.dtype))
+    if global_pages:
+        kp.view(n_slots * n_pool, block, Hkv, D).index_put_(
+            (page, offs), k1.to(kp.dtype))
+        vp.view(n_slots * n_pool, block, Hkv, D).index_put_(
+            (page, offs), v1.to(vp.dtype))
+    else:
+        kp.index_put_((rows, page, offs), k1.to(kp.dtype))
+        vp.index_put_((rows, page, offs), v1.to(vp.dtype))
     out = ops.paged_attention(q1, kp, vp, block_table, lengths + 1,
-                              n_kv=n_kv, global_pages=True, impl=impl)
+                              n_kv=n_kv, global_pages=global_pages,
+                              impl=impl)
     out = _out_proj(out, p["wo"].to(dt))
     return out[:, None], cache
 
@@ -165,15 +231,19 @@ def attention_chunk(
     positions: torch.Tensor,  # (C,) int32 absolute token positions
     q_offset: int,            # positions[0], as the host knows it
     n_kv: int,                # bound on the prior-KV page sweep
+    slot: Optional[int] = None,  # the admitting slot (per-slot ids only)
+    global_pages: bool = False,  # row/pages hold slot-flattened global ids
     impl: Optional[str] = None,
 ):
-    """Chunked-prefill attention against the paged cache, global ids.
+    """Chunked-prefill attention against the paged cache.
 
     The chunk's K/V are written into its pages FIRST (in place), then
     the queries attend causally (``q_offset`` masking) over the first
     ``n_kv`` pages of the row, gathered into one contiguous K/V — which
     now hold every earlier chunk AND this one.  Padded and unallocated
     positions sit past the causal horizon and mask to exact zeros.
+    With ``global_pages`` ``row`` and ``pages`` hold global ids into the
+    slot-flattened pool; otherwise page ids inside ``slot``'s own pool.
     """
     B, C, M = x.shape
     dt = x.dtype
@@ -183,8 +253,11 @@ def attention_chunk(
     kp, vp = cache["k_pool"], cache["v_pool"]
     n_slots, n_pool, block, Hkv, D = kp.shape
     nc = C // block
-    kfl = kp.view(n_slots * n_pool, block, Hkv, D)
-    vfl = vp.view(n_slots * n_pool, block, Hkv, D)
+    if global_pages:
+        kfl = kp.view(n_slots * n_pool, block, Hkv, D)
+        vfl = vp.view(n_slots * n_pool, block, Hkv, D)
+    else:
+        kfl, vfl = kp[slot], vp[slot]
     idx = pages.long()
     kfl.index_copy_(0, idx, k[0].reshape(nc, block, Hkv, D).to(kfl.dtype))
     vfl.index_copy_(0, idx, v[0].reshape(nc, block, Hkv, D).to(vfl.dtype))

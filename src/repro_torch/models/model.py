@@ -2,9 +2,10 @@
 
 Mirrors the JAX package's ``repro/models/model.py`` for the ported
 paths: params, the decode cache (paged for the dense family, state and
-conv tails for the SSM family), the whole-prompt prefill (SSM), one
-prefill chunk (dense) and one decode step.  The model lives on the card
-unless the caller asks for the CPU.
+conv tails for the SSM family, paged self-attention pools and a fixed
+cross-attention cache for the encoder-decoder), the whole-prompt prefill
+(SSM, encoder-decoder), one prefill chunk (dense) and one decode step.
+The model lives on the card unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -22,6 +23,11 @@ from .param import count_params, init_params
 #: in f32 whatever the compute dtype (``repro/models/ssm.py``)
 _F32_LEAVES = {("mamba", "dt_bias"), ("mamba", "a_log"),
                ("mamba", "d_skip"), ("mamba", "norm")}
+
+#: encoder length of the encoder-decoder's decode cache (audio frames),
+#: as the JAX package fixes it: the cross cache holds this many rows per
+#: sequence and ``cache["enc_len"]`` says how many are valid
+ENCDEC_DECODE_ENC_LEN = 4096
 
 
 class Model:
@@ -63,8 +69,9 @@ class Model:
     # Cache
     # ------------------------------------------------------------------
     def cache_specs(self, shape: ShapeConfig, pool_slack: int = 0):
+        enc_len = ENCDEC_DECODE_ENC_LEN if self.cfg.is_encdec else 0
         return T.cache_specs(self.cfg, shape.global_batch, shape.seq_len,
-                             pool_slack=pool_slack)
+                             enc_len=enc_len, pool_slack=pool_slack)
 
     def init_cache(self, shape: ShapeConfig, pool_slack: int = 0):
         """Zeroed decode cache on the model's device."""
@@ -79,27 +86,34 @@ class Model:
     # Forward entry points
     # ------------------------------------------------------------------
     def prefill(self, params, batch, *, impl: Optional[str] = None):
-        """Whole-prompt prefill (SSM family): last-position logits and
-        the per-layer cache (see :func:`repro_torch.models.transformer.
-        forward_prefill`).  ``impl="plain"`` runs the plain SSD scan in
-        place of the kernel (comparison only)."""
+        """Whole-prompt prefill (SSM and encoder-decoder families):
+        last-position logits and the per-layer cache (see
+        :func:`repro_torch.models.transformer.forward_prefill`).
+        ``impl="plain"`` runs the plain versions in place of the kernels
+        (comparison only)."""
         return T.forward_prefill(params, batch, self.cfg, impl=impl)
 
     def prefill_chunk(self, params, cache, batch, *,
-                      n_kv: Optional[int] = None, global_pages: bool = True,
+                      n_kv: Optional[int] = None, global_pages: bool = False,
                       impl: Optional[str] = None):
         """One chunk of an incremental prefill against the paged cache
         (see :func:`repro_torch.models.transformer.prefill_chunk`).
+        ``global_pages`` switches ``row`` / ``pages`` to slot-flattened
+        global page ids, as the serving engine passes them; the default
+        is the JAX package's (page ids inside the slot's own pool).
         ``impl="plain"`` runs the plain attention in place of the
         kernels (comparison only)."""
         return T.prefill_chunk(params, cache, batch, self.cfg, n_kv=n_kv,
                                global_pages=global_pages, impl=impl)
 
     def decode_step(self, params, cache, batch, *,
-                    n_kv: Optional[int] = None, global_pages: bool = True,
+                    n_kv: Optional[int] = None, global_pages: bool = False,
                     impl: Optional[str] = None):
-        """One token for every slot; ``n_kv`` bounds the paged sweep
-        (dense).  The SSM family needs only ``batch["tokens"]``."""
+        """One token for every slot; ``n_kv`` bounds the paged sweep.
+        ``global_pages`` switches block-table entries to slot-flattened
+        global page ids (the serving engine's mode); the default is the
+        JAX package's, page ids inside each row's own pool.  The SSM
+        family needs only ``batch["tokens"]``."""
         return T.decode_step(params, cache, batch, self.cfg, n_kv=n_kv,
                              global_pages=global_pages, impl=impl)
 

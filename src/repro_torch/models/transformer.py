@@ -1,12 +1,15 @@
-"""Decoder stacks of the ported paths: the dense model on the paged KV
-cache (the serving path) and the Mamba2 SSM stack.
+"""Model stacks of the ported paths: the dense model on the paged KV
+cache (the serving path), the Mamba2 SSM stack, and the encoder-decoder
+(an encoder over frame embeddings, a decoder with self- and
+cross-attention).
 
 Mirrors the main-path parts of the JAX package's
 ``repro/models/transformer.py``: the param and cache spec trees, the
-whole-prompt prefill of the SSM family, one chunk of a chunked prefill
-(dense), and the decode step (dense and SSM).  Layer params and caches
-are stacked over a leading ``layers`` axis, as there; JAX's ``lax.scan``
-over that axis is a Python loop here.  The decode and chunk steps update
+whole-prompt prefill of the SSM and encoder-decoder families, one chunk
+of a chunked prefill (dense), and the decode step (dense, SSM and
+encoder-decoder).  Layer params and caches are stacked over a leading
+``layers`` axis, as there; JAX's ``lax.scan`` over that axis is a Python
+loop here.  The decode and chunk steps update
 the cache in place and return the same cache dict.
 """
 
@@ -52,6 +55,25 @@ def build_specs(cfg: ModelConfig) -> Dict[str, Any]:
             "norm": {"scale": ParamSpec((cfg.num_layers, cfg.d_model),
                                         ("layers", "embed"), init="ones")},
             "mamba": S.mamba_specs(cfg, cfg.num_layers),
+        }
+    elif cfg.family == "encdec":
+        ne, nd = cfg.encoder_layers, cfg.num_layers
+
+        def norm(n):
+            return {"scale": ParamSpec((n, cfg.d_model),
+                                       ("layers", "embed"), init="ones")}
+
+        specs["enc_layers"] = {
+            "norm1": norm(ne), "attn": L.attention_specs(cfg, ne),
+            "norm2": norm(ne), "mlp": L.mlp_specs(cfg, ne),
+        }
+        specs["enc_norm"] = {
+            "scale": ParamSpec((cfg.d_model,), ("embed",), init="ones")
+        }
+        specs["dec_layers"] = {
+            "norm1": norm(nd), "self_attn": L.attention_specs(cfg, nd),
+            "norm_x": norm(nd), "cross_attn": L.attention_specs(cfg, nd),
+            "norm2": norm(nd), "mlp": L.mlp_specs(cfg, nd),
         }
     else:
         raise NotImplementedError(
@@ -104,8 +126,25 @@ def _ssm_cache_specs(cfg: ModelConfig, n_layers: int, batch: int):
     }
 
 
+def _paged_cache_specs(cfg: ModelConfig, n_layers: int, batch: int,
+                       max_seq: int, pool_slack: int):
+    Hkv = cfg.num_kv_heads or cfg.num_heads
+    D = cfg.resolved_head_dim
+    dtype = getattr(torch, cfg.dtype)
+    mb = -(-max_seq // BLOCK_SIZE) + 1 + pool_slack
+    if pool_slack == 0 and paged_blocks_sharded_cfg(cfg):
+        mb = -(-mb // TP_WIDTH) * TP_WIDTH
+    blocks_ax = "blocks" if paged_blocks_sharded_cfg(cfg) else None
+    shape = (n_layers, batch, mb, BLOCK_SIZE, Hkv, D)
+    axes = ("layers", "batch", blocks_ax, None, "kv_heads", None)
+    return {
+        "k_pool": ParamSpec(shape, axes, dtype=dtype, init="zeros"),
+        "v_pool": ParamSpec(shape, axes, dtype=dtype, init="zeros"),
+    }
+
+
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
-                pool_slack: int = 0) -> Dict[str, Any]:
+                enc_len: int = 0, pool_slack: int = 0) -> Dict[str, Any]:
     """ParamSpec tree of the decode cache of this architecture.
 
     SSM: the f32 state ``(L, batch, H, P, N)`` and the conv tails
@@ -117,6 +156,11 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
     the JAX package would stripe pages (and no slack was asked for) — the
     same rule, so the host pool sized from this dimension matches the JAX
     engine's page for page.
+
+    Encoder-decoder: the decoder's paged self-attention pools under
+    ``"self"``, the cross-attention cache ``cross_k`` / ``cross_v``
+    ``(L, batch, enc_len, Hkv, D)`` of the encoder output, and the int32
+    encoder length of each row, ``enc_len``.
     """
     layout = cache_layout(cfg)
     if layout == "ssm":
@@ -124,19 +168,22 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
     if layout != "paged":
         raise NotImplementedError(
             f"cache layout {layout!r} is not ported yet")
-    Hkv = cfg.num_kv_heads or cfg.num_heads
-    D = cfg.resolved_head_dim
-    dtype = getattr(torch, cfg.dtype)
-    mb = -(-max_seq // BLOCK_SIZE) + 1 + pool_slack
-    if pool_slack == 0 and paged_blocks_sharded_cfg(cfg):
-        mb = -(-mb // TP_WIDTH) * TP_WIDTH
-    blocks_ax = "blocks" if paged_blocks_sharded_cfg(cfg) else None
-    shape = (cfg.num_layers, batch, mb, BLOCK_SIZE, Hkv, D)
-    axes = ("layers", "batch", blocks_ax, None, "kv_heads", None)
-    return {"layers": {
-        "k_pool": ParamSpec(shape, axes, dtype=dtype, init="zeros"),
-        "v_pool": ParamSpec(shape, axes, dtype=dtype, init="zeros"),
-    }}
+    if cfg.is_encdec:
+        Hkv = cfg.num_kv_heads or cfg.num_heads
+        D = cfg.resolved_head_dim
+        dtype = getattr(torch, cfg.dtype)
+        cross = ((cfg.num_layers, batch, enc_len, Hkv, D),
+                 ("layers", "batch", "kv_seq", "kv_heads", None))
+        return {
+            "self": _paged_cache_specs(cfg, cfg.num_layers, batch, max_seq,
+                                       pool_slack),
+            "cross_k": ParamSpec(*cross, dtype=dtype, init="zeros"),
+            "cross_v": ParamSpec(*cross, dtype=dtype, init="zeros"),
+            "enc_len": ParamSpec((batch,), ("batch",), dtype=torch.int32,
+                                 init="zeros"),
+        }
+    return {"layers": _paged_cache_specs(cfg, cfg.num_layers, batch,
+                                         max_seq, pool_slack)}
 
 
 def _layer(tree, i: int):
@@ -180,23 +227,79 @@ def run_ssm_stack(params, x, cfg: ModelConfig, *, emit_cache: bool = False,
     return x, (_stack(caches) if emit_cache else None)
 
 
+def run_encoder_stack(params, x, cfg: ModelConfig, *,
+                      impl: Optional[str] = None):
+    """The encoder: non-causal self-attention (with RoPE) and the MLP over
+    the stacked ``enc_layers``."""
+    for i in range(cfg.encoder_layers):
+        lp = _layer(params["enc_layers"], i)
+        a_in = L.apply_norm(lp["norm1"], x, cfg)
+        a, _ = L.attention_full(lp["attn"], a_in, cfg, causal=False,
+                                impl=impl)
+        x = x + a
+        m_in = L.apply_norm(lp["norm2"], x, cfg)
+        x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
+    return x
+
+
+def run_decoder_xattn_stack(params, x, enc_out, cfg: ModelConfig, *,
+                            impl: Optional[str] = None):
+    """The decoder: causal self-attention, cross-attention over
+    ``enc_out`` and the MLP over the stacked ``dec_layers``.  Returns (x,
+    the cache {"self_k", "self_v", "cross_k", "cross_v"} stacked over
+    layers)."""
+    caches = []
+    for i in range(cfg.num_layers):
+        lp = _layer(params["dec_layers"], i)
+        a_in = L.apply_norm(lp["norm1"], x, cfg)
+        a, (sk, sv) = L.attention_full(lp["self_attn"], a_in, cfg,
+                                       causal=True, impl=impl)
+        x = x + a
+        x_in = L.apply_norm(lp["norm_x"], x, cfg)
+        xa, (ck, cv) = L.attention_full(lp["cross_attn"], x_in, cfg,
+                                        causal=False, kv_x=enc_out,
+                                        impl=impl)
+        x = x + xa
+        m_in = L.apply_norm(lp["norm2"], x, cfg)
+        x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
+        caches.append({"self_k": sk, "self_v": sv, "cross_k": ck,
+                       "cross_v": cv})
+    return x, _stack(caches)
+
+
 def forward_prefill(params, batch, cfg: ModelConfig, *,
                     impl: Optional[str] = None):
     """Prefill: full-sequence pass emitting last-position logits + the
-    per-layer caches (for the SSM family: final state and conv tails).
+    per-layer caches.
 
-    ``batch``: {"tokens": (B, S) int32, "last_index": optional (B,) —
-    the per-sequence logit position; default: position -1}.
+    SSM: ``batch`` = {"tokens": (B, S) int32, "last_index": optional (B,)
+    — the per-sequence logit position; default: position -1}; the cache
+    holds each layer's final state and conv tails.
+
+    Encoder-decoder: ``batch`` also holds "enc_embeds" (B, S_enc, M), the
+    frame embeddings of the audio frontend (a stub in both packages); the
+    encoder runs over them, then the decoder over "tokens".  The cache is
+    {"self_k", "self_v": (L, B, S, Hkv, D), "cross_k", "cross_v": (L, B,
+    S_enc, Hkv, D)}.
+
     ``impl="plain"`` runs the plain kernels' versions (comparison only).
     Whole-prompt prefill of the dense family (the legacy serving mode) is
     not ported (ROADMAP.md, Queue A): the dense path prefills in chunks.
     """
-    if cfg.family != "ssm":
+    if cfg.is_encdec:
+        enc = batch["enc_embeds"].to(getattr(torch, cfg.dtype))
+        enc_out = run_encoder_stack(params, enc, cfg, impl=impl)
+        enc_out = L.apply_norm(params["enc_norm"], enc_out, cfg)
+        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        x, cache = run_decoder_xattn_stack(params, x, enc_out, cfg,
+                                           impl=impl)
+    elif cfg.family == "ssm":
+        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        x, cache = run_ssm_stack(params, x, cfg, emit_cache=True, impl=impl)
+    else:
         raise NotImplementedError(
             f"whole-prompt prefill of family {cfg.family!r} is not ported "
             "yet (ROADMAP.md, Queue A); the dense path prefills in chunks")
-    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
-    x, cache = run_ssm_stack(params, x, cfg, emit_cache=True, impl=impl)
     x = L.apply_norm(params["final_norm"], x, cfg)
     last_index = batch.get("last_index")
     if last_index is None:
@@ -211,7 +314,7 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
 # Chunked prefill
 # ---------------------------------------------------------------------------
 def prefill_chunk(params, cache, batch, cfg: ModelConfig, *,
-                  n_kv: Optional[int] = None, global_pages: bool = True,
+                  n_kv: Optional[int] = None, global_pages: bool = False,
                   impl: Optional[str] = None):
     """One chunk of an incremental (chunked) prefill.
 
@@ -221,17 +324,18 @@ def prefill_chunk(params, cache, batch, cfg: ModelConfig, *,
     page 0) and attends the chunk's queries causally over the first
     ``n_kv`` pages of ``row`` (:func:`layers.attention_chunk`).
 
-    ``batch``: {"tokens": (1, C) int32, "start": int, "row": (mb,) int32
-                block-table row (global ids), "pages": (C // BLOCK_SIZE,)
-                int32 global ids, "last_index": int — position of the
-                final prompt token WITHIN the chunk}
-    ``start`` and ``last_index`` are host integers: the host chose them,
+    ``batch``: {"tokens": (1, C) int32, "start": int, "slot": int — the
+                admitting slot, "row": (mb,) int32 block-table row,
+                "pages": (C // BLOCK_SIZE,) int32, "last_index": int —
+                position of the final prompt token WITHIN the chunk}
+    ``row`` and ``pages`` hold page ids inside ``slot``'s own pool, or,
+    with ``global_pages`` (the serving engine's mode), global ids into
+    the slot-flattened pool; "slot" is then not read.  ``start``,
+    ``slot`` and ``last_index`` are host integers: the host chose them,
     so the chunk lane never reads the device.  Returns (logits (1, V) at
     ``last_index``, cache), the pools updated in place.
     """
-    if not global_pages:
-        raise NotImplementedError(
-            "only global page ids are ported (ROADMAP.md, Queue B)")
+    slot = None if global_pages else int(batch["slot"])
     tokens = batch["tokens"]
     C = tokens.shape[1]
     row, pages = batch["row"], batch["pages"]
@@ -247,7 +351,8 @@ def prefill_chunk(params, cache, batch, cfg: ModelConfig, *,
         a_in = L.apply_norm(lp["norm1"], x, cfg)
         a, _ = L.attention_chunk(lp["attn"], a_in, cfg, cl, row=row,
                                  pages=pages, positions=positions,
-                                 q_offset=start, n_kv=n_kv, impl=impl)
+                                 q_offset=start, n_kv=n_kv, slot=slot,
+                                 global_pages=global_pages, impl=impl)
         x = x + a
         m_in = L.apply_norm(lp["norm2"], x, cfg)
         x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
@@ -260,17 +365,25 @@ def prefill_chunk(params, cache, batch, cfg: ModelConfig, *,
 # Decode step
 # ---------------------------------------------------------------------------
 def decode_step(params, cache, batch, cfg: ModelConfig, *,
-                n_kv: Optional[int] = None, global_pages: bool = True,
+                n_kv: Optional[int] = None, global_pages: bool = False,
                 impl: Optional[str] = None):
     """One token for every sequence in the batch against the cache.
 
     ``batch``: {"tokens": (B, 1) int32, "lengths": (B,) int32,
-                "block_table": (B, MB) int32 global page ids}
-    ``n_kv`` bounds the paged KV sweep.  Returns (logits (B, V), cache),
-    the pools updated in place.
+                "block_table": (B, MB) int32 page ids}
+    ``n_kv`` bounds the paged KV sweep.  ``global_pages``: block-table
+    entries are slot-flattened global page ids (the serving engine's
+    mode); by default they are page ids inside each row's own pool, as in
+    the JAX package.  Returns (logits (B, V), cache), the pools updated
+    in place.
 
     SSM layout: ``batch`` needs only "tokens"; each layer's state and
     conv tails are replaced in place by the step's new f32 values.
+
+    Encoder-decoder: each decoder layer writes the token's K/V into its
+    paged self-attention pool and attends over it (the paged kernel),
+    then cross-attends over the fixed cross cache of the encoder output,
+    masked by ``cache["enc_len"]`` (the decode kernel).
     """
     if cache_layout(cfg) == "ssm":
         x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
@@ -283,21 +396,36 @@ def decode_step(params, cache, batch, cfg: ModelConfig, *,
             x = x + m
         x = L.apply_norm(params["final_norm"], x, cfg)
         return L.unembed(params["embed"], x[:, 0], cfg), cache
-    if not global_pages:
-        raise NotImplementedError(
-            "only global page ids are ported (ROADMAP.md, Queue B)")
     lengths = batch["lengths"]
     block_table = batch["block_table"]
+    paged = dict(block_table=block_table, n_kv=n_kv,
+                 global_pages=global_pages, impl=impl)
     x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
-    for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        cl = _layer(cache["layers"], i)
-        a_in = L.apply_norm(lp["norm1"], x, cfg)
-        a, _ = L.attention_decode(lp["attn"], a_in, cfg, cl, lengths,
-                                  block_table=block_table, n_kv=n_kv,
-                                  impl=impl)
-        x = x + a
-        m_in = L.apply_norm(lp["norm2"], x, cfg)
-        x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
+    if cfg.is_encdec:
+        for i in range(cfg.num_layers):
+            lp = _layer(params["dec_layers"], i)
+            a_in = L.apply_norm(lp["norm1"], x, cfg)
+            a, _ = L.attention_decode(lp["self_attn"], a_in, cfg,
+                                      _layer(cache["self"], i), lengths,
+                                      **paged)
+            x = x + a
+            x_in = L.apply_norm(lp["norm_x"], x, cfg)
+            xa, _ = L.attention_decode(
+                lp["cross_attn"], x_in, cfg,
+                {"k": cache["cross_k"][i], "v": cache["cross_v"][i],
+                 "len": cache["enc_len"]}, lengths, cross=True, impl=impl)
+            x = x + xa
+            m_in = L.apply_norm(lp["norm2"], x, cfg)
+            x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
+    else:
+        for i in range(cfg.num_layers):
+            lp = _layer(params["layers"], i)
+            cl = _layer(cache["layers"], i)
+            a_in = L.apply_norm(lp["norm1"], x, cfg)
+            a, _ = L.attention_decode(lp["attn"], a_in, cfg, cl, lengths,
+                                      **paged)
+            x = x + a
+            m_in = L.apply_norm(lp["norm2"], x, cfg)
+            x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.unembed(params["embed"], x[:, 0], cfg), cache

@@ -1,6 +1,8 @@
 """The CUDA kernels against their plain versions on the card, the engine
-through the kernels against the engine through the plain versions, and a
-full-width Mamba2 layer with the SSD kernel against the plain scan.
+through the kernels against the engine through the plain versions, a
+full-width Mamba2 layer with the SSD kernel against the plain scan, and
+a full-width seamless-m4t-medium decoder layer through the flash, paged
+(per-slot) and contiguous decode kernels against the plain versions.
 Marked ``cuda``: each test skips where there is no card.  On a machine
 with one, run ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py`` (the first test builds the kernels with nvcc).
@@ -17,9 +19,13 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention_kernel
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
+
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
 
@@ -89,6 +95,137 @@ def test_flash_kernel_matches_plain(card, dtype, S_q, S_kv, H, Hkv, D,
     assert flash_attention_kernel.launches == before + 1
     want = ref.flash_attention(q, k, v, causal=True, q_offset=q_offset)
     _close(got, want, dtype)
+
+
+DECODE_LENGTHS = [0, 1, 127, 128, 1000, 1024, 4095, 4096]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,D", [(16, 16, 64), (14, 2, 64),
+                                     (16, 16, 32), (16, 16, 128)])
+def test_decode_kernel_matches_plain(card, dtype, H, Hkv, D):
+    """The contiguous decode kernel at seamless's cross cache (B 8, S_max
+    4096), lengths from 0 (uniform weights over all rows) to S_max."""
+    g = torch.Generator(device=card).manual_seed(H + Hkv + D)
+    B, S_max = len(DECODE_LENGTHS), 4096
+    q = torch.randn((B, H, D), generator=g, device=card).to(dtype) * 0.3
+    k = torch.randn((B, S_max, Hkv, D), generator=g,
+                    device=card).to(dtype) * 0.3
+    v = torch.randn((B, S_max, Hkv, D), generator=g,
+                    device=card).to(dtype) * 0.3
+    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=card)
+    before = decode_attention_kernel.launches
+    got = ops.decode_attention(q, k, v, lengths)
+    torch.cuda.synchronize()
+    assert decode_attention_kernel.launches == before + 1
+    _close(got, ref.decode_attention(q, k, v, lengths), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,n_pool,mb,H,Hkv,D,n_kv",
+                         [(8, 16, 9, 14, 2, 64, 8), (8, 3, 3, 16, 16, 64, 3)])
+def test_per_slot_paged_kernel_matches_plain(card, dtype, B, n_pool, mb, H,
+                                             Hkv, D, n_kv):
+    """Per-slot page ids, each row its own permutation of its pool's
+    pages: reading another slot's pool would show."""
+    g = torch.Generator(device=card).manual_seed(B * H + D + n_pool)
+    q = torch.randn((B, H, D), generator=g, device=card).to(dtype) * 0.3
+    kp = torch.randn((B, n_pool, 128, Hkv, D), generator=g,
+                     device=card).to(dtype) * 0.3
+    vp = torch.randn((B, n_pool, 128, Hkv, D), generator=g,
+                     device=card).to(dtype) * 0.3
+    rs = np.random.RandomState(n_pool)
+    table = torch.tensor(np.stack([rs.permutation(n_pool)[:mb]
+                                   for _ in range(B)]), dtype=torch.int32,
+                         device=card)
+    lengths = torch.randint(1, n_kv * 128, (B,), generator=g, device=card,
+                            dtype=torch.int32)
+    lengths[-1] = 0
+    before = paged_attention_kernel.launches
+    got = ops.paged_attention(q, kp, vp, table, lengths, n_kv=n_kv)
+    torch.cuda.synchronize()
+    assert paged_attention_kernel.launches == before + 1
+    _close(got, ref.paged_attention(q, kp, vp, table, lengths, n_kv=n_kv),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("S_q,S_kv", [(1024, 1024), (128, 1024), (20, 300)])
+def test_noncausal_flash_kernel_matches_plain(card, dtype, S_q, S_kv):
+    """The encoder's self-attention, the decoder prefill's cross-
+    attention, and a query tile shorter than the kernel's 32 rows over a
+    ragged key count."""
+    g = torch.Generator(device=card).manual_seed(S_q + S_kv)
+    q = torch.randn((2, S_q, 16, 64), generator=g, device=card) * 0.3
+    k = torch.randn((2, S_kv, 16, 64), generator=g, device=card) * 0.3
+    v = torch.randn((2, S_kv, 16, 64), generator=g, device=card) * 0.3
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = flash_attention_kernel.launches
+    got = ops.flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    _close(got, ref.flash_attention(q, k, v, causal=False), dtype)
+
+
+def test_full_width_seamless_decoder_layer_kernels_match_plain(card):
+    """One full-width seamless-m4t-medium decoder layer (bf16, seeded
+    init), 2 sequences: the prefill's causal self-attention and cross-
+    attention over 256 encoder frames (flash kernel), then one decode
+    step's per-slot paged self-attention and cross-attention over the
+    (2, 4096, 16, 64) cross cache (decode kernel), each against the plain
+    version on the same input, within 2e-2 of the largest magnitude."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+    from repro_torch.models.param import init_params
+
+    cfg = ARCHS["seamless-m4t-medium"].scaled(num_layers=1,
+                                              encoder_layers=1)
+    bf = torch.bfloat16
+    lp = T._layer(init_params(T.build_specs(cfg)["dec_layers"], 0, card), 0)
+    lp = {k: {n: t.to(bf) for n, t in v.items()} for k, v in lp.items()}
+    g = torch.Generator(device=card).manual_seed(9)
+    x = torch.randn((2, 128, cfg.d_model), generator=g, device=card).to(bf)
+    enc_out = torch.randn((2, 256, cfg.d_model), generator=g,
+                          device=card).to(bf)
+    counts = (flash_attention_kernel.launches, paged_attention_kernel.launches,
+              decode_attention_kernel.launches)
+    outs = {}
+    for impl in (None, "plain"):
+        a, (sk, sv) = L.attention_full(lp["self_attn"], x, cfg, causal=True,
+                                       impl=impl)
+        xa, (ck, cv) = L.attention_full(lp["cross_attn"], x, cfg,
+                                        causal=False, kv_x=enc_out, impl=impl)
+        # the decode cache: the prompt on page 2 of each slot, the encoder
+        # output in the first 256 rows of the cross cache
+        pool = torch.zeros((2, 3, 128, 16, 64), dtype=bf, device=card)
+        vpool = torch.zeros_like(pool)
+        pool[:, 2], vpool[:, 2] = sk, sv
+        cross_k = torch.zeros((2, 4096, 16, 64), dtype=bf, device=card)
+        cross_v = torch.zeros_like(cross_k)
+        cross_k[:, :256], cross_v[:, :256] = ck, cv
+        table = torch.tensor([[2, 0, 1], [2, 1, 0]], dtype=torch.int32,
+                             device=card)
+        lengths = torch.full((2,), 128, dtype=torch.int32, device=card)
+        x1 = x[:, -1:]
+        d, _ = L.attention_decode(lp["self_attn"], x1, cfg,
+                                  {"k_pool": pool, "v_pool": vpool}, lengths,
+                                  block_table=table, impl=impl)
+        dx, _ = L.attention_decode(
+            lp["cross_attn"], x1, cfg,
+            {"k": cross_k, "v": cross_v,
+             "len": torch.full((2,), 256, dtype=torch.int32, device=card)},
+            lengths, cross=True, impl=impl)
+        outs[impl] = (a, xa, d, dx)
+    torch.cuda.synchronize()
+    assert (flash_attention_kernel.launches, paged_attention_kernel.launches,
+            decode_attention_kernel.launches) == (counts[0] + 2,
+                                                  counts[1] + 1,
+                                                  counts[2] + 1)
+    for got, want in zip(outs[None], outs["plain"]):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
 
 
 def test_engine_kernels_match_plain_tokens(card):

@@ -7,6 +7,7 @@ through the prefix cache (page copy + teacher forcing)."""
 import jax
 import numpy as np
 import pytest
+import torch
 
 from repro.configs import ARCHS as JAX_ARCHS
 from repro.configs import smoke_config as jax_smoke
@@ -15,6 +16,9 @@ from repro.serving import ServingEngine as JaxEngine
 from repro_torch.configs import ARCHS, smoke_config
 from repro_torch.models import Model, params_from_numpy
 from repro_torch.serving import ServingEngine
+
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 POLICIES = ("stamp-it", "epoch")
 ENGINE = dict(max_slots=2, max_seq=512, prefix_cache_entries=8)

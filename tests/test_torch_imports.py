@@ -1,6 +1,7 @@
 """The PyTorch package stands alone: importing it, running an engine
-step and an SSM prefill and decode pulls in neither JAX nor the JAX
-package, and its entry points run on the card unless told otherwise."""
+step, an SSM prefill and decode and an encoder-decoder prefill and
+decode pulls in neither JAX nor the JAX package, and its entry points
+run on the card unless told otherwise."""
 
 import pathlib
 import re
@@ -9,6 +10,9 @@ import sys
 
 import pytest
 import torch
+
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -37,6 +41,22 @@ cache = ssm.init_cache(ShapeConfig("serve", "decode", 64, 2))
 for k, dst in cache["layers"].items():
     dst.copy_(pcache[k])
 ssm.decode_step(params, cache, {"tokens": logits.argmax(-1)[:, None]})
+
+ed = Model(smoke_config(ARCHS["seamless-m4t-medium"]), device="cpu")
+params = ed.init_params(0)
+logits, pcache = ed.prefill(params, {
+    "enc_embeds": torch.zeros((1, 16, 128)),
+    "tokens": torch.arange(1, 9, dtype=torch.int32)[None]})
+cache = ed.init_cache(ShapeConfig("serve", "decode", 64, 1))
+cache["self"]["k_pool"][:, 0, 1, :8] = pcache["self_k"][:, 0]
+cache["self"]["v_pool"][:, 0, 1, :8] = pcache["self_v"][:, 0]
+cache["cross_k"][:, :, :16] = pcache["cross_k"]
+cache["cross_v"][:, :, :16] = pcache["cross_v"]
+cache["enc_len"][:] = 16
+ed.decode_step(params, cache, {
+    "tokens": logits.argmax(-1).to(torch.int32)[:, None],
+    "lengths": torch.full((1,), 8, dtype=torch.int32),
+    "block_table": torch.ones((1, 2), dtype=torch.int32)})
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -49,6 +69,7 @@ def test_port_imports_no_jax_and_no_jax_package():
         [sys.executable, "-c", _CHILD], cwd=ROOT, capture_output=True,
         text=True, timeout=300,
         env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1",
              "JAX_PLATFORMS": "cpu"},
     )
     assert out.returncode == 0, out.stderr

@@ -22,6 +22,9 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 # f32, as tests/test_kernels.py holds the Pallas bodies to the oracles
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -68,7 +71,8 @@ def test_paged_plain_matches_pallas_interpret(B, n_pool, mb, H, Hkv, D,
 
 def test_paged_plain_local_pages_matches_oracle():
     """The per-slot (local page id) mode of the plain version, against
-    the JAX oracle (the kernel ports the global mode only)."""
+    the JAX oracle (tests/test_torch_encdec.py holds it against the
+    Pallas body, and tests/test_torch_cuda.py the kernel against it)."""
     rs = np.random.RandomState(3)
     B, n_pool, mb, H, Hkv, D = 2, 4, 3, 14, 2, 64
     q = _rand(rs, (B, H, D))

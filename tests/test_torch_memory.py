@@ -4,9 +4,13 @@ through both BlockPools gives the same free counts, unreclaimed pages and
 bookkeeping scan counts after every operation."""
 
 import pytest
+import torch
 
 from repro import memory as jmem
 from repro_torch import memory as tmem
+
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
 
 SLOTS, PAGES = 3, 6
 

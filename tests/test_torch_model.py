@@ -21,6 +21,9 @@ from repro.models import Model as JaxModel
 from repro_torch.configs import ARCHS, ShapeConfig, smoke_config
 from repro_torch.models import Model, cache_from_numpy, params_from_numpy
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 TOL = dict(rtol=1e-4, atol=1e-4)
 SLOTS, MAX_SEQ = 3, 512
 
@@ -161,6 +164,67 @@ def test_prefill_chunks_and_decode_match(models):
         n_kv=2, global_pages=True)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
     _assert_pools(jcache, tcache)
+
+
+def test_decode_step_defaults_to_per_slot_pages(models):
+    """Called with default arguments, both packages read block-table
+    entries as page ids inside each row's own pool.  Each row's table is
+    a different permutation, so reading them as global ids (other slots'
+    pages) would change the logits and the pools written."""
+    jm, np_params, tm = models
+    cfg = tm.cfg
+    np_cache = _random_cache(jm, 2)
+    n_pool = np_cache["layers"]["k_pool"].shape[2]
+    mb = -(-MAX_SEQ // 128) + 1
+    rs = np.random.RandomState(4)
+    table = np.stack([rs.permutation(n_pool)[:mb]
+                      for _ in range(SLOTS)]).astype(np.int32)
+    assert len({tuple(r) for r in table}) == SLOTS
+    lengths = np.array([150, 300, 0], np.int32)
+    tokens = rs.randint(1, cfg.vocab_size, (SLOTS, 1)).astype(np.int32)
+    batch = {"tokens": tokens, "lengths": lengths, "block_table": table}
+    jl, jcache = jm.decode_step(jax.tree.map(jnp.asarray, np_params),
+                                jax.tree.map(jnp.asarray, np_cache),
+                                jax.tree.map(jnp.asarray, batch))
+    tl, tcache = tm.decode_step(params_from_numpy(np_params, "cpu"),
+                                cache_from_numpy(np_cache, "cpu"),
+                                {k: torch.from_numpy(v)
+                                 for k, v in batch.items()})
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+    _assert_pools(jcache, tcache)
+
+
+def test_prefill_chunks_default_to_per_slot_pages(models):
+    """Two prefill chunks of one slot with default arguments: both
+    packages write and read the pages the row names inside the slot's
+    own pool (local page ids, different from their global ids)."""
+    jm, np_params, tm = models
+    cfg = tm.cfg
+    jcache = jax.tree.map(jnp.asarray, _random_cache(jm, 5))
+    tcache = cache_from_numpy(_random_cache(jm, 5), "cpu")
+    mb = -(-MAX_SEQ // 128) + 1
+    slot, pages = 2, [6, 3]
+    row = np.zeros((mb,), np.int32)
+    row[:2] = pages
+    prompt = np.random.RandomState(6).randint(1, cfg.vocab_size, 230)
+    for start, n_kv in ((0, 1), (128, 2)):
+        toks = np.zeros((1, 128), np.int32)
+        seg = prompt[start:start + 128]
+        toks[0, :len(seg)] = seg
+        page = np.asarray([pages[start // 128]], np.int32)
+        jl, jcache = jm.prefill_chunk(
+            jax.tree.map(jnp.asarray, np_params), jcache,
+            {"tokens": jnp.asarray(toks), "start": jnp.int32(start),
+             "slot": jnp.int32(slot), "row": jnp.asarray(row),
+             "pages": jnp.asarray(page),
+             "last_index": jnp.int32(len(seg) - 1)}, n_kv=n_kv)
+        tl, tcache = tm.prefill_chunk(
+            params_from_numpy(np_params, "cpu"), tcache,
+            {"tokens": torch.from_numpy(toks), "start": start, "slot": slot,
+             "row": torch.from_numpy(row), "pages": torch.from_numpy(page),
+             "last_index": len(seg) - 1}, n_kv=n_kv)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **TOL)
+        _assert_pools(jcache, tcache)
 
 
 def test_compute_params_cast_once():

@@ -27,6 +27,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.models import Model, cache_from_numpy, params_from_numpy
 
+# the test workers share the machine's cores: one intra-op thread each
+torch.set_num_threads(1)
+
 Y_TOL = dict(rtol=2e-5, atol=2e-5)
 STATE_TOL = dict(rtol=1e-4, atol=1e-4)
 MODEL_TOL = dict(rtol=0, atol=1e-4)
