@@ -9,7 +9,10 @@ shapes of its path, and drives three paths at published width with
 random weights from a seed:
 
   * qwen2-0.5b through ``Model`` and a ``ServingEngine`` that serves 8
-    requests (paged decode and flash prefill kernels, global page ids);
+    requests (paged decode and flash prefill kernels, global page ids),
+    then a sampled ``ServingEngine`` (temperature 0.8, top_p 0.9) with
+    two best-of-4 fork groups, ``select_winner`` and a prefix-cache
+    replay, every page copy through the block-gather kernel;
   * mamba2-2.7b through ``Model.prefill`` (8 prompts of 1024 tokens, the
     SSD scan kernel) and 32 greedy ``Model.decode_step`` calls;
   * seamless-m4t-medium through ``Model.prefill`` (an encoder over 8 x
@@ -20,7 +23,9 @@ random weights from a seed:
 
 It checks that each path went through its kernels (launch counts), and
 times each kernel beside its plain version, its bound and a library
-call.  Every phase prints one JSON line; the card's name and power limit
+call.  The page gather is held bit for bit, and the sampling uniforms
+and the sampler against their host versions.  Every phase prints one
+JSON line; the card's name and power limit
 print as ``nvidia-smi`` gives them; the line before the last is the
 ``{"kernels": [...]}`` table and the last line is ``{"ok": true,
 "device": {...}}``.  Any failed check exits nonzero.
@@ -614,6 +619,341 @@ def phase_kernel_table(torch, launches, errs):
              "shape": f"S_q={S_q} S_kv={S_kv} q_offset={off}"}
     paged_attention_kernel.launches, flash_attention_kernel.launches = saved
     return [paged, flash]
+
+
+# ---------------------------------------------------------------------------
+# page copies, the sampler and the copy-on-write fork plane (qwen2-0.5b)
+# ---------------------------------------------------------------------------
+# qwen2's engine pool, both layers' K (or V) viewed as one page array:
+# L 24 x B 8 x N_pool 16 pages of (128, 2, 64) bf16 (32 KiB each)
+QWEN_POOL_PAGES, QWEN_PAGE = 24 * 8 * 16, (128, 2, 64)
+# one CoW copy gathers 1 page x 24 layers; the fork_engine replay 6 x 24
+GATHER_M = (24, 144)
+SAMPLE_PAIRS = ((0.7, 0.9), (1.0, 1.0), (1.3, 0.5), (0.4, 0.95))
+# the sampler check skips a u this close to a kcum boundary: the host and
+# the card sum the softmax in different orders (float associativity)
+SAMPLE_BOUNDARY = 1e-5
+FORK = dict(temperature=0.8, top_p=0.9, sample_seed=7)
+FORK_PROMPTS = (900, 333)  # best-of-4 each: partial pages of 4 and 77
+
+
+def gather_inputs(torch, dtype, n_pool, page, m, seed=0):
+    """A pool of ``n_pool`` pages and ``m`` repeated, unordered ids."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed + m)
+    pool = torch.randn((n_pool, *page), generator=g, device=dev).to(dtype)
+    idx = torch.randint(0, n_pool, (m,), generator=g, device=dev,
+                        dtype=torch.int32)
+    idx[-1] = idx[0]  # at least one repeat
+    return pool, idx
+
+
+def phase_block_gather_parity(torch):
+    """The gather kernel against ``pool[idx]``: a copy, so bit-exact.
+    qwen2's and seamless's pages and a 30-byte bf16 page (the kernel's
+    narrow-word path)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gather import block_gather_kernel
+
+    saved = block_gather_kernel.launches
+    rows = []
+    cases = [(d, p, m) for d in ("float32", "bfloat16")
+             for p in (QWEN_PAGE, (128, 16, 64)) for m in (1, 24, 144)]
+    cases.append(("bfloat16", (3, 1, 5), 24))
+    for dname, page, m in cases:
+        pool, idx = gather_inputs(torch, getattr(torch, dname), 512, page, m)
+        got = block_gather_kernel(pool, idx)
+        want = ref.block_gather(pool, idx)
+        torch.cuda.synchronize()
+        same = bool(torch.equal(got, want))
+        rows.append({"dtype": dname, "page": list(page), "M": m,
+                     "page_bytes": pool[0].numel() * pool.element_size(),
+                     "bit_exact": same})
+        check(same, f"block_gather {dname} {page} M={m} differs")
+    block_gather_kernel.launches = saved
+    emit({"phase": "block_gather_parity", "ok": True, "tol": 0,
+          "cases": rows})
+    return {("block_gather", "bfloat16"): 0.0}
+
+
+def phase_sampler_parity(torch):
+    """``counter_uniform`` on the card against its numpy twin, bit for
+    bit; ``sample_tokens`` on (8, 151936) f32 logits against the host
+    reference at the four (temperature, top_p) pairs."""
+    import numpy as np
+
+    from repro_torch.serving.device_state import sample_tokens
+    from repro_torch.serving.rng import counter_uniform, counter_uniform_np
+    from repro_torch.serving.sampling import nucleus_cdf
+
+    dev = torch.device("cuda")
+    rs = np.random.RandomState(0)
+    seeds = np.concatenate([[0, 0x7FFFFFFF, 1, 7],
+                            rs.randint(0, 2**31 - 1, 16_380)])
+    pos = rs.randint(0, 1 << 20, len(seeds))
+    got = counter_uniform(torch.from_numpy(seeds).to(dev),
+                          torch.from_numpy(pos).to(dev)).cpu().numpy()
+    want = counter_uniform_np(seeds, pos)
+    n_diff = int((got.view(np.uint32) != want.view(np.uint32)).sum())
+    check(n_diff == 0, f"counter_uniform: {n_diff} uniforms differ")
+    B, V = 8, 151936
+    # at V 151936 the kcum steps are ~1e-5 apart over a wide nucleus, so
+    # the boundary filter drops up to about half the cases
+    us = np.linspace(0.01, 0.99, 48).astype(np.float32)
+    pairs = []
+    for temperature, top_p in SAMPLE_PAIRS:
+        logits = (rs.randn(B, V) * rs.uniform(0.5, 3.0, (B, 1))).astype(
+            np.float32)
+        cdfs = [nucleus_cdf(row, temperature, top_p) for row in logits]
+        lg = torch.from_numpy(logits).to(dev)
+        checked = filtered = 0
+        for u in us:
+            toks = sample_tokens(lg, torch.full((B,), float(u), device=dev),
+                                 temperature, top_p).cpu().numpy()
+            for i, (order, kcum, n_keep) in enumerate(cdfs):
+                if np.min(np.abs(kcum - u)) < SAMPLE_BOUNDARY:
+                    filtered += 1
+                    continue
+                # sample_ref's draw, from the row's cdf computed once
+                host = int(order[min(int(np.sum(kcum <= u)), n_keep - 1)])
+                check(int(toks[i]) == host,
+                      f"sampler ({temperature}, {top_p}) row {i} u {u}: "
+                      f"{int(toks[i])} vs {host}")
+                checked += 1
+        check(checked >= 100, f"only {checked} sampler cases checked")
+        pairs.append({"temperature": temperature, "top_p": top_p,
+                      "checked": checked, "filtered": filtered,
+                      "nucleus_sizes": [c[2] for c in cdfs]})
+    # one decode step's sampler at the engine's batch: the uniforms and
+    # the draw, as DeviceState._sample runs them
+    lg = torch.from_numpy((rs.randn(B, V) * 2).astype(np.float32)).to(dev)
+    sd = torch.arange(B, dtype=torch.int32, device=dev)
+    ln = torch.full((B,), 500, dtype=torch.int32, device=dev)
+    s_ms = time_ms(lambda: sample_tokens(
+        lg, counter_uniform(sd, ln + 1), FORK["temperature"], FORK["top_p"]),
+        iters=20)
+    u_ms = time_ms(lambda: counter_uniform(sd, ln + 1), iters=20)
+    a_ms = time_ms(lambda: torch.argmax(lg, dim=-1), iters=20)
+    # what one step's sampler launches, against the greedy argmax
+    prof = {name: _profile_window(torch, fn) for name, fn in (
+        ("sampled", lambda: sample_tokens(
+            lg, counter_uniform(sd, ln + 1), FORK["temperature"],
+            FORK["top_p"])),
+        ("greedy", lambda: torch.argmax(lg, dim=-1).to(torch.int32)))}
+    emit({"phase": "sampler_parity", "ok": True,
+          "uniform_pairs": len(seeds), "uniform_bits_differ": n_diff,
+          "logits": [B, V], "boundary": SAMPLE_BOUNDARY, "pairs": pairs,
+          "sampler_ms": s_ms, "counter_uniform_ms": u_ms,
+          "argmax_ms": a_ms,
+          "launches_per_call": {k: v["kernel_launches"]
+                                for k, v in prof.items()},
+          "device_ms_per_call": {k: v["device_busy_s"] * 1e3
+                                 for k, v in prof.items()},
+          "profiled_wall_ms": {k: v["wall_s"] * 1e3
+                               for k, v in prof.items()},
+          "sampled_top": prof["sampled"]["top"][:5]})
+
+
+def fork_prompts():
+    import numpy as np
+
+    rs = np.random.RandomState(14)
+    p900, p333 = (list(rs.randint(1, 150_000, n)) for n in FORK_PROMPTS)
+    replay = p900[:768] + list(rs.randint(1, 150_000, 40))
+    return p900, p333, replay
+
+
+def run_fork_engine(torch, model, params, impl=None, sampler_events=None):
+    """Best-of-4 over the 900- and 333-token prompts; ``select_winner``
+    on the 333 group once each of its branches has 4 tokens; after the
+    900 group's primary finishes, a prompt of its first 768 tokens plus
+    40 new ones (the prefix-cache replay)."""
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, max_slots=8, max_seq=1024, policy="stamp-it",
+                        prefix_cache_entries=16, params=params, impl=impl,
+                        device=model.device, **FORK)
+    if sampler_events is not None:
+        inner = eng.dev._sample
+
+        def timed(*a):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = inner(*a)
+            e.record()
+            sampler_events.append((s, e))
+            return out
+
+        eng.dev._sample = timed
+    p900, p333, replay = fork_prompts()
+    g900 = eng.fork_submit(p900, 4, max_new_tokens=32)
+    g333 = eng.fork_submit(p333, 4, max_new_tokens=32)
+    late = None
+    events = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while eng.sched.has_work() or late is None:
+        if g333.winner is None and all(
+                r.generated and len(r.generated) >= 4
+                for r in g333.branches):
+            eng.select_winner(g333, 2)
+        if late is None and g900.branches[0].done:
+            late = eng.submit(replay, max_new_tokens=32)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        eng.step()
+        e.record()
+        events.append((s, e))
+        check(eng.steps < 3000, "fork engine did not converge")
+    eng.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return eng, (g900, g333, late), wall, [s.elapsed_time(e)
+                                           for s, e in events]
+
+
+def _fork_tokens(groups):
+    g900, g333, late = groups
+    return ([r.generated for r in g900.branches]
+            + [r.generated for r in g333.branches] + [late.generated])
+
+
+def phase_fork_engine(torch, model, params):
+    """Sampled decoding and copy-on-write forks at full width: every page
+    copy through the block-gather kernel, counted over the whole run."""
+    from repro_torch.kernels.block_gather import block_gather_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    # first run: warm-up and the reference for the determinism check
+    _, first, _, _ = run_fork_engine(torch, model, params)
+    kernels = (block_gather_kernel, paged_attention_kernel,
+               flash_attention_kernel)
+    for k in kernels:
+        k.launches = 0
+    sampler = []
+    eng, groups, wall, step_ms = run_fork_engine(torch, model, params,
+                                                 sampler_events=sampler)
+    launches = {"block_gather": block_gather_kernel.launches,
+                "paged_attention": paged_attention_kernel.launches,
+                "flash_attention": flash_attention_kernel.launches}
+    st = eng.stats()
+    for _ in range(4):  # settle, as the CPU tests do
+        eng.pool.reclaim()
+    unreclaimed = eng.pool.unreclaimed()
+    g900, g333, late = groups
+    survivors = list(g900.branches) + [g333.branches[2], late]
+    vocab = model.cfg.vocab_size
+    check(all(r.done and len(r.generated) == 32 for r in survivors),
+          "a surviving request did not end with 32 tokens")
+    check(all(0 <= t < vocab for r in survivors for t in r.generated),
+          "token out of vocabulary range")
+    check(all(g333.branches[i].done and len(g333.branches[i].generated) < 32
+              for i in (0, 1, 3)), "select_winner did not stop the losers")
+    replays = st["admission_dispatches"] - st["cow_copies"]
+    check(st["cow_copies"] == 6, f"cow_copies {st['cow_copies']}")
+    check(st["fork_admissions"] == 6,
+          f"fork_admissions {st['fork_admissions']}")
+    check(st["forks_taken"] == st["forks_released"] > 0,
+          f"forks {st['forks_taken']} taken, {st['forks_released']} "
+          "released")
+    check(replays == 1 and st["prefix_hits"] == 6,
+          f"replay admissions {replays}, prefix hits {st['prefix_hits']}")
+    events = eng.pool.ledger.events
+    check(events.get("branch-kill") == 1, f"ledger events {events}")
+    check(unreclaimed == 0, f"{unreclaimed} pages left unreclaimed")
+    check(st["dispatches_per_step"] == 1, f"dispatches/step {st}")
+    check(launches["block_gather"] == 2 * st["admission_dispatches"] > 0,
+          f"block_gather launches {launches} vs admission dispatches "
+          f"{st['admission_dispatches']}")
+    check(launches["paged_attention"] == N_LAYERS * st["decode_dispatches"],
+          f"paged launches {launches} vs {st['decode_dispatches']}")
+    check(launches["flash_attention"] == N_LAYERS * st["prefill_chunks"],
+          f"flash launches {launches} vs {st['prefill_chunks']}")
+    for g in (g900, g333):
+        toks = [r.generated for r in g.branches]
+        check(len({t[0] for t in toks}) == 1,
+              f"group {g.gid}: branches differ at token 1")
+        check(len({tuple(t[:4]) for t in toks}) > 1,
+              f"group {g.gid}: every branch drew the same tokens")
+    tokens = _fork_tokens(groups)
+    check(tokens == _fork_tokens(first),
+          "a second run with the same sample_seed drew other tokens")
+    torch.cuda.synchronize()
+    sampler_ms = [s.elapsed_time(e) for s, e in sampler]
+    # the same traffic through the plain attention and the plain gather
+    _, pgroups, pwall, _ = run_fork_engine(torch, model, params,
+                                           impl="plain")
+    ptokens = _fork_tokens(pgroups)
+    agree = sum(a == b for t, p in zip(tokens, ptokens)
+                for a, b in zip(t, p))
+    total = sum(min(len(t), len(p)) for t, p in zip(tokens, ptokens))
+    emit({"phase": "fork_engine", "ok": True, **FORK,
+          "groups": {"best_of_4_prompt_lens": list(FORK_PROMPTS),
+                     "winner_of_333": 2,
+                     "replay_prompt": "900-prompt[:768] + 40"},
+          "wall_s": wall, "decode_tokens_per_s": st["tokens_emitted"] / wall,
+          "median_step_ms": statistics.median(step_ms),
+          "steps": st["steps"], "decode_dispatches": st["decode_dispatches"],
+          "sampler_ms_median": statistics.median(sampler_ms),
+          "sampler_share_of_step_time": sum(sampler_ms) / sum(step_ms),
+          "launches": launches,
+          "counters": {k: st[k] for k in (
+              "cow_copies", "fork_admissions", "forks_taken",
+              "forks_released", "admission_dispatches", "prefix_hits",
+              "prefill_chunks", "dispatches_per_step", "pool_freed",
+              "pool_unreclaimed", "free_pages", "host_us_per_step")},
+          "unreclaimed_after_settle": unreclaimed,
+          "ledger_events": dict(events),
+          "first_tokens": {"g900": g900.branches[0].generated[0],
+                           "g333": g333.branches[0].generated[0]},
+          "plain_wall_s": pwall,
+          "plain_token_agreement": agree / max(total, 1)})
+    return launches
+
+
+def block_gather_table_rows(torch, launches, errs):
+    """The gather at the fork run's two sizes over qwen2's pool, bf16:
+    kernel, ``pool[idx]`` and ``index_select`` time beside the bound (each
+    gathered byte read once and written once, plus the index)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.block_gather import block_gather_kernel
+
+    saved = block_gather_kernel.launches
+    rows = []
+    for m, what in zip(GATHER_M, ("one CoW copy (1 page x 24 layers)",
+                                  "the replay (6 pages x 24 layers)")):
+        pool, idx = gather_inputs(torch, torch.bfloat16, QWEN_POOL_PAGES,
+                                  QWEN_PAGE, m, seed=5)
+        fns = {"kernel": lambda: block_gather_kernel(pool, idx),
+               "plain": lambda: ref.block_gather(pool, idx),
+               "library": lambda: torch.index_select(pool, 0, idx)}
+        k_ms, p_ms, l_ms = (time_ms(f) for f in fns.values())
+        # at these sizes a call's host enqueue outlasts its device work,
+        # so the event times above read the host; the profiler gives the
+        # device time of each call's kernels
+        dev_ms = {k: _profile_window(torch, lambda f=f: [
+            f() for _ in range(20)])["device_busy_s"] * 1e3 / 20
+            for k, f in fns.items()}
+        page_bytes = pool[0].numel() * pool.element_size()
+        n_bytes = 2 * m * page_bytes + idx.numel() * 4
+        b_ms, b_by = bound_ms(n_bytes, 0, "bfloat16")
+        rows.append({"name": f"block_gather_m{m}", "route": "cuda",
+                     "source": "src/repro_torch/kernels/csrc/block_gather.cu",
+                     "replaces": "src/repro/kernels/block_gather.py:21",
+                     "launches": launches["block_gather"],
+                     "max_abs_err": errs["block_gather", "bfloat16"],
+                     "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": l_ms,
+                     "library_note": "torch.index_select on the same "
+                                     "flattened pool (timed only)",
+                     "shape": f"pool ({QWEN_POOL_PAGES}, 128, 2, 64) M={m}: "
+                              f"{what}",
+                     "bytes": n_bytes, "device_ms": dev_ms})
+    block_gather_kernel.launches = saved
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1500,6 +1840,10 @@ def main() -> int:
         phase_build()
         phase = "kernel_parity"
         errs = phase_parity(torch)
+        phase = "block_gather_parity"
+        errs.update(phase_block_gather_parity(torch))
+        phase = "sampler_parity"
+        phase_sampler_parity(torch)
         phase = "small_reference"
         phase_small_reference(torch)
 
@@ -1527,6 +1871,10 @@ def main() -> int:
             launches, wall = phase_engine(torch, model, params)
             phase = "kernel_table"
             table = phase_kernel_table(torch, launches, errs)
+            phase = "fork_engine"
+            fork_launches = phase_fork_engine(torch, model, params)
+            phase = "block_gather_table"
+            table += block_gather_table_rows(torch, fork_launches, errs)
             if args.profile:
                 phase = "profile"
                 phase_profile(torch, model, params, wall)

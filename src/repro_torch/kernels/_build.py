@@ -26,7 +26,7 @@ from typing import Dict, Iterable, Tuple
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("paged_attention", "decode_attention", "flash_attention",
-           "ssd_scan")
+           "ssd_scan", "block_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 
 # ctypes signatures of the C entry points, by library
 _VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_I64 = ctypes.c_int64
 _SIGNATURES = {
     "paged_attention": {
         "repro_paged_attention": (
@@ -52,6 +53,10 @@ _SIGNATURES = {
     "ssd_scan": {
         "repro_ssd_chunk_scan": (
             [_INT, _INT] + [_VP] * 8 + [_INT] * 6 + [_VP], _INT),
+    },
+    "block_gather": {
+        "repro_block_gather": ([_INT, _VP, _VP, _VP, _INT, _I64, _I64, _VP],
+                               _INT),
     },
 }
 

@@ -15,6 +15,7 @@ from typing import Optional
 import torch
 
 from . import ref
+from .block_gather import block_gather_kernel
 from .decode_attention import decode_attention_kernel
 from .flash_attention import flash_attention_kernel
 from .paged_attention import paged_attention_kernel
@@ -82,3 +83,11 @@ def ssd_decode_step(x, dt, a, b, c, state, *, d_skip=None):
     """The single-token SSD recurrence.  The plain version on every
     device, as in the JAX package: it is not a TPU kernel there either."""
     return ref.ssd_decode_step(x, dt, a, b, c, state, d_skip=d_skip)
+
+
+def block_gather(pool, indices, *, impl: Optional[str] = None):
+    """``pool[indices]`` for whole pages of a ``(N_pool, *page)`` pool;
+    ``indices`` is 1-D int32 (on the CPU or the pool's device)."""
+    if _plain(pool, impl):
+        return ref.block_gather(pool, indices.to(pool.device))
+    return block_gather_kernel(pool, indices)

@@ -18,6 +18,7 @@ masked rows and tiles behave identically.
   * ``ssd_chunk_scan``    — the Mamba2 SSD chunked scan (dual form
                             within a chunk, state recurrence across)
   * ``ssd_decode_step``   — the single-token SSD recurrence
+  * ``block_gather``      — whole pages out of a pool by index
 """
 
 from __future__ import annotations
@@ -268,3 +269,14 @@ def ssd_decode_step(
     if d_skip is not None:
         y = y + d_skip.float()[None, :, None] * xf
     return y.to(x.dtype), state_new
+
+
+# ---------------------------------------------------------------------------
+# Block gather (page copies)
+# ---------------------------------------------------------------------------
+def block_gather(
+    pool: torch.Tensor,     # (N_pool, block, Hkv, D)
+    indices: torch.Tensor,  # (M,) integer page ids
+) -> torch.Tensor:
+    """Gather M pages out of the pool: ``pool[indices]``."""
+    return pool[indices.long()]

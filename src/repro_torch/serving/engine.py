@@ -1,6 +1,6 @@
 """Continuous-batching serving engine: a thin composition root over the
 three serving planes (the JAX package's ``repro/serving/engine.py``,
-chunked-prefill greedy path).
+chunked-prefill path, greedy or sampled, with copy-on-write forks).
 
   * **Policy plane** (:mod:`repro_torch.memory.policy`) — the BlockPool is
     written once against :class:`ReclamationPolicy`; ``stamp-it`` and
@@ -9,7 +9,7 @@ chunked-prefill greedy path).
   * **Device plane** (:mod:`repro_torch.serving.device_state`) — all
     decode state lives on the card; one engine step is exactly ONE fused
     step (reset + prefill chunk + admit + teacher-force + device-decided
-    page growth + decode + greedy sample), asserted via
+    page growth + decode + sample), asserted via
     ``stats()["dispatches_per_step"] == 1``.
   * **Scheduler plane** (:mod:`repro_torch.serving.scheduler`) —
     admission, continuous batching, pipeline-lag completion, and the
@@ -23,9 +23,16 @@ request (or evicted from the prefix cache) are *retired*, not reused,
 until the policy proves no in-flight step can read them.  The host syncs
 with the card only where it reads a completed step's tokens.
 
-Not ported yet (ROADMAP.md, Queue A): sampled decoding, the speculative
-lane, copy-on-write forks, whole-prompt prefill (``chunk_tokens=0``), the
-tier handoff and the cluster plane.
+Sampled decoding: each request carries a ``sample_key`` and the u that
+samples its token at sequence index ``pos`` is ``counter_uniform(key,
+pos)``, bit-identical to the JAX package's.  Copy-on-write forks
+(``fork_submit``): N branches share one prompt's pages by fork
+references; each secondary branch copies only the partial last prompt
+page (``DeviceState.copy_pages``, the block-gather kernel) and
+``select_winner`` retires the losers.
+
+Not ported yet (ROADMAP.md, Queue A): the speculative lane, whole-prompt
+prefill (``chunk_tokens=0``), the tier handoff and the cluster plane.
 """
 
 from __future__ import annotations
@@ -44,7 +51,7 @@ from ..models.transformer import BLOCK_SIZE, cache_layout
 from ..obs.metrics import Registry, apply_aliases
 from ..obs.spans import SpanRecorder
 from .device_state import DeviceState
-from .scheduler import Request, Scheduler
+from .scheduler import ForkGroup, Request, Scheduler
 
 
 def _pow2_bucket(n: int) -> int:
@@ -66,7 +73,10 @@ class ServingEngine:
         chunk_tokens: int = BLOCK_SIZE,
         seed: int = 0,
         temperature: float = 0.0,
+        top_p: float = 1.0,
+        sample_seed: int = 0,
         params: Any = None,
+        cow: bool = True,
         speculate_k: int = 0,
         registry: Optional[Registry] = None,
         spans: Optional[SpanRecorder] = None,
@@ -101,6 +111,16 @@ class ServingEngine:
         self.pipeline_depth = pipeline_depth
         self.chunk_tokens = chunk_tokens
         self.replica_id = 0
+        self.temperature = temperature
+        self.top_p = top_p
+        # sampled mode: requests carry a per-request sample_key and the
+        # device derives every uniform as counter_uniform(key, position);
+        # sample_seed salts the DEFAULT key of requests submitted without
+        # one
+        self.sample_seed = sample_seed
+        # copy-on-write fork plane: cow=False is the equality baseline
+        # (fork branches re-prefill the whole prompt independently)
+        self.cow = cow
 
         shape = ShapeConfig("engine", "decode", max_seq, max_slots)
         if params is None:
@@ -131,7 +151,7 @@ class ServingEngine:
         self.dev = DeviceState(
             model, params, cache, max_slots=max_slots, mb=self.mb,
             block=self.block, chunk_tokens=chunk_tokens,
-            temperature=temperature, impl=impl,
+            temperature=temperature, top_p=top_p, impl=impl,
         )
 
         # page-ref cache: rebuilt only when the active page set changes
@@ -150,23 +170,114 @@ class ServingEngine:
         self._chunk_rr = 0  # round-robin pointer over admitting slots
         self._chunk_need_pages = 0  # staged chunk's KV-sweep page bound
         self._chunk_finalizing: Optional[Request] = None
+        # CoW fork counters
+        self._next_group_id = 0
+        self.cow_copies = 0  # partial prompt pages CoW-copied
+        self.fork_admissions = 0  # branches admitted by page sharing
         self.tokens_emitted = 0  # host-observed generated tokens
 
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
     def submit(self, prompt: Sequence[int], max_new_tokens: int = 16,
-               eos_id: Optional[int] = None) -> Request:
-        req = self.sched.submit(prompt, max_new_tokens, eos_id)
+               eos_id: Optional[int] = None,
+               sample_key: Optional[int] = None) -> Request:
+        if sample_key is None:
+            # deterministic per-request default key, as the JAX engine's
+            sample_key = ((self.sample_seed * 1_000_003
+                           + self.sched._next_rid) & 0x7FFFFFFF)
+        req = self.sched.submit(prompt, max_new_tokens, eos_id,
+                                sample_key=sample_key)
         if self.spans.enabled:
             self.spans.begin(self._srid(req), "queue", step=self.steps,
                              replica=self.replica_id,
                              prompt_len=len(req.prompt))
         return req
 
-    def fork_submit(self, *args, **kwargs):
-        raise NotImplementedError(
-            "copy-on-write forks are not ported yet (ROADMAP.md, Queue A)")
+    def fork_submit(self, prompt: Sequence[int], n: int,
+                    max_new_tokens: int = 16,
+                    eos_id: Optional[int] = None,
+                    suffixes: Optional[Sequence[Sequence[int]]] = None,
+                    ) -> ForkGroup:
+        """Submit N branches sharing one prompt prefix.
+
+        With ``cow=True`` (default) branch 0 prefills the prefix ONCE;
+        the other branches admit by taking fork references on its pages
+        and copying only the partial last prompt page.  ``suffixes``
+        optionally extends branch i's prompt with its own teacher-forced
+        continuation; without them the branches diverge from the
+        primary's first sampled token.  With ``cow=False`` every branch
+        is an independent full submit — the token-equality baseline."""
+        if n < 1:
+            raise ValueError("need at least one branch")
+        base = list(map(int, prompt))
+        sfx = ([list(map(int, x)) for x in suffixes]
+               if suffixes is not None else None)
+        if sfx is not None and len(sfx) != n:
+            raise ValueError("need one suffix per branch")
+        group = ForkGroup(self._next_group_id, len(base), n, sfx)
+        self._next_group_id += 1
+        for i in range(n):
+            branch_prompt = base + (sfx[i] if sfx is not None else [])
+            req = self.submit(branch_prompt, max_new_tokens, eos_id)
+            if self.cow:
+                req.group = group
+                req.branch_idx = i
+            group.branches.append(req)
+        return group
+
+    def select_winner(self, group: ForkGroup, winner_idx: int) -> Request:
+        """Best-of-N resolution: keep one branch, kill the rest.  Each
+        loser's private pages retire as ONE policy batch (one stamped
+        event for stamp-it) and its fork references on the shared prefix
+        release — the prefix itself reclaims only when the LAST branch
+        (winner included) lets go."""
+        primary = group.branches[0]
+        if winner_idx != 0 and primary.group is group and not group.ready:
+            raise RuntimeError(
+                "select_winner before the primary's prefix is on the card "
+                "would strand the surviving branches")
+        group.winner = winner_idx
+        led = self.pool.ledger
+        if led is not None:
+            led.note_event("branch-kill")
+        for i, req in enumerate(group.branches):
+            if i != winner_idx:
+                self._kill_branch(req)
+        return group.branches[winner_idx]
+
+    def _kill_branch(self, req: Request) -> None:
+        if req.done:
+            return
+        req.done = True
+        req.finished_at = time.time()
+        if self.spans.enabled:
+            srid = self._srid(req)
+            self.spans.end_open(srid, step=self.steps)
+            self.spans.event(srid, "branch-kill", step=self.steps,
+                             replica=self.replica_id)
+        if req.slot >= 0 and self.sched.active.get(req.slot) is req:
+            slot = req.slot
+            self.sched.finished.append(req)
+            own, foreign = self._split_refs(
+                req, self.sched.release_slot(slot))
+            if own:  # loser's private pages: one retire_many batch
+                self.pool.free_refs(own)
+            if foreign:
+                self.pool.release_fork(foreign)
+            self._refs_dirty = True
+            self.dev.stage_reset(slot)
+        elif req in self.sched.waiting:
+            # never admitted: give back its pre-taken fork references
+            self.sched.waiting.remove(req)
+            self.sched.finished.append(req)
+            refs = list(getattr(req, "_fork_shared", []))
+            partial = getattr(req, "_fork_partial", None)
+            if partial is not None:
+                refs.append(partial)
+                req._fork_partial = None  # type: ignore[attr-defined]
+            if refs:
+                self.pool.release_fork(refs)
 
     def _srid(self, req: Request) -> str:
         return f"r{self.replica_id}.{req.rid}"
@@ -224,6 +335,8 @@ class ServingEngine:
     # admission
     # ------------------------------------------------------------------
     def _admit(self, req: Request) -> bool:
+        if req.is_fork_secondary:
+            return self._admit_fork_secondary(req)
         slot = self.sched.free_slots[-1]
         prompt = req.prompt
         n_blocks = max(-(-len(prompt) // self.block), 1)
@@ -254,7 +367,8 @@ class ServingEngine:
             self.sched.bind_slot(req, slot, pages, n_hit_tokens)
             req._tf_suffix = list(suffix)  # type: ignore[attr-defined]
             self.dev.stage_admit(slot, n_hit_tokens,
-                                 self.sched.block_table[slot], n_blocks)
+                                 self.sched.block_table[slot], n_blocks,
+                                 seed=int(req.sample_key or 0))
             self.admissions += 1
             self._span_admit(req)
             return True
@@ -273,6 +387,93 @@ class ServingEngine:
         req._tf_suffix = []  # type: ignore[attr-defined]
         self.admissions += 1
         self._span_admit(req)
+        return True
+
+    # ------------------------------------------------------------------
+    # copy-on-write fork admission
+    # ------------------------------------------------------------------
+    def _record_fork_parent(self, req: Request, group: ForkGroup) -> None:
+        """The primary's full prefix KV is enqueued on the card: record
+        the shareable refs and take each un-admitted branch's fork
+        references NOW, so the prefix outlives the primary even if it
+        finishes before its siblings admit.  One ``fork_refs`` batch =
+        one stamped event for stamp-it."""
+        refs = self.sched.slot_pages[req.slot]
+        full = group.prefix_len // self.block
+        group.shared_refs = list(refs[:full])
+        group.partial_ref = (refs[full] if group.prefix_len % self.block
+                             else None)
+        take = list(group.shared_refs)
+        if group.partial_ref is not None:
+            take.append(group.partial_ref)
+        n_pending = 0
+        for b in group.branches[1:]:
+            if b.done:
+                continue
+            b._fork_shared = list(  # type: ignore[attr-defined]
+                group.shared_refs)
+            b._fork_partial = group.partial_ref  # type: ignore
+            n_pending += 1
+        if take and n_pending:
+            self.pool.fork_refs(take * n_pending)
+        group.ready = True
+
+    def _admit_fork_secondary(self, req: Request) -> bool:
+        g = req.group
+        if not g.ready:
+            return False  # primary's prefix KV not yet on the card
+        sfx = (g.suffixes[req.branch_idx]
+               if g.suffixes is not None else None)
+        if not sfx and g.first_token is None:
+            return False  # branch point is the primary's first sample
+        slot = self.sched.free_slots[-1]
+        refs = list(g.shared_refs)
+        partial = getattr(req, "_fork_partial", None)
+        if partial is not None:
+            # the actual copy-on-write: this branch's own copy of the
+            # PARTIAL last prompt page (its decode writes land there);
+            # the full prefix pages stay shared read-only
+            try:
+                (own,) = self.pool.alloc(slot, 1)
+            except PoolExhausted:
+                return False
+            self.dev.copy_pages([partial[0]], [partial[1]], slot, [own])
+            self.cow_copies += 1
+            refs.append((slot, own))
+            # the copy is enqueued on the stream every later step runs
+            # on, so it reads the parent page before any later recycler
+            # can rewrite it: the PARTIAL-page fork reference drops here
+            # (the full-prefix refs hold until this branch finishes)
+            self.pool.release_fork([partial])
+            req._fork_partial = None  # type: ignore[attr-defined]
+        self._refs_dirty = True
+        req._first_dev = None  # type: ignore[attr-defined]
+        self.sched.bind_slot_refs(req, slot, refs, g.prefix_len)
+        if sfx:
+            # the whole suffix rides the teacher-forcing lane (replay
+            # pattern): the tf override of the admit step consumes
+            # sfx[0], later steps the rest
+            req._tf_suffix = list(sfx)  # type: ignore[attr-defined]
+            self.dev.stage_admit(slot, g.prefix_len,
+                                 self.sched.block_table[slot], len(refs),
+                                 seed=int(req.sample_key or 0))
+        else:
+            tok = g.first_token
+            req._tf_suffix = []  # type: ignore[attr-defined]
+            self.dev.stage_admit(slot, g.prefix_len,
+                                 self.sched.block_table[slot], len(refs),
+                                 token=tok, set_token=True,
+                                 seed=int(req.sample_key or 0))
+        self.admissions += 1
+        self.fork_admissions += 1
+        self._span_admit(req)
+        if not sfx:
+            # token 1 is the primary's token 1 (shared branch point)
+            self._emit(req, g.first_token)
+            hit_eos = (req.eos_id is not None
+                       and g.first_token == req.eos_id)
+            if len(req.generated) >= req.max_new_tokens or hit_eos:
+                self._finish(slot, req)
         return True
 
     # ------------------------------------------------------------------
@@ -321,7 +522,8 @@ class ServingEngine:
         last_index = (P - 1 - start) if is_last else (C - 1)
         self.dev.stage_chunk(slot, toks, start,
                              sched.block_table[slot].copy(), write_pages,
-                             is_last, last_index)
+                             is_last, last_index,
+                             seed=int(req.sample_key or 0))
         self._chunk_need_pages = need
         req.chunk_pos = end
         self.prefill_chunks += 1
@@ -343,7 +545,8 @@ class ServingEngine:
             sched.promote(slot, P)
             self.dev.stage_admit(slot, P, sched.block_table[slot],
                                  req.n_pages, token_from_buf=True,
-                                 set_token=True)
+                                 set_token=True,
+                                 seed=int(req.sample_key or 0))
         return True
 
     def _alloc_chunk_pages(self, slot: int, req: Request,
@@ -446,6 +649,14 @@ class ServingEngine:
             self._chunk_finalizing = None
         self._chunk_need_pages = 0
         self.decode_steps += 1
+        # fork plane: once a group primary's mirror length covers the
+        # shared prefix, every prefix position's KV write is ENQUEUED
+        # (stream order), so siblings may start reading it
+        for slot, req in list(sched.active.items()):
+            g = req.group
+            if (g is not None and req.branch_idx == 0 and not g.ready
+                    and int(sched.lengths[slot]) >= g.prefix_len):
+                self._record_fork_parent(req, g)
         sched.inflight.append(
             (stamp, tokens, dict(sched.active), sched.lengths.copy(), None)
         )
@@ -489,6 +700,10 @@ class ServingEngine:
         req.token_times.append(time.time())
         req.token_busy.append(self.busy_s)
         self.tokens_emitted += 1
+        if (req.group is not None and req.branch_idx == 0
+                and req.group.first_token is None):
+            # the fork group's branch point for suffix-less best-of-N
+            req.group.first_token = tok
         if not req.first_token_at:
             req.first_token_at = time.time()
             if self.spans.enabled:
@@ -499,23 +714,42 @@ class ServingEngine:
                 self.spans.begin(srid, "decode", step=self.steps,
                                  replica=self.replica_id)
 
+    @staticmethod
+    def _split_refs(req: Request, refs):
+        """(own, foreign) refs of a released slot: foreign are the
+        group's shared prefix pages a fork secondary holds by fork
+        reference, own everything it allocated.  Ownership is read from
+        the group, not from the page's slot: a secondary admitted into
+        its primary's former slot holds shared pages of its own slot
+        number (the JAX engine's ``r[0] == slot`` test retires them a
+        second time there and never releases the fork reference)."""
+        shared = (set(req.group.shared_refs) if req.is_fork_secondary
+                  else set())
+        return ([r for r in refs if r not in shared],
+                [r for r in refs if r in shared])
+
     def _finish(self, slot: int, req: Request) -> None:
         req.done = True
         req.finished_at = time.time()
         self.sched.finished.append(req)
         refs = self.sched.release_slot(slot)
-        # donate full prompt blocks to the prefix cache; retire the rest
-        # as one batch
+        own, foreign = self._split_refs(req, refs)
+        # donate full OWN prompt blocks to the prefix cache; retire the
+        # rest as one batch; CoW-shared parent pages are not ours to
+        # donate or retire — drop our fork references instead (the LAST
+        # branch's release retires them as one batch through the policy)
         donated = set()
         for i in range(len(req.prompt) // self.block):
-            if i >= len(refs):
+            if i >= len(refs) or refs[i] in foreign:
                 continue
             key = block_key(req.prompt[: (i + 1) * self.block])
             if self.prefix_cache.insert(key, slot, refs[i][1]):
                 donated.add(refs[i])
-        to_free = [r for r in refs if r not in donated]
+        to_free = [r for r in own if r not in donated]
         if to_free:
             self.pool.free_refs(to_free)
+        if foreign:
+            self.pool.release_fork(foreign)
         self._refs_dirty = True
         self.dev.stage_reset(slot)
         if self.spans.enabled:
@@ -548,6 +782,8 @@ class ServingEngine:
         g("backpressure_syncs", **lab).set(self.backpressure_syncs)
         g("prefix_hits", **lab).set(self.prefix_cache.hits)
         g("prefix_misses", **lab).set(self.prefix_cache.misses)
+        g("cow_copies", **lab).set(self.cow_copies)
+        g("fork_admissions", **lab).set(self.fork_admissions)
 
     def stats(self) -> Dict[str, Any]:
         return apply_aliases({
@@ -582,6 +818,15 @@ class ServingEngine:
             "prefix_hits": self.prefix_cache.hits,
             "prefix_misses": self.prefix_cache.misses,
             "prefix_evictions": self.prefix_cache.evictions,
+            "prefix_evicted_while_forked": (
+                self.prefix_cache.evicted_while_forked
+            ),
+            # CoW fork plane
+            "cow": self.cow,
+            "forks_taken": self.pool.forks_taken,
+            "forks_released": self.pool.forks_released,
+            "cow_copies": self.cow_copies,
+            "fork_admissions": self.fork_admissions,
             "tokens_emitted": self.tokens_emitted,
             "tokens_per_dispatch": (
                 self.tokens_emitted / max(self.dev.decode_dispatches, 1)

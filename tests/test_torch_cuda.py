@@ -2,7 +2,10 @@
 through the kernels against the engine through the plain versions, a
 full-width Mamba2 layer with the SSD kernel against the plain scan, and
 a full-width seamless-m4t-medium decoder layer through the flash, paged
-(per-slot) and contiguous decode kernels against the plain versions.
+(per-slot) and contiguous decode kernels against the plain versions, the
+block-gather kernel against ``pool[idx]`` (bit-exact), the sampling
+uniforms on the card against their numpy twin (bit-exact), and a sampled
+fork engine on the card against the same engine on the CPU.
 Marked ``cuda``: each test skips where there is no card.  On a machine
 with one, run ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py`` (the first test builds the kernels with nvcc).
@@ -316,3 +319,83 @@ def test_full_width_mamba_layer_kernel_matches_plain(card):
         assert a.dtype == b.dtype and a.shape == b.shape
         scale = float(b.float().abs().max())
         assert float((a.float() - b.float()).abs().max()) <= 2e-2 * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("page", [(128, 2, 64), (128, 16, 64), (3, 1, 5)])
+@pytest.mark.parametrize("M", [1, 24, 144])
+def test_block_gather_kernel_matches_plain(card, dtype, page, M):
+    """A copy, so bit-exact: repeated and unordered indices; qwen2's and
+    seamless's pages and a 30-byte bf16 page (not a multiple of 16)."""
+    from repro_torch.kernels.block_gather import block_gather_kernel
+
+    g = torch.Generator(device=card).manual_seed(M)
+    pool = torch.randn((200, *page), generator=g, device=card).to(dtype)
+    idx = torch.randint(0, 200, (M,), generator=g, device=card,
+                        dtype=torch.int32)
+    before = block_gather_kernel.launches
+    got = ops.block_gather(pool, idx)
+    torch.cuda.synchronize()
+    assert block_gather_kernel.launches == before + 1
+    assert torch.equal(got, ref.block_gather(pool, idx))
+    # host indices are range-checked and uploaded
+    assert torch.equal(ops.block_gather(pool, idx.cpu()), got)
+    with pytest.raises(IndexError):
+        ops.block_gather(pool, torch.tensor([200], dtype=torch.int32))
+    with pytest.raises(ValueError):
+        ops.block_gather(pool[::2], idx)  # never gathers from a copy
+
+
+def test_counter_uniform_on_card_matches_numpy(card):
+    from repro_torch.serving.rng import counter_uniform, counter_uniform_np
+
+    rs = np.random.RandomState(0)
+    seeds = np.concatenate([[0, 0x7FFFFFFF, 1, 7],
+                            rs.randint(0, 2**31 - 1, 9996)])
+    pos = rs.randint(0, 1 << 20, 10_000)
+    got = counter_uniform(torch.from_numpy(seeds).to(card),
+                          torch.from_numpy(pos).to(card)).cpu().numpy()
+    want = counter_uniform_np(seeds, pos)
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def test_sampled_fork_engine_card_matches_cpu(card):
+    """Smoke width, f32, the same weights: a sampled engine (temperature
+    0.8, top_p 0.9) with a best-of-3 group whose secondaries copy their
+    partial prompt page through the block-gather kernel emits the same
+    tokens on the card as on the CPU.  The uniforms are bit-identical;
+    the logits differ by the matmuls' summation order (~1e-6), which can
+    flip a token only where u lies that close to a kcum boundary."""
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.kernels.block_gather import block_gather_kernel
+    from repro_torch.models import Model
+    from repro_torch.serving import ServingEngine
+
+    cfg = smoke_config(ARCHS["qwen2-0.5b"])
+    params = Model(cfg, device="cpu").init_params(0)
+    rs = np.random.RandomState(0)
+    prompts = [list(rs.randint(1, 500, n)) for n in (40, 290)]
+    fork = list(rs.randint(1, 500, 160))
+    out = {}
+    for dev in ("cpu", card):
+        eng = ServingEngine(Model(cfg, device=dev), max_slots=4,
+                            max_seq=512, params=_to(params, dev), device=dev,
+                            temperature=0.8, top_p=0.9, sample_seed=7)
+        before = block_gather_kernel.launches
+        reqs = [eng.submit(p, max_new_tokens=6) for p in prompts]
+        grp = eng.fork_submit(fork, 3, max_new_tokens=6)
+        eng.run_until_done()
+        eng.drain()
+        st = eng.stats()
+        assert st["cow_copies"] == 2 and st["pool_unreclaimed"] == 0
+        launched = block_gather_kernel.launches - before
+        assert launched == (2 * st["admission_dispatches"]
+                            if dev != "cpu" else 0)
+        out[str(dev)] = [r.generated for r in reqs + grp.branches]
+    assert out["cpu"] == out[str(card)]

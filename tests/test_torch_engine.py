@@ -89,13 +89,9 @@ def test_policy_changes_pressure_not_tokens(runs):
 
 def test_unported_modes_raise():
     tm = Model(smoke_config(ARCHS["qwen2-0.5b"]), device="cpu")
-    for kw in (dict(temperature=0.8), dict(speculate_k=2),
-               dict(chunk_tokens=0)):
+    for kw in (dict(speculate_k=2), dict(chunk_tokens=0)):
         with pytest.raises(NotImplementedError):
             ServingEngine(tm, max_slots=1, max_seq=256, device="cpu", **kw)
     with pytest.raises(ValueError):
         ServingEngine(tm, max_slots=1, max_seq=256, device="cpu",
                       chunk_tokens=100)
-    eng = ServingEngine(tm, max_slots=1, max_seq=256, device="cpu")
-    with pytest.raises(NotImplementedError):
-        eng.fork_submit([1, 2, 3], n=2)

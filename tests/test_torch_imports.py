@@ -1,7 +1,8 @@
 """The PyTorch package stands alone: importing it, running an engine
-step, an SSM prefill and decode and an encoder-decoder prefill and
-decode pulls in neither JAX nor the JAX package, and its entry points
-run on the card unless told otherwise."""
+step, a sampled engine with a copy-on-write fork, an SSM prefill and
+decode and an encoder-decoder prefill and decode pulls in neither JAX
+nor the JAX package, and its entry points run on the card unless told
+otherwise."""
 
 import pathlib
 import re
@@ -29,6 +30,18 @@ eng = ServingEngine(Model(smoke_config(ARCHS["qwen2-0.5b"]), device="cpu"),
 eng.submit(list(np.arange(1, 40)), max_new_tokens=2)
 eng.step()
 eng.run_until_done()
+
+# sampled decoding and a copy-on-write fork (the block gather's plain
+# version copies the partial prompt page)
+eng = ServingEngine(Model(smoke_config(ARCHS["qwen2-0.5b"]), device="cpu"),
+                    max_slots=2, max_seq=256, device="cpu", temperature=0.8,
+                    top_p=0.9, sample_seed=7)
+eng.fork_submit(list(np.arange(1, 140)), 2, max_new_tokens=2)
+eng.run_until_done()
+assert eng.cow_copies == 1
+import repro_torch.kernels.block_gather
+import repro_torch.serving.rng
+import repro_torch.serving.sampling
 
 import torch
 from repro_torch.configs import ShapeConfig
