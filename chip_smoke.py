@@ -119,6 +119,70 @@ def bound_ms(n_bytes: float, flops: float, dtype: str):
                                        else "operations")
 
 
+def cold_ms(fn, iters: int = 10) -> float:
+    """Mean device time of ``fn`` with a cold L2: 256 MB (five times the
+    H100's 50 MB L2) are written before each call, which also keeps the
+    device busy while the host enqueues the call, so the event pair
+    around each call times the device and not the host."""
+    import torch
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    pairs = []
+    for _ in range(iters):
+        flush.fill_(1)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+def queued_ms(fn, n: int = 20) -> float:
+    """Mean device time of ``fn`` over ``n`` calls enqueued behind a sleep
+    kernel, so that the event pair times the device's back-to-back work
+    and not the host's enqueue."""
+    import torch
+
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)  # ~10 ms at 2 GHz: longer than the enqueue
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def device_timings(torch, kernel_fn, library_fn=None, n: int = 20) -> dict:
+    """The profiler's device time per call (every kernel a call launches,
+    the split combine included) and the cold-L2 time, for the kernel and
+    for its library call.  The per-call time sums, over the kernels the
+    window recorded, each kernel's mean duration, so that a record the
+    profiler drops does not lower it; a window that records no device
+    time at all is replaced by the event time of calls queued behind a
+    sleep, and ``dev_source`` says which it is."""
+    def dev(fn):
+        window = _profile_window(torch, lambda: [fn() for _ in range(n)])
+        if window["device_busy_s"] > 0:
+            return (sum(k["device_ms"] / k["calls"] for k in window["top"]),
+                    "profiler")
+        return queued_ms(fn, n), "events behind a sleep kernel"
+
+    out = {}
+    out["dev_ms"], out["dev_source"] = dev(kernel_fn)
+    out["cold_ms"] = cold_ms(kernel_fn)
+    if library_fn is not None:
+        out["library_dev_ms"], out["library_dev_source"] = dev(library_fn)
+        out["library_cold_ms"] = cold_ms(library_fn)
+    return out
+
+
 # ---------------------------------------------------------------------------
 # kernel inputs at the serving path's shapes
 # ---------------------------------------------------------------------------
@@ -488,9 +552,12 @@ def phase_engine(torch, model, params):
     run_engine(torch, model, params)
     paged_attention_kernel.launches = 0
     flash_attention_kernel.launches = 0
+    flash_attention_kernel.combine_launches = 0
     eng, reqs, wall, step_ms = run_engine(torch, model, params)
     launches = {"paged_attention": paged_attention_kernel.launches,
                 "flash_attention": flash_attention_kernel.launches}
+    # device launches of the split combine, beside the wrapper calls
+    combines = {"flash_attention": flash_attention_kernel.combine_launches}
     st = eng.stats()
     check(all(r.done and len(r.generated) == 32 for r in reqs),
           "not every request finished with 32 tokens")
@@ -518,7 +585,8 @@ def phase_engine(torch, model, params):
           "steps": st["steps"], "decode_dispatches": st["decode_dispatches"],
           "prefill_chunks": st["prefill_chunks"],
           "dispatches_per_step": st["dispatches_per_step"],
-          "launches": launches, "host_us_per_step": st["host_us_per_step"],
+          "launches": launches, "combine_launches": combines,
+          "host_us_per_step": st["host_us_per_step"],
           "pool": {k: st[k] for k in ("free_pages", "pool_unreclaimed",
                                       "pool_freed", "scan_steps",
                                       "prefix_hits", "prefix_misses")},
@@ -559,6 +627,7 @@ def phase_kernel_table(torch, launches, errs):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
     from repro_torch.kernels.paged_attention import paged_attention_kernel
 
     saved = (paged_attention_kernel.launches, flash_attention_kernel.launches)
@@ -590,35 +659,47 @@ def phase_kernel_table(torch, launches, errs):
              "library_note": "no single PyTorch call attends over pages "
                              "named by a block table",
              "shape": f"B=8 lengths={lengths} n_kv={n_kv}"}
-    # flash: the last chunk of the 900-token prompt (start 768, 8 pages)
-    off, S_kv, S_q = 768, 1024, 128
-    q, k, v = flash_inputs(torch, bf, S_kv)
-    k_ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=True,
-                                                  q_offset=off))
-    p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=True,
-                                               q_offset=off))
-    qpos = torch.arange(S_q, device=q.device)[:, None] + off
-    mask = torch.arange(S_kv, device=q.device)[None, :] <= qpos
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    l_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True))
-    keys = sum(min(off + i + 1, S_kv) for i in range(S_q))
-    kv_rows = min(off + S_q, S_kv)
-    n_bytes = (2 * q.numel() * elt + 2 * kv_rows * Hkv * D * elt)
-    flops = 4 * H * D * keys
-    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
-    flash = {"name": "flash_attention", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "replaces": "src/repro/kernels/flash_attention.py:85",
-             "launches": launches["flash_attention"],
-             "max_abs_err": errs["flash_attention", "bfloat16"],
-             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "library_ms": l_ms,
-             "library_note": "scaled_dot_product_attention, boolean causal "
-                             "mask, enable_gqa=True (timed only)",
-             "shape": f"S_q={S_q} S_kv={S_kv} q_offset={off}"}
+    # flash: the last chunk of the 900-token prompt (start 768, 8 pages),
+    # and the first chunk of every prompt (start 0, one page)
+    rows = [paged]
+    for name, off, S_kv in (("flash_attention", 768, 1024),
+                            ("flash_attention_first_chunk", 0, 128)):
+        S_q = 128
+        q, k, v = flash_inputs(torch, bf, S_kv)
+        kfn = (lambda q=q, k=k, v=v, off=off: flash_attention_kernel(
+            q, k, v, causal=True, q_offset=off))
+        k_ms = time_ms(kfn)
+        p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=True,
+                                                   q_offset=off))
+        qpos = torch.arange(S_q, device=q.device)[:, None] + off
+        mask = torch.arange(S_kv, device=q.device)[None, :] <= qpos
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        lfn = (lambda qt=qt, kt=kt, vt=vt, mask=mask:
+               F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True))
+        l_ms = time_ms(lfn)
+        keys = sum(min(off + i + 1, S_kv) for i in range(S_q))
+        kv_rows = min(off + S_q, S_kv)
+        n_bytes = (2 * q.numel() * elt + 2 * kv_rows * Hkv * D * elt)
+        flops = 4 * H * D * keys
+        b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+        plan = flash_plan(1, S_q, H, S_kv, q_offset=off, causal=True)
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:85",
+            "launches": launches["flash_attention"],
+            "max_abs_err": errs["flash_attention", "bfloat16"],
+            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms,
+            **device_timings(torch, kfn, lfn),
+            "library_note": "scaled_dot_product_attention, boolean causal "
+                            "mask, enable_gqa=True (timed only)",
+            "shape": f"S_q={S_q} S_kv={S_kv} q_offset={off} H={H} "
+                     f"Hkv={Hkv} D={D} warpgroups={plan.consumers} "
+                     f"key_tile={plan.keys} splits={plan.splits}"})
     paged_attention_kernel.launches, flash_attention_kernel.launches = saved
-    return [paged, flash]
+    return rows
 
 
 # ---------------------------------------------------------------------------
@@ -1542,6 +1623,8 @@ def phase_encdec_generate(torch, model, params, enc, toks, table):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
+    flash_attention_kernel.combine_launches = 0
+    decode_attention_kernel.combine_launches = 0
     t0 = time.perf_counter()
     logits, pc = model.prefill(params, {"enc_embeds": enc, "tokens": toks})
     torch.cuda.synchronize()
@@ -1586,7 +1669,10 @@ def phase_encdec_generate(torch, model, params, enc, toks, table):
     emit({"phase": "encdec_generate", "ok": True, "arch": model.cfg.name,
           "batch": ED_BATCH, "frames": ED_FRAMES,
           "prompt_tokens": ED_PROMPT, "decode_steps": ED_STEPS,
-          "launches": launches, "prefill_ms": prefill_ms,
+          "launches": launches, "combine_launches": {
+              "flash_attention": flash_attention_kernel.combine_launches,
+              "decode_attention": decode_attention_kernel.combine_launches},
+          "prefill_ms": prefill_ms,
           "median_decode_step_ms": statistics.median(step_ms),
           "decode_tokens_per_s": ED_BATCH * ED_STEPS / decode_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
@@ -1601,7 +1687,9 @@ def encdec_table_rows(torch, launches, errs):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_kernel
+    from repro_torch.kernels.decode_attention import plan_splits as decode_plan
     from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
     from repro_torch.kernels.paged_attention import paged_attention_kernel
 
     saved = (decode_attention_kernel.launches,
@@ -1615,14 +1703,21 @@ def encdec_table_rows(torch, launches, errs):
     # (B, 4096, Hkv, D) cross cache
     lengths = [ED_FRAMES] * ED_BATCH
     q, k, v, lens = decode_inputs(torch, bf, lengths)
-    k_ms = time_ms(lambda: decode_attention_kernel(q, k, v, lens))
+    def kfn():
+        return decode_attention_kernel(q, k, v, lens)
+
+    k_ms = time_ms(kfn)
     p_ms = time_ms(lambda: ref.decode_attention(q, k, v, lens), iters=20)
     S_max = k.shape[1]
     mask = (torch.arange(S_max, device=q.device)[None, :]
             < lens[:, None])[:, None, None, :]
     qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-    l_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, enable_gqa=True))
+    def lfn():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    l_ms = time_ms(lfn)
+    plan = decode_plan(ED_BATCH, Hkv, S_max)
     n_rows = sum(lengths)
     n_bytes = (2 * q.numel() * elt + n_rows * Hkv * D * 2 * elt
                + lens.numel() * 4)
@@ -1634,11 +1729,14 @@ def encdec_table_rows(torch, launches, errs):
                  "max_abs_err": errs["decode_attention", "bfloat16"],
                  "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": l_ms,
+                 **device_timings(torch, kfn, lfn),
                  "library_note": "scaled_dot_product_attention, boolean "
                                  "length mask over S_max, enable_gqa=True "
                                  "(timed only)",
                  "shape": f"B={ED_BATCH} S_max={S_max} lengths={ED_FRAMES} "
-                          f"H={H} Hkv={Hkv} D={D}", "bytes": n_bytes})
+                          f"H={H} Hkv={Hkv} D={D} splits={plan.splits} of "
+                          f"{plan.block * plan.tiles_per_split} rows",
+                 "bytes": n_bytes})
 
     # per-slot paged self-attention at the last decode step: 3 pages of
     # 128 per slot, ED_PROMPT + ED_STEPS positions in every row
@@ -1670,13 +1768,24 @@ def encdec_table_rows(torch, launches, errs):
     S = ED_FRAMES
     q, k, v = flash_inputs(torch, bf, S, S_q=S, H=H, Hkv=Hkv, D=D,
                            B=ED_BATCH)
-    k_ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=False),
-                   iters=10, warmup=2)
+    def kfn():
+        return flash_attention_kernel(q, k, v, causal=False)
+
+    k_ms = time_ms(kfn, iters=10, warmup=2)
     p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=False),
                    iters=10, warmup=2)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    l_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt),
-                   iters=10, warmup=2)
+    def lfn():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    l_ms = time_ms(lfn, iters=10, warmup=2)
+    # the f32 route (the CUDA-core body kept for the f32 checks)
+    q32, k32, v32 = (x.float() for x in (q, k, v))
+    f32_ms = time_ms(lambda: flash_attention_kernel(q32, k32, v32,
+                                                    causal=False),
+                     iters=3, warmup=1)
+    del q32, k32, v32
+    plan = flash_plan(ED_BATCH, S, H, S, causal=False)
     n_bytes = 4 * q.numel() * elt
     flops = 4 * ED_BATCH * H * S * S * D
     b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
@@ -1687,10 +1796,13 @@ def encdec_table_rows(torch, launches, errs):
                  "max_abs_err": errs["flash_encoder", "bfloat16"],
                  "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": l_ms,
+                 **device_timings(torch, kfn, lfn, n=10), "f32_ms": f32_ms,
                  "library_note": "scaled_dot_product_attention, no mask "
                                  "(timed only)",
                  "shape": f"B={ED_BATCH} S_q=S_kv={S} non-causal H={H} "
-                          f"Hkv={Hkv} D={D}", "flops": flops})
+                          f"Hkv={Hkv} D={D} warpgroups={plan.consumers} "
+                          f"key_tile={plan.keys} splits={plan.splits}",
+                 "flops": flops})
     (decode_attention_kernel.launches, paged_attention_kernel.launches,
      flash_attention_kernel.launches) = saved
     return rows

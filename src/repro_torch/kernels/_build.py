@@ -43,12 +43,13 @@ _SIGNATURES = {
     },
     "decode_attention": {
         "repro_decode_attention": (
-            [_INT, _INT] + [_VP] * 5 + [_INT] * 6 + [_F32, _VP], _INT),
+            [_INT, _INT] + [_VP] * 5 + [_INT] * 6 + [_F32, _INT, _INT, _VP,
+                                                     _VP], _INT),
     },
     "flash_attention": {
         "repro_flash_attention": (
-            [_INT, _INT, _VP, _VP, _VP, _VP] + [_INT] * 8 + [_F32, _VP],
-            _INT),
+            [_INT, _INT, _VP, _VP, _VP, _VP] + [_INT] * 8
+            + [_F32, _INT, _INT, _INT, _INT, _VP, _VP], _INT),
     },
     "ssd_scan": {
         "repro_ssd_chunk_scan": (

@@ -8,11 +8,14 @@ sequence against a contiguous ``(B, S_max, Hkv, D)`` cache whose first
 encoder-decoder's cross-attention decode (``layers.attention_decode``
 with ``cross=True``), over the cross cache of the encoder output.
 
-The kernel (``csrc/decode_attention.cu``) runs one block per (sequence,
-kv head) and streams the row's valid prefix in tiles of 128 rows through
-the decode body it shares with the paged kernel (``csrc/common.cuh``).
-On the H100 it is bound by bytes: each K and V row is read once for
-about one flop per byte at G = 1.  Its times are in PERF.md.
+The kernel (``csrc/decode_attention.cu``) splits each row's key range
+across blocks: a block per (split, kv head, sequence), a split being
+whole tiles of 128 cache rows.  :func:`plan_splits` picks the split from
+``S_max`` and ``B * Hkv`` alone (``lengths`` lives on the card); splits
+past a row's length leave at once, and a second small kernel combines
+the splits' partial softmax states.  On the H100 it is bound by bytes:
+each K and V row is read once for about one flop per byte at G = 1.
+Its times are in PERF.md.
 
 :func:`decode_attention_plain` is the plain PyTorch version;
 ``ops.decode_attention`` sends CPU tensors to it and CUDA tensors to
@@ -22,6 +25,7 @@ about one flop per byte at G = 1.  Its times are in PERF.md.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +35,26 @@ from .ref import decode_attention as decode_attention_plain
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: rows of the cache per tile, as the TPU kernel's ``block_k``
 BLOCK_K = 128
+#: the most blocks a launch should hold: 32 a streaming multiprocessor of
+#: the H100's 132 (most of them leave at once past a row's length)
+MAX_BLOCKS = 32 * 132
+
+
+class DecodePlan(NamedTuple):
+    block: int            # cache rows per tile
+    splits: int           # key ranges per (sequence, kv head)
+    tiles_per_split: int  # tiles in each range
+
+
+def plan_splits(B: int, Hkv: int, S_max: int) -> DecodePlan:
+    """The kernel's launch shape, from shapes only: tiles of ``min(128,
+    S_max)`` rows, one tile a split unless ``B * Hkv * tiles`` blocks
+    would pass :data:`MAX_BLOCKS`; split ``s`` covers tiles ``[s * t, (s
+    + 1) * t)`` with ``t = tiles_per_split``."""
+    block = min(BLOCK_K, S_max)
+    n_tiles = S_max // block
+    per = min(n_tiles, max(1, -(-(B * Hkv * n_tiles) // MAX_BLOCKS)))
+    return DecodePlan(block, -(-n_tiles // per), per)
 
 
 def decode_attention_kernel(
@@ -41,7 +65,8 @@ def decode_attention_kernel(
 ) -> torch.Tensor:
     """Launch the decode kernel on ``q``'s stream; returns (B, H, D) in
     q.dtype.  ``S_max`` must be a multiple of ``min(128, S_max)``, as the
-    TPU kernel asserts.  A row with ``lengths <= 0`` attends uniformly
+    TPU kernel asserts, and D one of 32, 64 and 128 (the kernel's 16-byte
+    key slices).  A row with ``lengths <= 0`` attends uniformly
     over all ``S_max`` rows, as the TPU kernel and the plain softmax do."""
     if not q.is_cuda:
         raise ValueError("decode_attention_kernel takes CUDA tensors")
@@ -56,32 +81,45 @@ def decode_attention_kernel(
     if k_cache.shape[0] != B or k_cache.shape[3] != D or H % Hkv:
         raise ValueError(f"q {tuple(q.shape)} vs cache "
                          f"{tuple(k_cache.shape)}")
-    block = min(BLOCK_K, S_max)
-    if S_max % block:
-        raise ValueError(f"S_max {S_max} is not a multiple of {block}")
+    plan = plan_splits(B, Hkv, S_max)
+    if S_max % plan.block:
+        raise ValueError(f"S_max {S_max} is not a multiple of {plan.block}")
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
         raise TypeError("lengths must be (B,) int32")
     for t in (k_cache, v_cache, lengths):
         if t.device != q.device:
             raise ValueError("all operands must be on q's device")
+    if D not in (32, 64, 128):
+        raise ValueError(f"D={D}: the kernel takes D in (32, 64, 128)")
     q = q.contiguous()
-    k_cache = k_cache.contiguous()
-    v_cache = v_cache.contiguous()
+    # 16-byte loads from the caches: copy a view that is not aligned
+    k_cache, v_cache = (t if t.data_ptr() % 16 == 0 else t.clone()
+                        for t in (k_cache.contiguous(), v_cache.contiguous()))
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
+    ws = None
+    if plan.splits > 1:  # partial (acc, m, l) of each split, f32
+        ws = torch.empty(plan.splits * B * H * (D + 2), dtype=torch.float32,
+                         device=q.device)
     lib = _build.load("decode_attention")
     err = lib.repro_decode_attention(
         q.device.index, _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
         v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, Hkv, D,
-        S_max, block, 1.0 / math.sqrt(D),
+        S_max, plan.block, 1.0 / math.sqrt(D), plan.splits,
+        plan.tiles_per_split, None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "decode_attention kernel launch")
     decode_attention_kernel.launches += 1
+    if plan.splits > 1:
+        decode_attention_kernel.combine_launches += 1
     return out
 
 
-#: launches of the kernel since the count was last set to 0
+#: wrapper calls that launched the kernel since the count was last set to 0
 decode_attention_kernel.launches = 0
+#: of those, the calls that also launched the split combine
+decode_attention_kernel.combine_launches = 0
 
-__all__ = ["decode_attention_kernel", "decode_attention_plain"]
+__all__ = ["DecodePlan", "decode_attention_kernel", "decode_attention_plain",
+           "plan_splits"]

@@ -1,19 +1,23 @@
-"""Causal flash attention: the Hopper kernel's wrapper and its plain version.
+"""Flash attention: the Hopper kernel's wrapper, its split planner and its
+plain version.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:
 flash_attention_pallas`` (body ``_kernel``) on the chunked-prefill path
-(``layers.attention_chunk``).  The TPU kernel binds ``q_offset`` as a
-Python constant; here it is a runtime argument of the kernel, so one
-build serves every chunk start and the host passes the start it already
-knows (no device read).
+(``layers.attention_chunk``) and the encoder's full attention.  The TPU
+kernel binds ``q_offset`` as a Python constant; here it is a runtime
+argument of the kernel, so one build serves every chunk start and the
+host passes the start it already knows (no device read).
 
-The kernel (``csrc/flash_attention.cu``) runs one block per (q tile,
-query head, sequence) and loops over key tiles up to the causal horizon
-of its tile, with the online softmax in f32.  On the H100 a prefill
-chunk over ~1k keys is compute bound; this first version multiplies with
-scalar f32 FMAs, far from the tensor cores' rate — ``wgmma`` tiles fed
-by TMA are later work.  Its times are in PERF.md.  Sliding windows are
-not supported by the kernel (the plain version has them).
+bf16 runs ``csrc/flash_attention.cu``'s warpgroup-MMA kernel: 64-row
+query tiles per consumer warpgroup (one or two a block), K and V tiles
+of 64 or 128 keys brought by TMA through a ring of mbarrier-guarded stages,
+both products on the tensor cores and the online softmax in registers.
+Where the query tiles alone would leave SMs idle, :func:`plan_splits`
+splits the key range across blocks (from shapes only) and a second
+small kernel combines the partial softmax states.  f32 runs the first
+version's CUDA-core body, kept for the correctness checks held to 1e-4
+(TF32 products would miss them).  Times are in PERF.md.  Sliding
+windows are not supported by the kernel (the plain version has them).
 
 :func:`flash_attention_plain` is the plain PyTorch version;
 ``ops.flash_attention`` sends CPU tensors to it and CUDA tensors to
@@ -23,6 +27,7 @@ not supported by the kernel (the plain version has them).
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -31,6 +36,46 @@ from .ref import flash_attention as flash_attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64, 128)
+#: the H100's streaming multiprocessors: the blocks a launch should fill
+SMS = 132
+#: query rows per consumer warpgroup
+ROWS = 64
+
+
+class FlashPlan(NamedTuple):
+    consumers: int        # consumer warpgroups per block: 64 rows each
+    keys: int             # keys per K/V tile: 64 or 128
+    splits: int           # key ranges per (q tile, head, sequence)
+    tiles_per_split: int  # key tiles in each range
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_splits(B: int, S_q: int, H: int, S_kv: int, *, q_offset: int = 0,
+                causal: bool = True) -> FlashPlan:
+    """The bf16 kernel's launch shape, from shapes only.  Two consumer
+    warpgroups (128-row tiles, which halve the K/V traffic) where those
+    tiles alone fill the SMs, else one.  Where the query tiles give
+    :data:`SMS` blocks or more, key tiles of 128 and no split.  Else the
+    keys the chunk can see (``min(S_kv, q_offset + S_q)`` when causal)
+    are cut into tiles of 64 and equal ranges of whole tiles, enough to
+    reach :data:`SMS` blocks; split ``s`` covers key tiles ``[s * t, (s +
+    1) * t)`` with ``t = tiles_per_split``."""
+    kv_end = min(S_kv, q_offset + S_q) if causal else S_kv
+    consumers = 2 if B * H * _cdiv(S_q, 2 * ROWS) >= SMS else 1
+    blocks = B * H * _cdiv(S_q, consumers * ROWS)
+    if blocks >= SMS:
+        return FlashPlan(consumers, 128, 1, max(1, _cdiv(kv_end, 128)))
+    n_tiles = max(1, _cdiv(kv_end, 64))
+    per = _cdiv(n_tiles, min(n_tiles, _cdiv(SMS, blocks)))
+    return FlashPlan(1, 64, _cdiv(n_tiles, per), per)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """TMA reads from 16-byte aligned addresses: copy a view that is not."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def flash_attention_kernel(
@@ -66,21 +111,36 @@ def flash_attention_kernel(
                          f"GQA groups and D in {_HEAD_DIMS}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("all operands must be on q's device")
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and S_kv < 1:
+        raise ValueError("the bf16 kernel needs at least one key")
+    q, k, v = (_aligned(x.contiguous()) for x in (q, k, v))
     out = torch.empty_like(q)
+    plan, ws = FlashPlan(1, 128, 1, 1), None
+    if q.dtype == torch.bfloat16:
+        plan = plan_splits(B, S_q, H, S_kv, q_offset=q_offset,
+                           causal=causal)
+        if plan.splits > 1:  # partial (acc, m, l) of each split, f32
+            ws = torch.empty(plan.splits * B * S_q * H * (D + 2),
+                             dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
     err = lib.repro_flash_attention(
         q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), B, S_q, S_kv, H, Hkv, D, q_offset,
-        1 if causal else 0, 1.0 / math.sqrt(D),
+        1 if causal else 0, 1.0 / math.sqrt(D), *plan,
+        None if ws is None else ws.data_ptr(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(lib, err, "flash_attention kernel launch")
     flash_attention_kernel.launches += 1
+    if plan.splits > 1:
+        flash_attention_kernel.combine_launches += 1
     return out
 
 
-#: launches of the kernel since the count was last set to 0
+#: wrapper calls that launched the kernel since the count was last set to 0
 flash_attention_kernel.launches = 0
+#: of those, the calls that also launched the split combine
+flash_attention_kernel.combine_launches = 0
 
-__all__ = ["flash_attention_kernel", "flash_attention_plain"]
+__all__ = ["FlashPlan", "flash_attention_kernel", "flash_attention_plain",
+           "plan_splits"]

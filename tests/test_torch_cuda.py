@@ -23,7 +23,9 @@ import torch
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention_kernel
+from repro_torch.kernels.decode_attention import plan_splits as decode_plan
 from repro_torch.kernels.flash_attention import flash_attention_kernel
+from repro_torch.kernels.flash_attention import plan_splits
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
 
@@ -79,48 +81,81 @@ def test_paged_kernel_matches_plain(card, dtype, B, n_pool, mb, H, Hkv, D,
     _close(got, want, dtype)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize(
-    "S_q,S_kv,H,Hkv,D,q_offset",
-    [(128, 1024, 14, 2, 64, 768), (128, 128, 14, 2, 64, 0),
-     (100, 250, 4, 2, 32, 150), (64, 384, 8, 8, 128, 256)],
-)
-def test_flash_kernel_matches_plain(card, dtype, S_q, S_kv, H, Hkv, D,
-                                    q_offset):
-    g = torch.Generator(device=card).manual_seed(S_q + S_kv + D)
-    q = torch.randn((1, S_q, H, D), generator=g, device=card) * 0.3
-    k = torch.randn((1, S_kv, Hkv, D), generator=g, device=card) * 0.3
-    v = torch.randn((1, S_kv, Hkv, D), generator=g, device=card) * 0.3
+def _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal, q_offset):
+    """The kernel against the plain version; the bf16 kernel's plan
+    (warpgroups, key tile, splits) is returned for the caller to check."""
+    g = torch.Generator(device=card).manual_seed(B + S_q + S_kv + D)
+    q = torch.randn((B, S_q, H, D), generator=g, device=card) * 0.3
+    k = torch.randn((B, S_kv, Hkv, D), generator=g, device=card) * 0.3
+    v = torch.randn((B, S_kv, Hkv, D), generator=g, device=card) * 0.3
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
     before = flash_attention_kernel.launches
-    got = ops.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    combines = flash_attention_kernel.combine_launches
+    got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     assert flash_attention_kernel.launches == before + 1
-    want = ref.flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    plan = plan_splits(B, S_q, H, S_kv, q_offset=q_offset, causal=causal)
+    split = dtype == torch.bfloat16 and plan.splits > 1
+    assert flash_attention_kernel.combine_launches == combines + split
+    want = ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     _close(got, want, dtype)
+    return plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S_q,S_kv,H,Hkv,D,q_offset",
+    [(1, 128, 1024, 14, 2, 64, 768), (1, 128, 128, 14, 2, 64, 0),
+     (1, 100, 250, 4, 2, 32, 150), (1, 64, 384, 8, 8, 128, 256),
+     # S_q 1 / 63 / 65 / 200 over S_kv 1 / 65 / 1000 / 1024, q_offset at
+     # 0, in the middle and at S_kv - S_q, D 32 / 64 / 128, G 7 and 1
+     (2, 1, 1, 14, 2, 64, 0), (2, 63, 65, 7, 1, 32, 2),
+     (2, 65, 1000, 16, 16, 128, 935), (2, 200, 1000, 14, 2, 64, 400),
+     (2, 128, 1024, 14, 2, 64, 0), (2, 200, 1024, 16, 16, 64, 0),
+     (2, 65, 65, 7, 1, 128, 0), (2, 63, 1024, 16, 16, 32, 961),
+     # no split (256 blocks of 64 rows), and 128-row tiles (two
+     # warpgroups) over the causal diagonal
+     (8, 128, 1024, 16, 16, 64, 896), (4, 1000, 1000, 16, 16, 64, 0)],
+)
+def test_flash_kernel_matches_plain(card, dtype, B, S_q, S_kv, H, Hkv, D,
+                                    q_offset):
+    _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, True, q_offset)
 
 
 DECODE_LENGTHS = [0, 1, 127, 128, 1000, 1024, 4095, 4096]
+# tile edges: block - 1, block, block + 1
+SPLIT_LENGTHS = [0, 1, 127, 128, 129, 1024, 4095, 4096]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("H,Hkv,D", [(16, 16, 64), (14, 2, 64),
-                                     (16, 16, 32), (16, 16, 128)])
-def test_decode_kernel_matches_plain(card, dtype, H, Hkv, D):
+@pytest.mark.parametrize(
+    "H,Hkv,D,S_max,lengths",
+    [(16, 16, 64, 4096, DECODE_LENGTHS), (14, 2, 64, 4096, DECODE_LENGTHS),
+     (16, 16, 32, 4096, DECODE_LENGTHS), (16, 16, 128, 4096, DECODE_LENGTHS),
+     (16, 16, 64, 4096, SPLIT_LENGTHS), (14, 2, 64, 4096, SPLIT_LENGTHS),
+     # S_max 128: one split, no combine; B 1
+     (14, 2, 64, 128, [0, 1, 127, 128]), (16, 16, 64, 128, [0, 1, 127, 128]),
+     (14, 2, 64, 4096, [1024]), (16, 16, 128, 4096, [129])],
+)
+def test_decode_kernel_matches_plain(card, dtype, H, Hkv, D, S_max, lengths):
     """The contiguous decode kernel at seamless's cross cache (B 8, S_max
-    4096), lengths from 0 (uniform weights over all rows) to S_max."""
+    4096), lengths from 0 (uniform weights over all rows) to S_max, and
+    the split edges."""
     g = torch.Generator(device=card).manual_seed(H + Hkv + D)
-    B, S_max = len(DECODE_LENGTHS), 4096
+    B = len(lengths)
     q = torch.randn((B, H, D), generator=g, device=card).to(dtype) * 0.3
     k = torch.randn((B, S_max, Hkv, D), generator=g,
                     device=card).to(dtype) * 0.3
     v = torch.randn((B, S_max, Hkv, D), generator=g,
                     device=card).to(dtype) * 0.3
-    lengths = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=card)
+    lengths = torch.tensor(lengths, dtype=torch.int32, device=card)
     before = decode_attention_kernel.launches
+    combines = decode_attention_kernel.combine_launches
     got = ops.decode_attention(q, k, v, lengths)
     torch.cuda.synchronize()
     assert decode_attention_kernel.launches == before + 1
+    split = decode_plan(B, Hkv, S_max).splits > 1
+    assert decode_attention_kernel.combine_launches == combines + split
     _close(got, ref.decode_attention(q, k, v, lengths), dtype)
 
 
@@ -153,21 +188,22 @@ def test_per_slot_paged_kernel_matches_plain(card, dtype, B, n_pool, mb, H,
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("S_q,S_kv", [(1024, 1024), (128, 1024), (20, 300)])
-def test_noncausal_flash_kernel_matches_plain(card, dtype, S_q, S_kv):
+@pytest.mark.parametrize(
+    "S_q,S_kv,H,Hkv,D",
+    [(1024, 1024, 16, 16, 64), (128, 1024, 16, 16, 64),
+     (20, 300, 16, 16, 64),
+     # ragged S_q and S_kv, D 32 / 128, G 7, a split (B 2 x H 14 x 1 q
+     # tile) and two warpgroups (B 2 x H 16 x 8 tiles of 128 rows)
+     (1, 1, 16, 16, 64), (63, 65, 14, 2, 32), (65, 1000, 14, 2, 128),
+     (200, 1024, 16, 16, 32), (1000, 1000, 16, 16, 128),
+     (128, 65, 7, 1, 64)],
+)
+def test_noncausal_flash_kernel_matches_plain(card, dtype, S_q, S_kv, H, Hkv,
+                                              D):
     """The encoder's self-attention, the decoder prefill's cross-
-    attention, and a query tile shorter than the kernel's 32 rows over a
-    ragged key count."""
-    g = torch.Generator(device=card).manual_seed(S_q + S_kv)
-    q = torch.randn((2, S_q, 16, 64), generator=g, device=card) * 0.3
-    k = torch.randn((2, S_kv, 16, 64), generator=g, device=card) * 0.3
-    v = torch.randn((2, S_kv, 16, 64), generator=g, device=card) * 0.3
-    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    before = flash_attention_kernel.launches
-    got = ops.flash_attention(q, k, v, causal=False)
-    torch.cuda.synchronize()
-    assert flash_attention_kernel.launches == before + 1
-    _close(got, ref.flash_attention(q, k, v, causal=False), dtype)
+    attention, a query tile shorter than a warpgroup's 64 rows over a
+    ragged key count, and the shapes above."""
+    _flash_case(card, dtype, 2, S_q, S_kv, H, Hkv, D, False, 0)
 
 
 def test_full_width_seamless_decoder_layer_kernels_match_plain(card):
