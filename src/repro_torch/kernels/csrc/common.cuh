@@ -198,7 +198,8 @@ __device__ __forceinline__ void decode_block(
 // M = max_s m_s.  A split with l_s == 0 saw no key (it lay wholly past the
 // row's keys) and is skipped: its acc is not read.  A split that saw keys
 // has l_s >= 1, since its largest weight is 2^0.  One warp per row: the
-// lanes take the splits for (m, l), then the columns (D <= 128) for acc.
+// lanes take the splits for (m, l), then the columns for acc, 128 at a
+// time.
 // ---------------------------------------------------------------------------
 constexpr int kCombineWarps = 8;
 
@@ -217,41 +218,43 @@ __global__ void __launch_bounds__(kCombineWarps * 32)
     if (p[1] > 0.f) M = fmaxf(M, p[0]);
   }
   M = warp_max(M);
-  float num[4] = {0.f, 0.f, 0.f, 0.f};  // columns lane + 32 j
   float den = 0.f;
-  for (int s0 = 0; s0 < splits; s0 += 32) {
-    const int s = s0 + lane;
-    float w = 0.f;
-    if (s < splits) {
-      const float* p = ml + (s * rows + row) * 2;
-      if (p[1] > 0.f) {
-        w = exp2f(p[0] - M);
-        den += w * p[1];
+  for (int s = lane; s < splits; s += 32) {
+    const float* p = ml + (s * rows + row) * 2;
+    if (p[1] > 0.f) den += exp2f(p[0] - M) * p[1];
+  }
+  den = fmaxf(warp_sum(den), 1e-30f);
+  T* o = out + row * D;
+  for (int c0 = 0; c0 < D; c0 += 128) {
+    float num[4] = {0.f, 0.f, 0.f, 0.f};  // columns c0 + lane + 32 j
+    for (int s0 = 0; s0 < splits; s0 += 32) {
+      const int s = s0 + lane;
+      float w = 0.f;
+      if (s < splits) {
+        const float* p = ml + (s * rows + row) * 2;
+        if (p[1] > 0.f) w = exp2f(p[0] - M);
+      }
+      const int n = min(32, splits - s0);
+      for (int j = 0; j < n; ++j) {
+        const float wj = __shfl_sync(0xffffffffu, w, j);
+        if (wj == 0.f) continue;  // the same for every lane: no divergence
+        const float* a = acc + ((s0 + j) * rows + row) * D + c0;
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (c0 + lane + 32 * c < D) num[c] += wj * a[lane + 32 * c];
       }
     }
-    const int n = min(32, splits - s0);
-    for (int j = 0; j < n; ++j) {
-      const float wj = __shfl_sync(0xffffffffu, w, j);
-      if (wj == 0.f) continue;  // the same for every lane: no divergence
-      const float* a = acc + ((s0 + j) * rows + row) * D;
 #pragma unroll
-      for (int c = 0; c < 4; ++c)
-        if (lane + 32 * c < D) num[c] += wj * a[lane + 32 * c];
-    }
+    for (int c = 0; c < 4; ++c)
+      if (c0 + lane + 32 * c < D)
+        o[c0 + lane + 32 * c] = from_float<T>(num[c] / den);
   }
-  den = warp_sum(den);
-  T* o = out + row * D;
-#pragma unroll
-  for (int c = 0; c < 4; ++c)
-    if (lane + 32 * c < D)
-      o[lane + 32 * c] = from_float<T>(num[c] / fmaxf(den, 1e-30f));
 }
 
 template <typename T>
 inline cudaError_t launch_combine(const float* acc, const float* ml, T* out,
                                   int64_t rows, int D, int splits,
                                   cudaStream_t stream) {
-  if (D > 128) return cudaErrorInvalidValue;
   combine_splits_kernel<T>
       <<<static_cast<unsigned>((rows + kCombineWarps - 1) / kCombineWarps),
          kCombineWarps * 32, 0, stream>>>(acc, ml, out, rows, D, splits);

@@ -30,6 +30,12 @@
 //   * Scores: D / 8 lanes (bf16) share one key, 16 bytes each, and reduce
 //     with shuffles; a warp scores 32 / (D / 8) keys at a time, all G query
 //     rows of the group against each.
+//   * Those two need D in {32, 64, 128}, fixed when compiled.  Any other
+//     D > 0 (zamba2's 112, for one) takes the same kernel with D given at
+//     run time: a warp scores one key with its lanes strided over D, the
+//     tiles arrive by 16-byte cp.async where a row is whole 16-byte chunks
+//     and element by element where it is not, and P . V gives a thread one
+//     column instead of two.
 //   * Online softmax per query row (one warp a row) in the log2 domain
 //     (log2 e folded into the scale): NEG_INF = -1e30, f32 (m, l), the
 //     weights rounded to the value dtype against the split's running max
@@ -58,7 +64,8 @@ size_t smem_bytes(int G, int D) {
          sizeof(float) * (2 * G * D + G * kMaxBlock + red + 3 * G);
 }
 
-template <typename T, int D>
+// kD > 0: D = kD, one of 32, 64 and 128; kD == 0: D = D_rt, any D > 0.
+template <typename T, int kD>
 __global__ void __launch_bounds__(kThreads)
     decode_split_kernel(const T* __restrict__ q,        // (B, H, D)
                         const T* __restrict__ k,        // (B, S_max, Hkv, D)
@@ -67,11 +74,16 @@ __global__ void __launch_bounds__(kThreads)
                         T* __restrict__ out,            // (B, H, D)
                         float* __restrict__ ws_acc,  // (splits, B, H, D)
                         float* __restrict__ ws_ml,   // (splits, B, H, 2)
-                        int B, int H, int Hkv, int S_max, int block,
-                        int tiles_per_split, int splits, float scale_log2) {
+                        int B, int H, int Hkv, int D_rt, int S_max,
+                        int block, int tiles_per_split, int splits,
+                        float scale_log2) {
   constexpr int kPerChunk = 16 / sizeof(T);  // elements per 16 bytes
-  constexpr int kLanesPerKey = D / kPerChunk;
+  constexpr int kLanesPerKey = kD > 0 ? kD / kPerChunk : 1;
   constexpr int kKeysPerWarp = 32 / kLanesPerKey;
+  const int D = kD > 0 ? kD : D_rt;
+  // a row of whole 16-byte chunks (always, for kD > 0) loads by cp.async
+  const bool vec = D * sizeof(T) % 16 == 0;
+  const int chunks = D * static_cast<int>(sizeof(T)) / 16;
   const int split = blockIdx.x;
   const int hk = blockIdx.y;
   const int b = blockIdx.z;
@@ -116,34 +128,44 @@ __global__ void __launch_bounds__(kThreads)
     l_s[g] = 0.f;
   }
 
-  // P . V work split: column pairs of the group, each over `parts`
-  // strided shares of the tile's keys (a power of two, <= 128 / pairs)
-  const int pairs = G * D / 2;
+  // P . V work split: column pairs of the group (single columns at a run-
+  // time D), each over `parts` strided shares of the tile's keys (a power
+  // of two, <= 128 / units)
+  const int units = kD > 0 ? G * D / 2 : G * D;
   int parts = 1;
-  while (pairs * parts * 2 <= kThreads) parts *= 2;
+  while (units * parts * 2 <= kThreads) parts *= 2;
 
   const int64_t row_stride = static_cast<int64_t>(Hkv) * D;
   for (int it = t_begin; it < t_end; ++it) {
     const int64_t off = (static_cast<int64_t>(b) * S_max +
                          static_cast<int64_t>(it) * block) * row_stride +
                         static_cast<int64_t>(hk) * D;
-    for (int i = tid; i < block * kLanesPerKey; i += kThreads) {
-      const int r = i / kLanesPerKey;
-      const int ch = (i - r * kLanesPerKey) * kPerChunk;
-      hp::cp_async16(ks + r * D + ch, k + off + r * row_stride + ch);
+    if (vec) {
+      for (int i = tid; i < block * chunks; i += kThreads) {
+        const int r = i / chunks;
+        const int ch = (i - r * chunks) * kPerChunk;
+        hp::cp_async16(ks + r * D + ch, k + off + r * row_stride + ch);
+      }
+      hp::cp_async_commit();
+      for (int i = tid; i < block * chunks; i += kThreads) {
+        const int r = i / chunks;
+        const int ch = (i - r * chunks) * kPerChunk;
+        hp::cp_async16(vs + r * D + ch, v + off + r * row_stride + ch);
+      }
+      hp::cp_async_commit();
+    } else {  // element by element; the barrier below publishes both
+      for (int i = tid; i < block * D; i += kThreads) {
+        const int r = i / D;
+        const int c = i - r * D;
+        ks[r * D + c] = k[off + r * row_stride + c];
+        vs[r * D + c] = v[off + r * row_stride + c];
+      }
     }
-    hp::cp_async_commit();
-    for (int i = tid; i < block * kLanesPerKey; i += kThreads) {
-      const int r = i / kLanesPerKey;
-      const int ch = (i - r * kLanesPerKey) * kPerChunk;
-      hp::cp_async16(vs + r * D + ch, v + off + r * row_stride + ch);
-    }
-    hp::cp_async_commit();
     hp::cp_async_wait<1>();  // K has landed; V may still be in flight
     __syncthreads();
 
     // scores: kLanesPerKey lanes per key, 16 bytes each
-    {
+    if constexpr (kD > 0) {
       const int sub = lane % kLanesPerKey;
       const int kw = lane / kLanesPerKey;
       for (int t0 = warp * kKeysPerWarp; t0 < block;
@@ -168,6 +190,21 @@ __global__ void __launch_bounds__(kThreads)
           for (int o = kLanesPerKey / 2; o > 0; o >>= 1)
             dot += __shfl_xor_sync(0xffffffffu, dot, o);
           if (in && sub == 0)
+            ps[g * kMaxBlock + tok] =
+                valid ? dot * scale_log2 : repro::kNegInf;
+        }
+      }
+    } else {  // a warp a key, lanes strided over D
+      for (int tok = warp; tok < block; tok += kThreads / 32) {
+        const bool valid = it * block + tok < length;
+        const T* kr = ks + tok * D;
+        for (int g = 0; g < G; ++g) {
+          const float* qr = qs + g * D;
+          float dot = 0.f;
+          for (int d = lane; d < D; d += 32)
+            dot = fmaf(qr[d], repro::to_float(kr[d]), dot);
+          dot = repro::warp_sum(dot);
+          if (lane == 0)
             ps[g * kMaxBlock + tok] =
                 valid ? dot * scale_log2 : repro::kNegInf;
         }
@@ -200,21 +237,30 @@ __global__ void __launch_bounds__(kThreads)
     hp::cp_async_wait<0>();  // V has landed
     __syncthreads();
 
-    // P . V over column pairs, keys strided over `parts`
-    for (int w = tid; w < pairs * parts; w += kThreads) {
-      const int u = w % pairs;
-      const int part = w / pairs;
-      const int g = u / (D / 2);
-      const int d = 2 * (u - g * (D / 2));
-      const float* pr = ps + g * kMaxBlock;
-      float x = 0.f, y = 0.f;
-      for (int t = part; t < block; t += parts) {
-        const float p = pr[t];
-        x = fmaf(p, repro::to_float(vs[t * D + d]), x);
-        y = fmaf(p, repro::to_float(vs[t * D + d + 1]), y);
+    // P . V over column pairs (or columns), keys strided over `parts`
+    for (int w = tid; w < units * parts; w += kThreads) {
+      const int u = w % units;
+      const int part = w / units;
+      if constexpr (kD > 0) {
+        const int g = u / (D / 2);
+        const int d = 2 * (u - g * (D / 2));
+        const float* pr = ps + g * kMaxBlock;
+        float x = 0.f, y = 0.f;
+        for (int t = part; t < block; t += parts) {
+          const float p = pr[t];
+          x = fmaf(p, repro::to_float(vs[t * D + d]), x);
+          y = fmaf(p, repro::to_float(vs[t * D + d + 1]), y);
+        }
+        red[part * G * D + g * D + d] = x;
+        red[part * G * D + g * D + d + 1] = y;
+      } else {
+        const int d = u % D;
+        const float* pr = ps + (u / D) * kMaxBlock;
+        float x = 0.f;
+        for (int t = part; t < block; t += parts)
+          x = fmaf(pr[t], repro::to_float(vs[t * D + d]), x);
+        red[part * G * D + u] = x;
       }
-      red[part * G * D + g * D + d] = x;
-      red[part * G * D + g * D + d + 1] = y;
     }
     __syncthreads();
     for (int i = tid; i < G * D; i += kThreads) {
@@ -239,22 +285,22 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int kD>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* lengths, void* out, float* ws, int B, int H,
-                   int Hkv, int S_max, int block, int splits,
+                   int Hkv, int D, int S_max, int block, int splits,
                    int tiles_per_split, float scale, cudaStream_t stream) {
   const size_t smem = smem_bytes<T>(H / Hkv, D);
-  cudaError_t err = repro::set_smem(decode_split_kernel<T, D>, smem);
+  cudaError_t err = repro::set_smem(decode_split_kernel<T, kD>, smem);
   if (err != cudaSuccess) return err;
   const int64_t rows = static_cast<int64_t>(B) * H;
   float* ws_acc = ws;
   float* ws_ml = splits > 1 ? ws + splits * rows * D : nullptr;
   const dim3 grid(splits, Hkv, B);
-  decode_split_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  decode_split_kernel<T, kD><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const int*>(lengths),
-      static_cast<T*>(out), ws_acc, ws_ml, B, H, Hkv, S_max, block,
+      static_cast<T*>(out), ws_acc, ws_ml, B, H, Hkv, D, S_max, block,
       tiles_per_split, splits, scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
@@ -269,16 +315,17 @@ cudaError_t launch_d(int D, const void* q, const void* k, const void* v,
                      int tiles_per_split, float scale, cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, lengths, out, ws, B, H, Hkv, S_max,
+      return launch<T, 32>(q, k, v, lengths, out, ws, B, H, Hkv, D, S_max,
                            block, splits, tiles_per_split, scale, stream);
     case 64:
-      return launch<T, 64>(q, k, v, lengths, out, ws, B, H, Hkv, S_max,
+      return launch<T, 64>(q, k, v, lengths, out, ws, B, H, Hkv, D, S_max,
                            block, splits, tiles_per_split, scale, stream);
     case 128:
-      return launch<T, 128>(q, k, v, lengths, out, ws, B, H, Hkv, S_max,
+      return launch<T, 128>(q, k, v, lengths, out, ws, B, H, Hkv, D, S_max,
                             block, splits, tiles_per_split, scale, stream);
     default:
-      return cudaErrorInvalidValue;
+      return launch<T, 0>(q, k, v, lengths, out, ws, B, H, Hkv, D, S_max,
+                          block, splits, tiles_per_split, scale, stream);
   }
 }
 
@@ -296,7 +343,7 @@ extern "C" int repro_decode_attention(int device, int dtype, const void* q,
   const size_t smem = dtype == REPRO_F32
                           ? smem_bytes<float>(Hkv > 0 ? H / Hkv : 1, D)
                           : smem_bytes<__nv_bfloat16>(Hkv > 0 ? H / Hkv : 1, D);
-  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || block <= 0 ||
+  if (B <= 0 || Hkv <= 0 || H % Hkv != 0 || D <= 0 || block <= 0 ||
       block > kMaxBlock || S_max <= 0 || S_max % block != 0 ||
       splits < 1 || tiles_per_split < 1 ||
       static_cast<int64_t>(splits) * tiles_per_split * block < S_max ||

@@ -65,9 +65,10 @@ def decode_attention_kernel(
 ) -> torch.Tensor:
     """Launch the decode kernel on ``q``'s stream; returns (B, H, D) in
     q.dtype.  ``S_max`` must be a multiple of ``min(128, S_max)``, as the
-    TPU kernel asserts, and D one of 32, 64 and 128 (the kernel's 16-byte
-    key slices).  A row with ``lengths <= 0`` attends uniformly
-    over all ``S_max`` rows, as the TPU kernel and the plain softmax do."""
+    TPU kernel asserts.  D 32, 64 and 128 take the kernel's 16-byte key
+    slices; any other D takes its run-time-D form.  A row with
+    ``lengths <= 0`` attends uniformly over all ``S_max`` rows, as the TPU
+    kernel and the plain softmax do."""
     if not q.is_cuda:
         raise ValueError("decode_attention_kernel takes CUDA tensors")
     if q.dtype not in _DTYPES:
@@ -89,8 +90,6 @@ def decode_attention_kernel(
     for t in (k_cache, v_cache, lengths):
         if t.device != q.device:
             raise ValueError("all operands must be on q's device")
-    if D not in (32, 64, 128):
-        raise ValueError(f"D={D}: the kernel takes D in (32, 64, 128)")
     q = q.contiguous()
     # 16-byte loads from the caches: copy a view that is not aligned
     k_cache, v_cache = (t if t.data_ptr() % 16 == 0 else t.clone()

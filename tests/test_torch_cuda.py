@@ -14,7 +14,12 @@ Tolerances: f32 1e-4 (the kernels sum in another order than the plain
 matmuls, over up to ~1k keys); bf16 2e-2 (the kernels round unnormalized
 softmax weights to bf16, the plain versions normalized ones — the same
 gap tests/test_kernels.py allows between the Pallas bodies and their
-oracles)."""
+oracles).  bf16 attention is also held row by row, each output row's
+largest error within 2e-2 of that row's largest magnitude: a near-uniform
+softmax over ~1k keys gives outputs of ~1e-2, under the absolute 2e-2,
+and a split that the combine drops or weighs wrongly moves a row by 4e-2
+to 1 of its magnitude (one bf16 ulp is under 8e-3).  Cases with q scaled
+up make the softmax peaked, so that the splits' maxima differ."""
 
 import numpy as np
 import pytest
@@ -36,6 +41,8 @@ pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
        torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+ROW_REL_TOL = 2e-2
+PEAKED_Q = 10.0  # scores spread ~0.9 instead of ~0.09
 
 
 @pytest.fixture(scope="module")
@@ -50,6 +57,17 @@ def card():
 def _close(got, want, dtype):
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(), **TOL[dtype])
+
+
+def _close_rows(got, want, dtype):
+    """Attention outputs: ``_close``, and for bf16 each row (the last axis)
+    within ROW_REL_TOL of the row's largest magnitude."""
+    _close(got, want, dtype)
+    if dtype == torch.bfloat16:
+        got, want = got.float(), want.float()
+        rel = ((got - want).abs().amax(-1)
+               / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+        assert rel <= ROW_REL_TOL, f"row-relative error {rel}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -81,11 +99,12 @@ def test_paged_kernel_matches_plain(card, dtype, B, n_pool, mb, H, Hkv, D,
     _close(got, want, dtype)
 
 
-def _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal, q_offset):
+def _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal, q_offset,
+                q_scale=1.0):
     """The kernel against the plain version; the bf16 kernel's plan
     (warpgroups, key tile, splits) is returned for the caller to check."""
     g = torch.Generator(device=card).manual_seed(B + S_q + S_kv + D)
-    q = torch.randn((B, S_q, H, D), generator=g, device=card) * 0.3
+    q = torch.randn((B, S_q, H, D), generator=g, device=card) * 0.3 * q_scale
     k = torch.randn((B, S_kv, Hkv, D), generator=g, device=card) * 0.3
     v = torch.randn((B, S_kv, Hkv, D), generator=g, device=card) * 0.3
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
@@ -98,7 +117,7 @@ def _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal, q_offset):
     split = dtype == torch.bfloat16 and plan.splits > 1
     assert flash_attention_kernel.combine_launches == combines + split
     want = ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
-    _close(got, want, dtype)
+    _close_rows(got, want, dtype)
     return plan
 
 
@@ -122,6 +141,26 @@ def test_flash_kernel_matches_plain(card, dtype, B, S_q, S_kv, H, Hkv, D,
     _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, True, q_offset)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize(
+    "B,S_q,S_kv,H,Hkv,D,causal,q_offset,splits",
+    [(1, 128, 1024, 14, 2, 64, True, 768, 5),
+     (1, 128, 512, 14, 2, 64, True, 300, 4),
+     (2, 128, 1024, 16, 16, 64, False, 0, 3),
+     (2, 65, 1000, 14, 2, 128, False, 0, 3),
+     (8, 128, 1024, 16, 16, 64, True, 896, 1),
+     (2, 1024, 1024, 16, 16, 64, False, 0, 1)],
+)
+def test_flash_kernel_peaked_softmax_matches_plain(card, dtype, B, S_q, S_kv,
+                                                   H, Hkv, D, causal,
+                                                   q_offset, splits):
+    """q scaled up: the splits' maxima differ, and a combine that drops a
+    split or skips its 2^(m_s - M) weight shows in every row."""
+    plan = _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal,
+                       q_offset, q_scale=PEAKED_Q)
+    assert plan.splits == splits
+
+
 DECODE_LENGTHS = [0, 1, 127, 128, 1000, 1024, 4095, 4096]
 # tile edges: block - 1, block, block + 1
 SPLIT_LENGTHS = [0, 1, 127, 128, 129, 1024, 4095, 4096]
@@ -135,15 +174,32 @@ SPLIT_LENGTHS = [0, 1, 127, 128, 129, 1024, 4095, 4096]
      (16, 16, 64, 4096, SPLIT_LENGTHS), (14, 2, 64, 4096, SPLIT_LENGTHS),
      # S_max 128: one split, no combine; B 1
      (14, 2, 64, 128, [0, 1, 127, 128]), (16, 16, 64, 128, [0, 1, 127, 128]),
-     (14, 2, 64, 4096, [1024]), (16, 16, 128, 4096, [129])],
+     (14, 2, 64, 4096, [1024]), (16, 16, 128, 4096, [129]),
+     # D outside 32 / 64 / 128: the run-time-D form (zamba2's 112; 80)
+     (16, 16, 112, 4096, SPLIT_LENGTHS), (14, 2, 80, 4096, DECODE_LENGTHS),
+     (7, 1, 112, 128, [0, 1, 127, 128])],
 )
 def test_decode_kernel_matches_plain(card, dtype, H, Hkv, D, S_max, lengths):
     """The contiguous decode kernel at seamless's cross cache (B 8, S_max
     4096), lengths from 0 (uniform weights over all rows) to S_max, and
     the split edges."""
-    g = torch.Generator(device=card).manual_seed(H + Hkv + D)
+    _decode_case(card, dtype, H, Hkv, D, S_max, lengths, H + Hkv + D)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,Hkv,D", [(16, 16, 64), (14, 2, 64),
+                                     (16, 16, 112)])
+def test_decode_kernel_peaked_softmax_matches_plain(card, dtype, H, Hkv, D):
+    """q scaled up over seamless's cross cache: the splits' maxima differ."""
+    _decode_case(card, dtype, H, Hkv, D, 4096, SPLIT_LENGTHS, H + Hkv + D + 1,
+                 q_scale=PEAKED_Q)
+
+
+def _decode_case(card, dtype, H, Hkv, D, S_max, lengths, seed, q_scale=1.0):
+    g = torch.Generator(device=card).manual_seed(seed)
     B = len(lengths)
-    q = torch.randn((B, H, D), generator=g, device=card).to(dtype) * 0.3
+    q = torch.randn((B, H, D), generator=g,
+                    device=card).to(dtype) * (0.3 * q_scale)
     k = torch.randn((B, S_max, Hkv, D), generator=g,
                     device=card).to(dtype) * 0.3
     v = torch.randn((B, S_max, Hkv, D), generator=g,
@@ -156,7 +212,7 @@ def test_decode_kernel_matches_plain(card, dtype, H, Hkv, D, S_max, lengths):
     assert decode_attention_kernel.launches == before + 1
     split = decode_plan(B, Hkv, S_max).splits > 1
     assert decode_attention_kernel.combine_launches == combines + split
-    _close(got, ref.decode_attention(q, k, v, lengths), dtype)
+    _close_rows(got, ref.decode_attention(q, k, v, lengths), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
