@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version at the full-width
-shapes of its path, and drives three paths at published width with
+shapes of its path, and drives four paths at published width with
 random weights from a seed:
 
   * qwen2-0.5b through ``Model`` and a ``ServingEngine`` that serves 8
@@ -19,7 +19,12 @@ random weights from a seed:
     1024 frame embeddings, a decoder over 128-token prompts: the flash
     kernel, non-causal and causal) and 32 greedy ``Model.decode_step``
     calls (per-slot paged self-attention and the contiguous cross-
-    attention decode kernel).
+    attention decode kernel);
+  * zamba2-7b through ``Model.prefill`` (8 prompts of 1024 tokens: 81
+    Mamba2 layers on the SSD kernel and 13 applications of the shared
+    attention block on the flash kernel at head dim 112, its run-time-D
+    form) and 32 greedy ``Model.decode_step`` calls (per-slot paged
+    attention over the shared block's pools).
 
 It checks that each path went through its kernels (launch counts), and
 times each kernel beside its plain version, its bound and a library
@@ -30,7 +35,7 @@ print as ``nvidia-smi`` gives them; the line before the last is the
 ``{"kernels": [...]}`` table and the last line is ``{"ok": true,
 "device": {...}}``.  Any failed check exits nonzero.
 ``--profile`` adds torch.profiler windows over engine steps, and over a
-prefill and decode steps of the SSM and encoder-decoder models.
+prefill and decode steps of the SSM, encoder-decoder and hybrid models.
 
 Needs a CUDA device and the repository's ``src/``; imports neither JAX
 nor the JAX package.
@@ -90,6 +95,16 @@ ED_BATCH, ED_FRAMES, ED_PROMPT, ED_STEPS, ED_MAX_SEQ = 8, 1024, 128, 32, 256
 # full width in f32 compute, kernels vs plain and prefill+decode vs
 # prefill: held to 1e-3 of the largest magnitude through 24 layers
 ED_F32_REL_TOL = 1e-3
+# zamba2-7b: 81 Mamba2 layers and 13 applications of the shared block;
+# 8 prompts of 1024 tokens, then 32 greedy steps.  The decode cache holds
+# HY_MAX_SEQ positions: 10 pages of 128 per slot in each pool
+HY_LAYERS, HY_BATCH, HY_SEQ, HY_STEPS = 81, 8, 1024, 32
+HY_MAX_SEQ = HY_SEQ + HY_STEPS
+HY_POOL = -(-HY_MAX_SEQ // 128) + 1
+HY_SSD_SHAPE = dict(B=HY_BATCH, S=HY_SEQ, H=112, P=64, N=64, chunk=128)
+# full width in f32 compute, kernels vs plain and prefill+decode vs
+# prefill: held to 1e-3 of the largest magnitude through 81 layers
+HY_F32_REL_TOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -376,7 +391,8 @@ def conditioned(model, params):
     argmax that one rounding step can flip, and two correct attention
     paths part ways within a few layers (phase "layers" shows it).
     Dense: ``layers.attn``; encoder-decoder: ``enc_layers.attn``,
-    ``dec_layers.self_attn`` and ``dec_layers.cross_attn``."""
+    ``dec_layers.self_attn`` and ``dec_layers.cross_attn``; hybrid:
+    ``shared_attn.attn``."""
     import math
 
     cfg = model.cfg
@@ -390,6 +406,10 @@ def conditioned(model, params):
         attn["wo"] = attn["wo"] / math.sqrt(H)
         return attn
 
+    if cfg.family == "hybrid":
+        shared = params["shared_attn"]
+        return dict(params, shared_attn=dict(shared,
+                                             attn=cond(shared["attn"])))
     if cfg.is_encdec:
         enc, dec = params["enc_layers"], params["dec_layers"]
         return dict(params,
@@ -1080,12 +1100,21 @@ def phase_ssd_parity(torch):
     held to the dtype's tolerance times its largest magnitude: the
     prefill shape in f32 and bf16, one short chunk (S = 127), and a
     smoke shape whose head count is not a multiple of 8."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
-
     full = SSD_SHAPE
     cases = [dict(full), dict(full, S=127, chunk=127),
              dict(B=2, S=256, H=6, P=32, N=16, chunk=128)]
+    rows, errs = ssd_cases(torch, cases, full, "ssd_scan")
+    emit({"phase": "ssd_parity", "ok": True, "cases": rows})
+    return errs
+
+
+def ssd_cases(torch, cases, full, err_name):
+    """Each case in f32 and bf16, y and the final state held to the
+    dtype's tolerance times each one's largest magnitude; the errors of
+    case ``full`` are returned under ``err_name``."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
+
     rows, errs = [], {}
     for case in cases:
         for dname in ("float32", "bfloat16"):
@@ -1109,9 +1138,8 @@ def phase_ssd_parity(torch):
                       f"ssd {dname} {case} {name}: err {e} at scale {scale}")
             rows.append(row)
             if case == full:
-                errs["ssd_scan", dname] = row["y_max_abs_err"]
-    emit({"phase": "ssd_parity", "ok": True, "cases": rows})
-    return errs
+                errs[err_name, dname] = row["y_max_abs_err"]
+    return rows, errs
 
 
 def ssm_prompts(vocab: int):
@@ -1238,6 +1266,38 @@ def phase_ssm_model(torch, model, params, model32, params32, tokens):
                             "plain_bf16_vs_plain_f32": bf16_vs_f32}})
 
 
+def greedy_decode(torch, model, params, logits, cache, batch, steps):
+    """``steps`` greedy decode steps from ``logits``; ``batch`` holds the
+    inputs besides the tokens ("lengths" advance by one a step).  Checks
+    that the last logits are finite and every token lies in the
+    vocabulary; returns the tokens (B, steps + 1), each step's CUDA-event
+    ms and the loop's wall seconds."""
+    batch = dict(batch)
+    nxt = logits.argmax(-1).to(torch.int32)
+    generated, events = [nxt], []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        s.record()
+        logits, cache = model.decode_step(params, cache,
+                                          dict(batch, tokens=nxt[:, None]))
+        nxt = logits.argmax(-1).to(torch.int32)
+        if "lengths" in batch:
+            batch["lengths"] = batch["lengths"] + 1
+        e.record()
+        events.append((s, e))
+        generated.append(nxt)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(bool(torch.isfinite(logits).all()), "non-finite decode logits")
+    toks = torch.stack(generated, 1)
+    check(toks.shape == (logits.shape[0], steps + 1), f"tokens {toks.shape}")
+    check(bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all()),
+          "token out of vocabulary range")
+    return toks, [s.elapsed_time(e) for s, e in events], wall
+
+
 def phase_ssm_generate(torch, model, params, tokens):
     """The main SSM path with the launch counts set to 0: one prefill of
     the 8 prompts, the decode cache loaded, 32 greedy decode steps."""
@@ -1260,31 +1320,12 @@ def phase_ssm_generate(torch, model, params, tokens):
     prefill_ms = (time.perf_counter() - t0) * 1e3
     cache = load_decode_cache(torch, model, pc, SSM_BATCH)
     del pc
-    nxt = logits.argmax(-1).to(torch.int32)
-    generated, events = [nxt], []
-    t1 = time.perf_counter()
-    for _ in range(SSM_STEPS):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        logits, cache = model.decode_step(params, cache,
-                                          {"tokens": nxt[:, None]})
-        nxt = logits.argmax(-1).to(torch.int32)
-        e.record()
-        events.append((s, e))
-        generated.append(nxt)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t1
+    toks, step_ms, decode_s = greedy_decode(torch, model, params, logits,
+                                            cache, {}, SSM_STEPS)
     launches = {n: k.launches for n, k in kernels.items()}
     check(launches == {"ssd_scan": SSM_LAYERS, "paged_attention": 0,
                        "flash_attention": 0, "decode_attention": 0},
           f"launches {launches}: want {SSM_LAYERS} SSD scans per prefill")
-    check(bool(torch.isfinite(logits).all()), "non-finite decode logits")
-    toks = torch.stack(generated, 1)
-    check(toks.shape == (SSM_BATCH, SSM_STEPS + 1), f"tokens {toks.shape}")
-    check(bool(((toks >= 0) & (toks < model.cfg.vocab_size)).all()),
-          "token out of vocabulary range")
-    step_ms = [s.elapsed_time(e) for s, e in events]
     emit({"phase": "ssm_generate", "ok": True, "arch": model.cfg.name,
           "batch": SSM_BATCH, "prompt_tokens": SSM_SEQ,
           "decode_steps": SSM_STEPS, "launches": launches,
@@ -1296,20 +1337,23 @@ def phase_ssm_generate(torch, model, params, tokens):
     return launches
 
 
-def ssd_table_row(torch, launches, errs):
-    """The SSD kernel at the prefill shape, bf16: kernel and plain time
-    beside the bound."""
+def ssd_table_row(torch, launches, errs, name="ssd_scan", sh=SSD_SHAPE):
+    """The SSD kernel at a prefill shape, bf16: kernel and plain time
+    beside the bound, and the kernel's device and cold-L2 times."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
 
     saved = ssd_chunk_scan_kernel.launches
-    sh = SSD_SHAPE
     B, S, H, P, N, L = (sh[k] for k in ("B", "S", "H", "P", "N", "chunk"))
     x, dt, a, b, c, d = ssd_inputs(torch, torch.bfloat16, B, S, H, P, N)
-    k_ms = time_ms(lambda: ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=L,
-                                                 d_skip=d), iters=20)
+
+    def kfn():
+        return ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=L, d_skip=d)
+
+    k_ms = time_ms(kfn, iters=20)
     p_ms = time_ms(lambda: ref.ssd_chunk_scan(x, dt, a, b, c, chunk=L,
                                               d_skip=d), iters=5, warmup=2)
+    timings = device_timings(torch, kfn)
     ssd_chunk_scan_kernel.launches = saved
     # each input read once, each output written once: x and y (bf16), dt
     # (f32), B and C (bf16), a and d (f32), the final state (f32)
@@ -1321,13 +1365,13 @@ def ssd_table_row(torch, launches, errs):
     flops = 2 * B * n_chunks * (pairs * N + H * pairs * P
                                 + 2 * H * L * P * N)
     b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
-    return {"name": "ssd_scan", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
             "replaces": "src/repro/kernels/ssd_scan.py:83",
             "launches": launches["ssd_scan"],
-            "max_abs_err": errs["ssd_scan", "bfloat16"],
+            "max_abs_err": errs[name, "bfloat16"],
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": None,
+            "bound_by": b_by, "library_ms": None, **timings,
             "library_note": "no single PyTorch call computes the SSD scan",
             "shape": " ".join(f"{k}={v}" for k, v in sh.items()),
             "bytes": n_bytes, "flops": flops}
@@ -1375,9 +1419,6 @@ def phase_per_slot_parity(torch):
     version: phase kernel_parity's paged shape with a different
     permutation of each slot's pages in each row, and seamless's
     self-attention pool (3 pages of 128 per slot, 16 kv heads of 64)."""
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.paged_attention import paged_attention_kernel
-
     cases = [
         (dict(n_pool=16, mb=9, H=14, Hkv=2, D=64), 8,
          [1001, 645, 129, 388, 901, 261, 0, 1]),
@@ -1387,26 +1428,34 @@ def phase_per_slot_parity(torch):
     rows, errs = [], {}
     for shape, n_kv, lengths in cases:
         for dname in ("float32", "bfloat16"):
-            q, kp, vp, _, lens = paged_inputs(
-                torch, getattr(torch, dname), lengths, **shape)
-            table = local_table(torch, len(lengths), shape["n_pool"],
-                                shape["mb"])
-            got = paged_attention_kernel(q, kp, vp, table, lens, n_kv=n_kv,
-                                         global_pages=False)
-            want = ref.paged_attention(q, kp, vp, table, lens, n_kv=n_kv,
-                                       global_pages=False)
-            torch.cuda.synchronize()
-            e = max_err(got, want)
-            rows.append({"kernel": "paged_attention (per-slot pages)",
-                         "dtype": dname, "case": "B=8 " + " ".join(
-                             f"{n}={x}" for n, x in shape.items())
-                         + f" n_kv={n_kv}", "lengths": lengths,
-                         "max_abs_err": e, "tol": KERNEL_TOL[dname]})
-            check(e <= KERNEL_TOL[dname], f"per-slot {dname} {shape} err {e}")
+            rows.append(per_slot_case(torch, dname, shape, n_kv, lengths))
             if shape["n_pool"] == 3:
-                errs["paged_attention_per_slot", dname] = e
+                errs["paged_attention_per_slot", dname] = \
+                    rows[-1]["max_abs_err"]
     emit({"phase": "per_slot_parity", "ok": True, "cases": rows})
     return errs
+
+
+def per_slot_case(torch, dname, shape, n_kv, lengths):
+    """The paged kernel with per-slot page ids against the plain version:
+    a different permutation of each slot's pages in each row."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    q, kp, vp, _, lens = paged_inputs(torch, getattr(torch, dname), lengths,
+                                      **shape)
+    table = local_table(torch, len(lengths), shape["n_pool"], shape["mb"])
+    got = paged_attention_kernel(q, kp, vp, table, lens, n_kv=n_kv,
+                                 global_pages=False)
+    want = ref.paged_attention(q, kp, vp, table, lens, n_kv=n_kv,
+                               global_pages=False)
+    torch.cuda.synchronize()
+    name = (f"B={len(lengths)} " + " ".join(f"{n}={x}"
+                                            for n, x in shape.items())
+            + f" n_kv={n_kv}")
+    case = attention_errs(got, want, dname, f"per-slot {name}")
+    return {"kernel": "paged_attention (per-slot pages)", "dtype": dname,
+            "case": name, "lengths": lengths, **case}
 
 
 def phase_flash_noncausal_parity(torch):
@@ -1664,34 +1713,13 @@ def phase_encdec_generate(torch, model, params, enc, toks, table):
     del pc
     lengths = torch.full((ED_BATCH,), ED_PROMPT, dtype=torch.int32,
                          device=model.device)
-    nxt = logits.argmax(-1).to(torch.int32)
-    generated, events = [nxt], []
-    t1 = time.perf_counter()
-    for _ in range(ED_STEPS):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        logits, cache = model.decode_step(params, cache, {
-            "tokens": nxt[:, None], "lengths": lengths,
-            "block_table": table})
-        nxt = logits.argmax(-1).to(torch.int32)
-        lengths = lengths + 1
-        e.record()
-        events.append((s, e))
-        generated.append(nxt)
-    torch.cuda.synchronize()
-    decode_s = time.perf_counter() - t1
+    toks, step_ms, decode_s = greedy_decode(
+        torch, model, params, logits, cache,
+        {"lengths": lengths, "block_table": table}, ED_STEPS)
     launches = {n: k.launches for n, k in kernels.items()}
     want = dict(at_prefill, decode_attention=L * ED_STEPS,
                 paged_attention=L * ED_STEPS)
     check(launches == want, f"launches {launches}, want {want}")
-    check(bool(torch.isfinite(logits).all()), "non-finite decode logits")
-    toks_out = torch.stack(generated, 1)
-    check(toks_out.shape == (ED_BATCH, ED_STEPS + 1),
-          f"tokens {toks_out.shape}")
-    check(bool(((toks_out >= 0) & (toks_out < model.cfg.vocab_size)).all()),
-          "token out of vocabulary range")
-    step_ms = [s.elapsed_time(e) for s, e in events]
     emit({"phase": "encdec_generate", "ok": True, "arch": model.cfg.name,
           "batch": ED_BATCH, "frames": ED_FRAMES,
           "prompt_tokens": ED_PROMPT, "decode_steps": ED_STEPS,
@@ -1702,7 +1730,7 @@ def phase_encdec_generate(torch, model, params, enc, toks, table):
           "median_decode_step_ms": statistics.median(step_ms),
           "decode_tokens_per_s": ED_BATCH * ED_STEPS / decode_s,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "first_tokens": toks_out[:, :4].tolist()})
+          "first_tokens": toks[:, :4].tolist()})
     return launches
 
 
@@ -1805,11 +1833,16 @@ def encdec_table_rows(torch, launches, errs):
         return F.scaled_dot_product_attention(qt, kt, vt)
 
     l_ms = time_ms(lfn, iters=10, warmup=2)
-    # the f32 route (the CUDA-core body kept for the f32 checks)
+    # the f32 route (the CUDA-core body kept for the f32 checks), beside
+    # the plain version and SDPA in f32
     q32, k32, v32 = (x.float() for x in (q, k, v))
-    f32_ms = time_ms(lambda: flash_attention_kernel(q32, k32, v32,
-                                                    causal=False),
-                     iters=3, warmup=1)
+    f32 = {"f32_ms": time_ms(lambda: flash_attention_kernel(
+               q32, k32, v32, causal=False), iters=3, warmup=1),
+           "f32_plain_ms": time_ms(lambda: ref.flash_attention(
+               q32, k32, v32, causal=False), iters=3, warmup=1),
+           "f32_library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               *(x.transpose(1, 2) for x in (q32, k32, v32))),
+               iters=3, warmup=1)}
     del q32, k32, v32
     plan = flash_plan(ED_BATCH, S, H, S, causal=False)
     n_bytes = 4 * q.numel() * elt
@@ -1822,7 +1855,7 @@ def encdec_table_rows(torch, launches, errs):
                  "max_abs_err": errs["flash_encoder", "bfloat16"],
                  "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": l_ms,
-                 **device_timings(torch, kfn, lfn, n=10), "f32_ms": f32_ms,
+                 **device_timings(torch, kfn, lfn, n=10), **f32,
                  "library_note": "scaled_dot_product_attention, no mask "
                                  "(timed only)",
                  "shape": f"B={ED_BATCH} S_q=S_kv={S} non-causal H={H} "
@@ -1832,6 +1865,418 @@ def encdec_table_rows(torch, launches, errs):
     (decode_attention_kernel.launches, paged_attention_kernel.launches,
      flash_attention_kernel.launches) = saved
     return rows
+
+
+# ---------------------------------------------------------------------------
+# the hybrid path: zamba2-7b prefill (SSD scan and flash at head dim 112)
+# and greedy decode (per-slot paged attention over the shared block's pools)
+# ---------------------------------------------------------------------------
+def phase_flash_anyd_parity(torch):
+    """The flash kernel's run-time-D form (head dims outside 32/64/128)
+    against the plain version: D 112 (zamba2), 96 (phi3) and 80, in f32
+    and bf16, a causal chunk at a q_offset (split key ranges), non-causal
+    attention (split), and zamba2's prefill shape (B 8, 1024 tokens, 32
+    heads, unsplit), each also with q scaled up for a peaked softmax."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
+
+    shapes = [dict(B=1, S_q=128, S_kv=1024, H=14, Hkv=2, causal=True,
+                   off=768),
+              dict(B=2, S_q=128, S_kv=1024, H=16, Hkv=16, causal=False,
+                   off=0),
+              dict(B=HY_BATCH, S_q=HY_SEQ, S_kv=HY_SEQ, H=32, Hkv=32,
+                   causal=True, off=0)]
+    rows, errs = [], {}
+    for D, sh, qs in itertools.product((112, 96, 80), shapes,
+                                       (1.0, PEAKED_Q)):
+        plan = flash_plan(sh["B"], sh["S_q"], sh["H"], sh["S_kv"],
+                          q_offset=sh["off"], causal=sh["causal"],
+                          head_dim=D)
+        for dname in ("float32", "bfloat16"):
+            q, k, v = flash_inputs(torch, getattr(torch, dname), sh["S_kv"],
+                                   S_q=sh["S_q"], H=sh["H"], Hkv=sh["Hkv"],
+                                   D=D, B=sh["B"], q_scale=qs)
+            got = flash_attention_kernel(q, k, v, causal=sh["causal"],
+                                         q_offset=sh["off"])
+            want = ref.flash_attention(q, k, v, causal=sh["causal"],
+                                       q_offset=sh["off"])
+            torch.cuda.synchronize()
+            name = (" ".join(f"{n}={x}" for n, x in sh.items())
+                    + f" D={D} q_scale={qs} splits={plan.splits}")
+            case = attention_errs(got, want, dname, f"flash {name}")
+            rows.append({"kernel": "flash_attention (run-time D)",
+                         "dtype": dname, "case": name, **case})
+            if D == 112 and sh["B"] == HY_BATCH:
+                errs["flash_attention_zamba2", dname] = max(
+                    case["max_abs_err"],
+                    errs.get(("flash_attention_zamba2", dname), 0.0))
+            del q, k, v, got, want
+    emit({"phase": "flash_anyd_parity", "ok": True, "cases": rows})
+    return errs
+
+
+def phase_hybrid_kernel_parity(torch):
+    """The SSD kernel at zamba2's prefill shape (112 heads of 64, state
+    64) and the per-slot paged kernel at its shared block's decode shape
+    (G 1, head dim 112, 10 pages of 128 per slot), in f32 and bf16."""
+    rows, errs = ssd_cases(torch, [dict(HY_SSD_SHAPE)], HY_SSD_SHAPE,
+                           "ssd_scan_zamba2")
+    shape = dict(n_pool=HY_POOL, mb=HY_POOL, H=32, Hkv=32, D=112)
+    lengths = [HY_SEQ, HY_MAX_SEQ - 1, 1, 0, 500, 129, 128, HY_SEQ + 16]
+    for dname in ("float32", "bfloat16"):
+        rows.append(per_slot_case(torch, dname, shape, HY_POOL, lengths))
+        errs["paged_attention_zamba2", dname] = rows[-1]["max_abs_err"]
+    emit({"phase": "hybrid_kernel_parity", "ok": True, "cases": rows})
+    return errs
+
+
+def hybrid_prompts(vocab: int):
+    import numpy as np
+
+    rs = np.random.RandomState(5)
+    return rs.randint(1, vocab, (HY_BATCH, HY_SEQ)).astype(np.int32)
+
+
+def load_hybrid_cache(torch, model, pcache, table):
+    """The hybrid's prefill cache in its decode cache: every Mamba2
+    layer's state and conv tails cast to f32, and each application's K/V
+    page by page into the per-slot pages its block-table row names (the
+    last page zero-padded)."""
+    from repro_torch.configs import ShapeConfig
+
+    B = table.shape[0]
+    cache = model.init_cache(ShapeConfig("serve", "decode", HY_MAX_SEQ, B))
+    for k, dst in cache["layers"].items():
+        dst.copy_(pcache["mamba"][k])
+    pages = table.tolist()
+    S = pcache["attn_k"].shape[2]
+    for j in range(-(-S // 128)):
+        for name, pool in (("attn_k", "k_pool"), ("attn_v", "v_pool")):
+            seg = pcache[name][:, :, j * 128:(j + 1) * 128]
+            for b in range(B):
+                cache["attn"][pool][:, b, pages[b][j], :seg.shape[2]] = \
+                    seg[:, b]
+    return cache
+
+
+def _decode_batch(torch, tokens, table, length):
+    return {"tokens": tokens, "block_table": table,
+            "lengths": torch.full((table.shape[0],), length,
+                                  dtype=torch.int32, device=table.device)}
+
+
+def phase_hybrid_layers(torch, model, params, tokens, table):
+    """Layer by layer at full width, bf16: at every layer the kernels and
+    the plain versions get the SAME input (the plain path's hidden state),
+    so a difference is that layer's alone — each Mamba2 block (SSD
+    kernel) and each application of the shared block's causal attention
+    (flash, head dim 112) over the prompts, then, on the loaded cache, one
+    decode step's shared attention over each application's per-slot pool
+    (paged kernel).  Outputs held to 4 bf16 ulps of their largest
+    magnitude, attention outputs also row by row, each Mamba2 layer's
+    final state (f32 in both) to the f32 kernel tolerance of its largest
+    magnitude."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    shared = params["shared_attn"]
+    worst = {}
+
+    def hold(kind, i, got, want, tol=None, rows=False):
+        e, scale = max_err(got, want), float(want.float().abs().max())
+        limit = 4 * bf16_ulp(scale) if tol is None else tol * scale
+        check(e <= limit, f"{kind} {i}: err {e} at scale {scale}")
+        if rows:
+            r = row_rel_err(got, want)
+            check(r <= ROW_REL_TOL, f"{kind} {i}: row-relative err {r}")
+        w = worst.get(kind, (0.0, 1.0, -1))
+        if e / scale >= w[0] / w[1]:
+            worst[kind] = (e, scale, i)
+
+    h = L.embed_tokens(params["embed"], tokens, cfg)
+    caches, ks, vs = [], [], []
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["layers"], i)
+        m_in = L.apply_norm(lp["norm"], h, cfg)
+        got, got_c = S.mamba_full(lp["mamba"], m_in, cfg)
+        want, want_c = S.mamba_full(lp["mamba"], m_in, cfg, impl="plain")
+        hold("mamba", i, got, want)
+        hold("mamba_state", i, got_c["state"], want_c["state"],
+             tol=KERNEL_TOL["float32"])
+        h = h + want
+        caches.append(want_c)
+        del got, got_c
+        if (i + 1) % cfg.attn_period:
+            continue
+        j = (i + 1) // cfg.attn_period - 1
+        a_in = L.apply_norm(shared["norm1"], h, cfg)
+        res = [L.attention_full(shared["attn"], a_in, cfg, causal=True,
+                                impl=impl) for impl in (None, "plain")]
+        hold("shared_attn", j, res[0][0], res[1][0], rows=True)
+        h = T._shared_mlp(shared, h + res[1][0], cfg)
+        ks.append(res[1][1][0])
+        vs.append(res[1][1][1])
+        del res
+    cache = load_hybrid_cache(torch, model, {
+        "mamba": T._stack(caches), "attn_k": torch.stack(ks),
+        "attn_v": torch.stack(vs)}, table)
+    del caches, ks, vs
+    batch = _decode_batch(torch, tokens[:, -1:], table, HY_SEQ)
+    h = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    for i in range(cfg.num_layers):
+        h = T._mamba_decode_layer(params, cache, i, h, cfg)
+        if (i + 1) % cfg.attn_period:
+            continue
+        j = (i + 1) // cfg.attn_period - 1
+        pools = T._layer(cache["attn"], j)
+        a_in = L.apply_norm(shared["norm1"], h, cfg)
+        # both write the same new K/V row before attending
+        outs = [L.attention_decode(shared["attn"], a_in, cfg, pools,
+                                   batch["lengths"],
+                                   block_table=table, impl=impl)[0]
+                for impl in (None, "plain")]
+        hold("shared_attn_decode_paged", j, outs[0], outs[1], rows=True)
+        h = T._shared_mlp(shared, h + outs[1], cfg)
+    torch.cuda.synchronize()
+    emit({"phase": "hybrid_layers", "ok": True, "arch": cfg.name,
+          "batch": HY_BATCH, "seq": HY_SEQ,
+          "tol": {"outputs": "4 bf16 ulps of max|out| (attention also "
+                             f"row by row, {ROW_REL_TOL})",
+                  "mamba_state": f"{KERNEL_TOL['float32']} of max|state|"},
+          "worst": {k: {"max_abs_err": v[0], "max_abs": v[1], "index": v[2]}
+                    for k, v in worst.items()}})
+
+
+def _hybrid_prefill_pair(torch, model, params, tokens):
+    """Prefill logits and every cache leaf, kernels vs plain (the Mamba2
+    states layer by layer); also returns the plain logits."""
+    logits_k, cache_k = model.prefill(params, {"tokens": tokens})
+    logits_p, cache_p = model.prefill(params, {"tokens": tokens},
+                                      impl="plain")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits_k).all()), "non-finite prefill logits")
+    caches = {k: rel_err(cache_k["mamba"][k], cache_p["mamba"][k])
+              for k in ("conv_x", "conv_b", "conv_c")}
+    caches["state_worst_layer"] = max(
+        (rel_err(cache_k["mamba"]["state"][i], cache_p["mamba"]["state"][i])
+         for i in range(model.cfg.num_layers)), key=lambda e: e["rel"])
+    for k in ("attn_k", "attn_v"):
+        caches[k] = rel_err(cache_k[k], cache_p[k])
+    return _logit_err(logits_k, logits_p), caches, logits_p
+
+
+def _hybrid_teacher_forcing(torch, model, params, tokens, table, n=127):
+    """Prefill of ``n`` tokens plus one decode step of token n against a
+    prefill of ``n + 1`` tokens, on the last logits."""
+    _, pc = model.prefill(params, {"tokens": tokens[:, :n]})
+    cache = load_hybrid_cache(torch, model, pc, table)
+    del pc
+    got, _ = model.decode_step(params, cache, _decode_batch(
+        torch, tokens[:, n:n + 1], table, n))
+    want, _ = model.prefill(params, {"tokens": tokens[:, :n + 1]})
+    torch.cuda.synchronize()
+    return _logit_err(got, want)
+
+
+def phase_hybrid_model(torch, model, model32, params32, tokens, table):
+    """Full-width prefill through the kernels against the plain versions
+    (logits and every cache leaf), and teacher forcing (prefill 127 + one
+    decode step against prefill 128).  Held in f32 compute (the f32 flash
+    body, the SSD kernel in f32): bf16 rounding compounds through 81
+    layers (ROADMAP Queue C), as it does for mamba2; reported in bf16
+    compute beside the plain bf16 model against the plain f32 model.
+    The bf16 weights are cast from ``params32`` after the f32 checks (27
+    GB of f32 weights and 13.5 GB of bf16 ones would leave little room
+    for the f32 activations beside them) and returned."""
+    logit32, caches32, plain32 = _hybrid_prefill_pair(torch, model32,
+                                                      params32, tokens)
+    check(logit32["rel"] <= HY_F32_REL_TOL, f"f32 logits {logit32}")
+    for k, e in caches32.items():
+        check(e["rel"] <= HY_F32_REL_TOL, f"f32 cache {k} {e}")
+    tf32 = _hybrid_teacher_forcing(torch, model32, params32, tokens, table)
+    check(tf32["rel"] <= HY_F32_REL_TOL, f"f32 teacher forcing {tf32}")
+    peak32 = torch.cuda.max_memory_allocated() / 1e9
+    params = model.compute_params(params32)
+    logit16, caches16, plain16 = _hybrid_prefill_pair(torch, model, params,
+                                                      tokens)
+    bf16_vs_f32 = _logit_err(plain16, plain32)
+    tf16 = _hybrid_teacher_forcing(torch, model, params, tokens, table)
+    emit({"phase": "hybrid_model", "ok": True, "arch": model.cfg.name,
+          "batch": HY_BATCH, "seq": HY_SEQ, "tol_rel_f32": HY_F32_REL_TOL,
+          "f32": {"prefill_logits": logit32, "caches": caches32,
+                  "teacher_forcing_127_plus_1": tf32},
+          "bf16_reported": {"prefill_logits": logit16, "caches": caches16,
+                            "teacher_forcing_127_plus_1": tf16,
+                            "plain_bf16_vs_plain_f32": bf16_vs_f32},
+          "peak_mem_gb_f32_checks": peak32,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return params
+
+
+def phase_hybrid_generate(torch, model, params, tokens, table):
+    """The main hybrid path with the launch counts set to 0: one prefill
+    of the 8 prompts (81 SSD scans, 13 flash calls), the decode cache
+    loaded, HY_STEPS greedy decode steps with per-slot page ids (13
+    paged calls each)."""
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
+
+    kernels = {"ssd_scan": ssd_chunk_scan_kernel,
+               "flash_attention": flash_attention_kernel,
+               "paged_attention": paged_attention_kernel,
+               "decode_attention": decode_attention_kernel}
+    n_attn = model.cfg.num_layers // model.cfg.attn_period
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    flash_attention_kernel.combine_launches = 0
+    t0 = time.perf_counter()
+    logits, pc = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    at_prefill = {n: k.launches for n, k in kernels.items()}
+    check(at_prefill == {"ssd_scan": HY_LAYERS, "flash_attention": n_attn,
+                         "paged_attention": 0, "decode_attention": 0},
+          f"prefill launches {at_prefill}: want {HY_LAYERS} SSD scans and "
+          f"{n_attn} flash calls")
+    cache = load_hybrid_cache(torch, model, pc, table)
+    del pc
+    toks, step_ms, decode_s = greedy_decode(
+        torch, model, params, logits, cache,
+        _decode_batch(torch, None, table, HY_SEQ), HY_STEPS)
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = dict(at_prefill, paged_attention=n_attn * HY_STEPS)
+    check(launches == want, f"launches {launches}, want {want}")
+    emit({"phase": "hybrid_generate", "ok": True, "arch": model.cfg.name,
+          "batch": HY_BATCH, "prompt_tokens": HY_SEQ,
+          "decode_steps": HY_STEPS, "launches": launches,
+          "combine_launches": {
+              "flash_attention": flash_attention_kernel.combine_launches},
+          "prefill_ms": prefill_ms,
+          "median_decode_step_ms": statistics.median(step_ms),
+          "decode_tokens_per_s": HY_BATCH * HY_STEPS / decode_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "first_tokens": toks[:, :4].tolist()})
+    return launches
+
+
+def hybrid_table_rows(torch, launches, errs):
+    """The three kernels of the hybrid path at its shapes, bf16: kernel,
+    plain and library time beside the bound, device and cold-L2 times;
+    for flash also the D 128 kernel at the same shape (the work the
+    padded D 112 form does)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    saved = (flash_attention_kernel.launches, paged_attention_kernel.launches)
+    bf, elt = torch.bfloat16, 2
+    B, S, H, D = HY_BATCH, HY_SEQ, 32, 112
+    rows = []
+
+    # the shared block's causal prefill attention
+    q, k, v = flash_inputs(torch, bf, S, S_q=S, H=H, Hkv=H, D=D, B=B)
+    def kfn():
+        return flash_attention_kernel(q, k, v, causal=True)
+
+    k_ms = time_ms(kfn, iters=20)
+    p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=True),
+                   iters=5, warmup=2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    def lfn():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    l_ms = time_ms(lfn, iters=20)
+    plan = flash_plan(B, S, H, S, causal=True, head_dim=D)
+    # the D 128 kernel at the same shape: the work the padded form does
+    q128, k128, v128 = flash_inputs(torch, bf, S, S_q=S, H=H, Hkv=H, D=128,
+                                    B=B)
+    p128 = flash_plan(B, S, H, S, causal=True, head_dim=128)
+    d128_ms = time_ms(lambda: flash_attention_kernel(q128, k128, v128,
+                                                     causal=True), iters=20)
+    del q128, k128, v128
+    n_bytes = 4 * q.numel() * elt
+    flops = 4 * B * H * D * (S * (S + 1) // 2)
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    rows.append({"name": "flash_attention_zamba2", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:85",
+                 "launches": launches["flash_attention"],
+                 "max_abs_err": errs["flash_attention_zamba2", "bfloat16"],
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": l_ms,
+                 **device_timings(torch, kfn, lfn, n=10),
+                 "d128_ms": d128_ms,
+                 "d128_plan": f"warpgroups={p128.consumers} "
+                              f"key_tile={p128.keys}",
+                 "library_note": "scaled_dot_product_attention, "
+                                 "is_causal=True (timed only)",
+                 "shape": f"B={B} S_q=S_kv={S} causal H={H} Hkv={H} D={D} "
+                          f"(run-time D) warpgroups={plan.consumers} "
+                          f"key_tile={plan.keys} splits={plan.splits}",
+                 "flops": flops, "bytes": n_bytes})
+    del q, k, v, qt, kt, vt
+
+    # the SSD scan at zamba2's prefill shape
+    rows.append(ssd_table_row(torch, launches, errs, "ssd_scan_zamba2",
+                              HY_SSD_SHAPE))
+
+    # the shared block's decode attention at the last step: every row
+    # holds HY_SEQ + HY_STEPS positions of its 10-page per-slot pool
+    lengths = [HY_MAX_SEQ] * B
+    q, kp, vp, _, lens = paged_inputs(torch, bf, lengths, n_pool=HY_POOL,
+                                      mb=HY_POOL, H=H, Hkv=H, D=D)
+    table = local_table(torch, B, HY_POOL, HY_POOL)
+    def pfn():
+        return paged_attention_kernel(q, kp, vp, table, lens)
+
+    k_ms = time_ms(pfn)
+    p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens))
+    n_rows = sum(lengths)
+    n_bytes = (2 * q.numel() * elt + n_rows * H * D * 2 * elt
+               + table.numel() * 4 + lens.numel() * 4)
+    b_ms, b_by = bound_ms(n_bytes, 4 * H * D * n_rows, "bfloat16")
+    rows.append({"name": "paged_attention_per_slot_zamba2", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+                 "replaces": "src/repro/kernels/paged_attention.py:128 "
+                             "(global_pages=False, :171-177)",
+                 "launches": launches["paged_attention"],
+                 "max_abs_err": errs["paged_attention_zamba2", "bfloat16"],
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None,
+                 **device_timings(torch, pfn),
+                 "library_note": "no single PyTorch call attends over pages "
+                                 "named by a block table",
+                 "shape": f"B={B} n_pool={HY_POOL} lengths={HY_MAX_SEQ} "
+                          f"H={H} Hkv={H} D={D}",
+                 "bytes": n_bytes})
+    flash_attention_kernel.launches, paged_attention_kernel.launches = saved
+    return rows
+
+
+def phase_hybrid_profile(torch, model, params, tokens, table,
+                         steps: int = 8):
+    """Device time by kernel over one hybrid prefill and over ``steps``
+    greedy decode steps (torch.profiler)."""
+    batch = {"tokens": tokens}
+    out = {"prefill": _profile_window(
+        torch, lambda: model.prefill(params, batch))}
+    logits, pc = model.prefill(params, batch)
+    cache = load_hybrid_cache(torch, model, pc, table)
+    del pc
+    out["decode"] = _profile_decode(
+        torch, model, params, logits, cache,
+        _decode_batch(torch, None, table, HY_SEQ), steps)
+    emit({"phase": "hybrid_profile", "ok": True, **out})
 
 
 def _profiler():
@@ -1880,19 +2325,8 @@ def _profile_decode(torch, model, params, logits, cache, batch, steps):
     """``steps`` greedy decode steps from ``logits`` in one profiled
     window; ``batch`` holds any inputs besides the tokens (lengths
     advance by one a step when present)."""
-    state = {"nxt": logits.argmax(-1).to(torch.int32), "cache": cache,
-             "batch": dict(batch)}
-
-    def run():
-        for _ in range(steps):
-            b = dict(state["batch"], tokens=state["nxt"][:, None])
-            out, state["cache"] = model.decode_step(params, state["cache"],
-                                                    b)
-            state["nxt"] = out.argmax(-1).to(torch.int32)
-            if "lengths" in b:
-                state["batch"]["lengths"] = b["lengths"] + 1
-
-    out = _profile_window(torch, run)
+    out = _profile_window(torch, lambda: greedy_decode(
+        torch, model, params, logits, cache, batch, steps))
     out["steps"] = steps
     return out
 
@@ -1954,8 +2388,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler windows over an engine run, "
-                         "and over a prefill and decode steps of the SSM "
-                         "and the encoder-decoder models")
+                         "and over a prefill and decode steps of the SSM, "
+                         "encoder-decoder and hybrid models")
     args = ap.parse_args()
 
     import torch
@@ -2091,6 +2525,47 @@ def main() -> int:
                 phase = "encdec_profile"
                 phase_encdec_profile(torch, model, params, enc, toks,
                                      ed_table)
+            del model, params, enc, toks
+            torch.cuda.empty_cache()
+
+            phase = "flash_anyd_parity"
+            errs.update(phase_flash_anyd_parity(torch))
+            phase = "hybrid_kernel_parity"
+            errs.update(phase_hybrid_kernel_parity(torch))
+            phase = "hybrid_init"
+            t0 = time.perf_counter()
+            cfg = ARCHS["zamba2-7b"]
+            model = Model(cfg)
+            model32 = Model(cfg.scaled(dtype="float32"))
+            params32 = conditioned(model, model.init_params(seed=0))
+            params = model.compute_params(params32)
+            tokens = torch.from_numpy(
+                hybrid_prompts(cfg.vocab_size)).to(model.device)
+            hy_table = local_table(torch, HY_BATCH, HY_POOL, HY_POOL)
+            torch.cuda.synchronize()
+            emit({"phase": "hybrid_init", "ok": True, "arch": cfg.name,
+                  "params": model.n_params(),
+                  "seconds": time.perf_counter() - t0,
+                  "block_table": hy_table.tolist(),
+                  "mem_gb": torch.cuda.memory_allocated() / 1e9})
+            phase = "hybrid_layers"
+            phase_hybrid_layers(torch, model, params, tokens, hy_table)
+            del params
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            phase = "hybrid_model"
+            params = phase_hybrid_model(torch, model, model32, params32,
+                                        tokens, hy_table)
+            del model32, params32
+            torch.cuda.empty_cache()
+            phase = "hybrid_generate"
+            hy_launches = phase_hybrid_generate(torch, model, params, tokens,
+                                                hy_table)
+            phase = "hybrid_table"
+            table += hybrid_table_rows(torch, hy_launches, errs)
+            if args.profile:
+                phase = "hybrid_profile"
+                phase_hybrid_profile(torch, model, params, tokens, hy_table)
     except Exception as exc:  # report which phase failed, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

@@ -60,7 +60,20 @@
 // f32: the CUDA-core body of the first version (flash_fwd_kernel<float>),
 //   chosen by dtype at every call.  It is not a fallback: the f32 path
 //   serves the correctness checks held to 1e-4 (kernel) and 1e-3 (the
-//   seamless model in f32), which TF32 tensor-core products would miss.
+//   seamless and zamba2 models in f32), which TF32 tensor-core products
+//   would miss.
+// Head dims.  D 32, 64 and 128 are compiled forms.  Any other D with
+//   D % 8 == 0 and D <= 128 (phi3's 96, zamba2's 112) runs a run-time-D
+//   form (kAnyD).  bf16: the D 64 (D <= 64) or D 128 instantiation with
+//   the tensor maps spanning the real D, so TMA writes zeros into columns
+//   D .. 63 / 127 of every Q, K and V box, as it does for rows past S.
+//   Zeros add nothing to Q.K^T; the P.V columns past D are never stored,
+//   and the epilogue, the split workspace and the combine stride by the
+//   real D.  A row of D % 8 == 0 columns is whole 16-byte units, which
+//   the tensor maps' strides need.  The form runs one consumer warpgroup
+//   (the two-warpgroup D 128 form spills) over key tiles of 64, so that
+//   two blocks share an SM.  f32: the D 128 body with the
+//   shared-memory rows, the loops and the stores cut to the real D.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -74,20 +87,21 @@ constexpr int kThreads = 128;
 constexpr int kBlockQ = 32;
 constexpr int kBlockK = 64;
 
-template <int D>
-constexpr size_t smem_floats() {
-  return (kBlockQ + 2 * kBlockK) * (D + 1) + kBlockQ * (kBlockK + 1);
+constexpr size_t smem_floats(int d) {
+  return (kBlockQ + 2 * kBlockK) * (d + 1) + kBlockQ * (kBlockK + 1);
 }
 
-template <typename T, int D>
+// D: the head dim, or with kAnyD the largest one (128) and d_rt the real
+template <typename T, int D, bool kAnyD>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q,  // (B, S_q, H, D)
                      const T* __restrict__ k,  // (B, S_kv, Hkv, D)
                      const T* __restrict__ v,  // (B, S_kv, Hkv, D)
                      T* __restrict__ out,      // (B, S_q, H, D)
                      int S_q, int S_kv, int H, int Hkv, int q_offset,
-                     int causal, float scale) {
-  constexpr int LD = D + 1;
+                     int causal, float scale, int d_rt) {
+  const int dh = kAnyD ? d_rt : D;
+  const int LD = dh + 1;
   constexpr int LP = kBlockK + 1;
   constexpr int KPT = kBlockK / 4;  // score columns per thread
   constexpr int DPT = D / 4;        // output columns per thread
@@ -107,18 +121,18 @@ __global__ void __launch_bounds__(kThreads)
   const int c = tid & 3;
   const int q0 = iq * kBlockQ;
 
-  const int64_t q_tok = static_cast<int64_t>(H) * D;
-  const int64_t kv_tok = static_cast<int64_t>(Hkv) * D;
+  const int64_t q_tok = static_cast<int64_t>(H) * dh;
+  const int64_t kv_tok = static_cast<int64_t>(Hkv) * dh;
   const T* qb = q + static_cast<int64_t>(b) * S_q * q_tok +
-                static_cast<int64_t>(h) * D;
+                static_cast<int64_t>(h) * dh;
   const T* kb = k + static_cast<int64_t>(b) * S_kv * kv_tok +
-                static_cast<int64_t>(hk) * D;
+                static_cast<int64_t>(hk) * dh;
   const T* vb = v + static_cast<int64_t>(b) * S_kv * kv_tok +
-                static_cast<int64_t>(hk) * D;
+                static_cast<int64_t>(hk) * dh;
 
-  for (int i = tid; i < kBlockQ * D; i += kThreads) {
-    const int rr = i / D;
-    const int d = i - rr * D;
+  for (int i = tid; i < kBlockQ * dh; i += kThreads) {
+    const int rr = i / dh;
+    const int d = i - rr * dh;
     const int qi = q0 + rr;
     qs[rr * LD + d] = qi < S_q ? repro::to_float(qb[qi * q_tok + d]) : 0.f;
   }
@@ -137,9 +151,9 @@ __global__ void __launch_bounds__(kThreads)
   for (int it = 0; it < n_tiles; ++it) {
     const int k0 = it * kBlockK;
     __syncthreads();  // the previous tile is done with ks / vs
-    for (int i = tid; i < kBlockK * D; i += kThreads) {
-      const int t = i / D;
-      const int d = i - t * D;
+    for (int i = tid; i < kBlockK * dh; i += kThreads) {
+      const int t = i / dh;
+      const int d = i - t * dh;
       const int kv = k0 + t;
       const bool in = kv < S_kv;
       ks[t * LD + d] = in ? repro::to_float(kb[kv * kv_tok + d]) : 0.f;
@@ -156,7 +170,7 @@ __global__ void __launch_bounds__(kThreads)
       const float* kr = ks + col * LD;
       float dot = 0.f;
 #pragma unroll 16
-      for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
+      for (int d = 0; d < dh; ++d) dot = fmaf(qr[d], kr[d], dot);
       const int kv_pos = k0 + col;
       bool ok = kv_pos < S_kv;
       if (causal) ok = ok && kv_pos <= q_pos;
@@ -185,6 +199,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       const int d = c + 4 * i;
+      if (kAnyD && d >= dh) break;
       float o = 0.f;
 #pragma unroll 16
       for (int t = 0; t < kBlockK; ++t) o = fmaf(pr[t], vs[t * LD + d], o);
@@ -195,26 +210,29 @@ __global__ void __launch_bounds__(kThreads)
   const int qi = q0 + r;
   if (qi < S_q) {
     T* ob = out + static_cast<int64_t>(b) * S_q * q_tok + qi * q_tok +
-            static_cast<int64_t>(h) * D;
+            static_cast<int64_t>(h) * dh;
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < DPT; ++i)
+    for (int i = 0; i < DPT; ++i) {
+      if (kAnyD && c + 4 * i >= dh) break;
       ob[c + 4 * i] = repro::from_float<T>(acc[i] / denom);
+    }
   }
 }
 
-template <int D>
+template <int D, bool kAnyD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       int B, int S_q, int S_kv, int H, int Hkv, int q_offset,
-                       int causal, float scale, cudaStream_t stream) {
-  const size_t smem = smem_floats<D>() * sizeof(float);
-  cudaError_t err = repro::set_smem(flash_fwd_kernel<float, D>, smem);
+                       int B, int S_q, int S_kv, int H, int Hkv, int d,
+                       int q_offset, int causal, float scale,
+                       cudaStream_t stream) {
+  const size_t smem = smem_floats(d) * sizeof(float);
+  cudaError_t err = repro::set_smem(flash_fwd_kernel<float, D, kAnyD>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S_q + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_kernel<float, D><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<float, D, kAnyD><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S_q, S_kv, H,
-      Hkv, q_offset, causal, scale);
+      Hkv, q_offset, causal, scale, d);
   return cudaGetLastError();
 }
 
@@ -418,7 +436,9 @@ __device__ __forceinline__ void pack_weights(const float (&s)[KN / 2],
       pa[kk][j] = hp::pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
 }
 
-template <int D, int NC, int KN>
+// D: the head dim the tiles are laid out for; with kAnyD the real one,
+// d_rt <= D, is a run-time argument (columns past it load as zeros)
+template <int D, int NC, int KN, bool kAnyD>
 __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -428,8 +448,9 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
                        float* __restrict__ ws_ml,   // (splits, B, S_q, H, 2)
                        int B, int S_q, int S_kv, int H, int Hkv,
                        int q_offset, int causal, float scale_log2,
-                       int splits, int tiles_per_split) {
+                       int splits, int tiles_per_split, int d_rt) {
   using L = FlashLayout<D, NC, KN>;
+  const int dh = kAnyD ? d_rt : D;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base + L::kQ;
@@ -623,22 +644,25 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
     const int qi = qw0 + r0 + 8 * r;
     if (qi >= S_q) continue;
     const int64_t row = (static_cast<int64_t>(b) * S_q + qi) * H + h;
+    // columns 8 n + 2 cq and + 1 lie below dh together (dh % 8 == 0)
     if (splits == 1) {
       const float denom = fmaxf(l[r], 1e-30f);
-      bf16* orow = out + row * D;
+      bf16* orow = out + row * dh;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * cq) =
-            __floats2bfloat162_rn(o[4 * n + 2 * r] / denom,
-                                  o[4 * n + 2 * r + 1] / denom);
+        if (!kAnyD || 8 * n < dh)
+          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * cq) =
+              __floats2bfloat162_rn(o[4 * n + 2 * r] / denom,
+                                    o[4 * n + 2 * r + 1] / denom);
     } else {
       const int64_t srow =
           static_cast<int64_t>(split) * B * S_q * H + row;
-      float* arow = ws_acc + srow * D;
+      float* arow = ws_acc + srow * dh;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<float2*>(arow + 8 * n + 2 * cq) =
-            make_float2(o[4 * n + 2 * r], o[4 * n + 2 * r + 1]);
+        if (!kAnyD || 8 * n < dh)
+          *reinterpret_cast<float2*>(arow + 8 * n + 2 * cq) =
+              make_float2(o[4 * n + 2 * r], o[4 * n + 2 * r + 1]);
       if (cq == 0) {
         ws_ml[srow * 2] = m[r];
         ws_ml[srow * 2 + 1] = l[r];
@@ -647,10 +671,11 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
   }
 }
 
-template <int D, int NC, int KN>
+// d: the real head dim (D itself unless kAnyD); the tensor maps span it
+template <int D, int NC, int KN, bool kAnyD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* ws, int B, int S_q, int S_kv,
-                        int H, int Hkv, int q_offset, int causal,
+                        int H, int Hkv, int d, int q_offset, int causal,
                         float scale, int splits, int tiles_per_split,
                         cudaStream_t stream) {
   using L = FlashLayout<D, NC, KN>;
@@ -658,30 +683,31 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                                          ? CU_TENSOR_MAP_SWIZZLE_128B
                                          : CU_TENSOR_MAP_SWIZZLE_64B;
   CUtensorMap q_map, k_map, v_map;
-  cudaError_t err = repro::hopper::encode_bshd(&q_map, q, B, S_q, H, D, kRows,
+  cudaError_t err = repro::hopper::encode_bshd(&q_map, q, B, S_q, H, d, kRows,
                                                L::kAtom, swizzle);
   if (err == cudaSuccess)
-    err = repro::hopper::encode_bshd(&k_map, k, B, S_kv, Hkv, D, KN,
+    err = repro::hopper::encode_bshd(&k_map, k, B, S_kv, Hkv, d, KN,
                                      L::kAtom, swizzle);
   if (err == cudaSuccess)
-    err = repro::hopper::encode_bshd(&v_map, v, B, S_kv, Hkv, D, KN,
+    err = repro::hopper::encode_bshd(&v_map, v, B, S_kv, Hkv, d, KN,
                                      L::kAtom, swizzle);
   if (err != cudaSuccess) return err;
   const size_t smem = L::kBytes + 1024;  // + slack to align the base
-  err = repro::set_smem(flash_wgmma_kernel<D, NC, KN>, smem);
+  err = repro::set_smem(flash_wgmma_kernel<D, NC, KN, kAnyD>, smem);
   if (err != cudaSuccess) return err;
   const int64_t rows = static_cast<int64_t>(B) * S_q * H;
   float* ws_acc = ws;
-  float* ws_ml = splits > 1 ? ws + splits * rows * D : nullptr;
+  float* ws_ml = splits > 1 ? ws + splits * rows * d : nullptr;
   const dim3 grid((S_q + NC * kRows - 1) / (NC * kRows), H, B * splits);
-  flash_wgmma_kernel<D, NC, KN><<<grid, L::kThreads, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<bf16*>(out), ws_acc, ws_ml, B, S_q,
-      S_kv, H, Hkv, q_offset, causal, scale * kLog2e, splits,
-      tiles_per_split);
+  flash_wgmma_kernel<D, NC, KN, kAnyD>
+      <<<grid, L::kThreads, smem, stream>>>(
+          q_map, k_map, v_map, static_cast<bf16*>(out), ws_acc, ws_ml, B,
+          S_q, S_kv, H, Hkv, q_offset, causal, scale * kLog2e, splits,
+          tiles_per_split, d);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   return repro::launch_combine<bf16>(ws_acc, ws_ml, static_cast<bf16*>(out),
-                                     rows, D, splits, stream);
+                                     rows, d, splits, stream);
 }
 
 template <int D>
@@ -690,16 +716,31 @@ cudaError_t launch_bf16_nc(int consumers, int keys, const void* q,
                            int B, int S_q, int S_kv, int H, int Hkv,
                            int q_offset, int causal, float scale, int splits,
                            int tiles_per_split, cudaStream_t stream) {
-#define REPRO_LAUNCH(NC, KN)                                               \
-  if (consumers == NC && keys == KN)                                       \
-    return launch_bf16<D, NC, KN>(q, k, v, out, ws, B, S_q, S_kv, H, Hkv,  \
-                                  q_offset, causal, scale, splits,         \
-                                  tiles_per_split, stream);
+#define REPRO_LAUNCH(NC, KN)                                                \
+  if (consumers == NC && keys == KN)                                        \
+    return launch_bf16<D, NC, KN, false>(q, k, v, out, ws, B, S_q, S_kv, H, \
+                                         Hkv, D, q_offset, causal, scale,   \
+                                         splits, tiles_per_split, stream);
   REPRO_LAUNCH(1, 64)   // split key ranges: small tiles, more blocks
   REPRO_LAUNCH(1, 128)
   REPRO_LAUNCH(2, 128)
 #undef REPRO_LAUNCH
   return cudaErrorInvalidValue;
+}
+
+// the run-time-D form: tiles laid out for DP (64 or 128) columns, one
+// consumer warpgroup, key tiles of 64 (two blocks an SM at DP 128)
+template <int DP>
+cudaError_t launch_bf16_any_d(int consumers, int keys, const void* q,
+                              const void* k, const void* v, void* out,
+                              float* ws, int B, int S_q, int S_kv, int H,
+                              int Hkv, int d, int q_offset, int causal,
+                              float scale, int splits, int tiles_per_split,
+                              cudaStream_t stream) {
+  if (consumers != 1 || keys != 64) return cudaErrorInvalidValue;
+  return launch_bf16<DP, 1, 64, true>(q, k, v, out, ws, B, S_q, S_kv, H, Hkv,
+                                      d, q_offset, causal, scale, splits,
+                                      tiles_per_split, stream);
 }
 
 }  // namespace
@@ -713,25 +754,27 @@ extern "C" int repro_flash_attention(int device, int dtype, const void* q,
                                      void* workspace, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
-  if (B <= 0 || S_q <= 0 || Hkv <= 0 || H % Hkv != 0 || q_offset < 0)
+  if (B <= 0 || S_q <= 0 || Hkv <= 0 || H % Hkv != 0 || q_offset < 0 ||
+      D <= 0 || D > 128 || D % 8 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_F32) {
     switch (D) {
       case 32:
-        return launch_f32<32>(q, k, v, out, B, S_q, S_kv, H, Hkv, q_offset,
-                              causal, scale, s);
+        return launch_f32<32, false>(q, k, v, out, B, S_q, S_kv, H, Hkv, D,
+                                     q_offset, causal, scale, s);
       case 64:
-        return launch_f32<64>(q, k, v, out, B, S_q, S_kv, H, Hkv, q_offset,
-                              causal, scale, s);
+        return launch_f32<64, false>(q, k, v, out, B, S_q, S_kv, H, Hkv, D,
+                                     q_offset, causal, scale, s);
       case 128:
-        return launch_f32<128>(q, k, v, out, B, S_q, S_kv, H, Hkv, q_offset,
-                               causal, scale, s);
+        return launch_f32<128, false>(q, k, v, out, B, S_q, S_kv, H, Hkv, D,
+                                      q_offset, causal, scale, s);
       default:
-        return cudaErrorInvalidValue;
+        return launch_f32<128, true>(q, k, v, out, B, S_q, S_kv, H, Hkv, D,
+                                     q_offset, causal, scale, s);
     }
   }
-  // (consumers, keys) outside the built pairs: launch_bf16_nc refuses
+  // (consumers, keys) outside the built pairs: the launchers refuse
   if (dtype != REPRO_BF16 || S_kv <= 0 || splits < 1 ||
       tiles_per_split < 1 || static_cast<int64_t>(B) * splits > 65535 ||
       (splits > 1 && workspace == nullptr))
@@ -751,6 +794,12 @@ extern "C" int repro_flash_attention(int device, int dtype, const void* q,
                                  S_kv, H, Hkv, q_offset, causal, scale,
                                  splits, tiles_per_split, s);
     default:
-      return cudaErrorInvalidValue;
+      if (D < 64)
+        return launch_bf16_any_d<64>(consumers, keys, q, k, v, out, ws, B,
+                                     S_q, S_kv, H, Hkv, D, q_offset, causal,
+                                     scale, splits, tiles_per_split, s);
+      return launch_bf16_any_d<128>(consumers, keys, q, k, v, out, ws, B,
+                                    S_q, S_kv, H, Hkv, D, q_offset, causal,
+                                    scale, splits, tiles_per_split, s);
   }
 }

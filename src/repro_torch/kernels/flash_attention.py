@@ -19,6 +19,13 @@ version's CUDA-core body, kept for the correctness checks held to 1e-4
 (TF32 products would miss them).  Times are in PERF.md.  Sliding
 windows are not supported by the kernel (the plain version has them).
 
+Head dims: D 32, 64 and 128 are compiled forms; any other D with
+``D % 8 == 0`` and ``D <= 128`` (phi3's 96, zamba2's 112) runs a
+run-time-D form, whose bf16 tiles are laid out for 64 or 128 columns and
+filled with zeros past D by TMA (a tensor map's row stride must be whole
+16-byte units).  That form runs one consumer warpgroup over key tiles of
+64.  Other head dims raise.
+
 :func:`flash_attention_plain` is the plain PyTorch version;
 ``ops.flash_attention`` sends CPU tensors to it and CUDA tensors to
 :func:`flash_attention_kernel`.
@@ -35,7 +42,9 @@ from . import _build
 from .ref import flash_attention as flash_attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+#: head dims with a compiled form; others up to MAX_HEAD_DIM run at run time
+COMPILED_HEAD_DIMS = (32, 64, 128)
+MAX_HEAD_DIM = 128
 #: the H100's streaming multiprocessors: the blocks a launch should fill
 SMS = 132
 #: query rows per consumer warpgroup
@@ -54,20 +63,27 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def plan_splits(B: int, S_q: int, H: int, S_kv: int, *, q_offset: int = 0,
-                causal: bool = True) -> FlashPlan:
+                causal: bool = True, head_dim: int = 64) -> FlashPlan:
     """The bf16 kernel's launch shape, from shapes only.  Two consumer
     warpgroups (128-row tiles, which halve the K/V traffic) where those
-    tiles alone fill the SMs, else one.  Where the query tiles give
+    tiles alone fill the SMs and ``head_dim`` has a compiled form, else
+    one.  The run-time-D form takes key tiles of 64 throughout: with
+    tiles laid out for 128 columns, 128-key tiles would hold one block an
+    SM and 64-key tiles hold two.  Where the query tiles give
     :data:`SMS` blocks or more, key tiles of 128 and no split.  Else the
     keys the chunk can see (``min(S_kv, q_offset + S_q)`` when causal)
     are cut into tiles of 64 and equal ranges of whole tiles, enough to
     reach :data:`SMS` blocks; split ``s`` covers key tiles ``[s * t, (s +
     1) * t)`` with ``t = tiles_per_split``."""
     kv_end = min(S_kv, q_offset + S_q) if causal else S_kv
-    consumers = 2 if B * H * _cdiv(S_q, 2 * ROWS) >= SMS else 1
+    consumers = 1
+    if (head_dim in COMPILED_HEAD_DIMS
+            and B * H * _cdiv(S_q, 2 * ROWS) >= SMS):
+        consumers = 2
     blocks = B * H * _cdiv(S_q, consumers * ROWS)
     if blocks >= SMS:
-        return FlashPlan(consumers, 128, 1, max(1, _cdiv(kv_end, 128)))
+        keys = 128 if head_dim in COMPILED_HEAD_DIMS else 64
+        return FlashPlan(consumers, keys, 1, max(1, _cdiv(kv_end, keys)))
     n_tiles = max(1, _cdiv(kv_end, 64))
     per = _cdiv(n_tiles, min(n_tiles, _cdiv(SMS, blocks)))
     return FlashPlan(1, 64, _cdiv(n_tiles, per), per)
@@ -106,9 +122,9 @@ def flash_attention_kernel(
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if H % Hkv or D not in _HEAD_DIMS:
+    if H % Hkv or D % 8 or not 0 < D <= MAX_HEAD_DIM:
         raise ValueError(f"H={H} Hkv={Hkv} D={D}: the kernel takes whole "
-                         f"GQA groups and D in {_HEAD_DIMS}")
+                         f"GQA groups and D % 8 == 0, D <= {MAX_HEAD_DIM}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("all operands must be on q's device")
     if q.dtype == torch.bfloat16 and S_kv < 1:
@@ -118,7 +134,7 @@ def flash_attention_kernel(
     plan, ws = FlashPlan(1, 128, 1, 1), None
     if q.dtype == torch.bfloat16:
         plan = plan_splits(B, S_q, H, S_kv, q_offset=q_offset,
-                           causal=causal)
+                           causal=causal, head_dim=D)
         if plan.splits > 1:  # partial (acc, m, l) of each split, f32
             ws = torch.empty(plan.splits * B * S_q * H * (D + 2),
                              dtype=torch.float32, device=q.device)
@@ -142,5 +158,5 @@ flash_attention_kernel.launches = 0
 #: of those, the calls that also launched the split combine
 flash_attention_kernel.combine_launches = 0
 
-__all__ = ["FlashPlan", "flash_attention_kernel", "flash_attention_plain",
-           "plan_splits"]
+__all__ = ["COMPILED_HEAD_DIMS", "MAX_HEAD_DIM", "FlashPlan",
+           "flash_attention_kernel", "flash_attention_plain", "plan_splits"]

@@ -19,7 +19,6 @@ from .block_gather import block_gather_kernel
 from .decode_attention import decode_attention_kernel
 from .flash_attention import flash_attention_kernel
 from .paged_attention import paged_attention_kernel
-from .ssd_scan import check_args as _ssd_check
 from .ssd_scan import ssd_chunk_scan_kernel
 
 
@@ -69,14 +68,16 @@ def decode_attention(q, k_cache, v_cache, lengths, *,
 def ssd_chunk_scan(x, dt, a, b, c, *, chunk: int = 128, d_skip=None,
                    init_state=None, impl: Optional[str] = None):
     """The Mamba2 SSD scan over whole chunks of ``min(chunk, S)`` tokens.
-    Raises, on every device, where the TPU kernel's wrapper asserts: more
-    than one B/C group, an initial state, or ``S`` not a multiple of the
-    chunk."""
-    chunk = _ssd_check(x, b, c, chunk=chunk, init_state=init_state)
+    The plain version takes what the JAX package's oracle takes: G B/C
+    groups with ``H % G == 0`` and an ``init_state``; it raises where that
+    oracle asserts.  The kernel keeps the TPU kernel's limits (one group,
+    no initial state) and raises on the others."""
+    chunk = min(int(chunk), x.shape[1])
     if _plain(x, impl):
         return ref.ssd_chunk_scan(x, dt, a, b, c, chunk=chunk,
-                                  d_skip=d_skip)
-    return ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=chunk, d_skip=d_skip)
+                                  d_skip=d_skip, init_state=init_state)
+    return ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=chunk, d_skip=d_skip,
+                                 init_state=init_state)
 
 
 def ssd_decode_step(x, dt, a, b, c, state, *, d_skip=None):

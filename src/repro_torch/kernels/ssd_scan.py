@@ -19,7 +19,8 @@ not use.  Its times are in PERF.md.
 
 :func:`ssd_chunk_scan_plain` is the plain PyTorch version;
 ``ops.ssd_chunk_scan`` sends CPU tensors to it and CUDA tensors to
-:func:`ssd_chunk_scan_kernel`.
+:func:`ssd_chunk_scan_kernel`.  The plain version takes more than the
+kernel (B/C groups, an initial state), as the JAX package's oracle does.
 """
 
 from __future__ import annotations
@@ -37,8 +38,8 @@ _STATE_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 128
 
 
-def check_args(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
-               chunk: int, init_state: Optional[torch.Tensor]) -> int:
+def _check_args(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
+                chunk: int, init_state: Optional[torch.Tensor]) -> int:
     """Raise where the TPU kernel's wrapper asserts; return the chunk
     it runs (``min(chunk, S)``)."""
     if x.dim() != 4 or b.dim() != 4 or c.shape != b.shape:
@@ -72,7 +73,7 @@ def ssd_chunk_scan_kernel(
     dtype, final state (B,H,P,N) f32)."""
     if not x.is_cuda:
         raise ValueError("ssd_chunk_scan_kernel takes CUDA tensors")
-    chunk = check_args(x, b, c, chunk=chunk, init_state=init_state)
+    chunk = _check_args(x, b, c, chunk=chunk, init_state=init_state)
     if x.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {x.dtype}")
     if b.dtype != x.dtype or c.dtype != x.dtype:
@@ -111,4 +112,4 @@ def ssd_chunk_scan_kernel(
 #: launches of the kernel since the count was last set to 0
 ssd_chunk_scan_kernel.launches = 0
 
-__all__ = ["check_args", "ssd_chunk_scan_kernel", "ssd_chunk_scan_plain"]
+__all__ = ["ssd_chunk_scan_kernel", "ssd_chunk_scan_plain"]

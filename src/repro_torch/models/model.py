@@ -2,9 +2,12 @@
 
 Mirrors the JAX package's ``repro/models/model.py`` for the ported
 paths: params, the decode cache (paged for the dense family, state and
-conv tails for the SSM family, paged self-attention pools and a fixed
+conv tails for the SSM family, both for the hybrid — every Mamba2
+layer's state and one paged pool per application of its shared
+attention block — and paged self-attention pools and a fixed
 cross-attention cache for the encoder-decoder), the whole-prompt prefill
-(SSM, encoder-decoder), one prefill chunk (dense) and one decode step.
+(SSM, hybrid, encoder-decoder), one prefill chunk (dense) and one decode
+step.
 The model lives on the card unless the caller asks for the CPU.
 """
 
@@ -74,7 +77,13 @@ class Model:
                              enc_len=enc_len, pool_slack=pool_slack)
 
     def init_cache(self, shape: ShapeConfig, pool_slack: int = 0):
-        """Zeroed decode cache on the model's device."""
+        """Zeroed decode cache on the model's device.  The hybrid's is
+        {"layers": the SSM state and conv tails of every Mamba2 layer
+        (f32), "attn": {"k_pool", "v_pool"} of shape (n_shared_attn,
+        batch, n_pool, BLOCK_SIZE, Hkv, D)}; a prefill cache loads into
+        it as the JAX package's ``tests/test_arch_smoke.py`` loads one
+        (the Mamba2 caches cast to f32, each application's K/V paged into
+        the slot's pages)."""
         return init_params(self.cache_specs(shape, pool_slack), 0,
                            self.device)
 
@@ -86,7 +95,7 @@ class Model:
     # Forward entry points
     # ------------------------------------------------------------------
     def prefill(self, params, batch, *, impl: Optional[str] = None):
-        """Whole-prompt prefill (SSM and encoder-decoder families):
+        """Whole-prompt prefill (SSM, hybrid and encoder-decoder):
         last-position logits and the per-layer cache (see
         :func:`repro_torch.models.transformer.forward_prefill`).
         ``impl="plain"`` runs the plain versions in place of the kernels
@@ -113,7 +122,8 @@ class Model:
         ``global_pages`` switches block-table entries to slot-flattened
         global page ids (the serving engine's mode); the default is the
         JAX package's, page ids inside each row's own pool.  The SSM
-        family needs only ``batch["tokens"]``."""
+        family needs only ``batch["tokens"]``; the hybrid also its
+        lengths and block table, for the shared block's pools."""
         return T.decode_step(params, cache, batch, self.cfg, n_kv=n_kv,
                              global_pages=global_pages, impl=impl)
 

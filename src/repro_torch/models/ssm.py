@@ -106,10 +106,13 @@ def mamba_full(
     xin: torch.Tensor,  # (B, S, M)
     cfg: ModelConfig,
     *,
+    init_state: Optional[torch.Tensor] = None,
     impl: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Full-sequence Mamba2 block.  Returns (out, cache_slice) where the
     cache slice carries the final SSM state + conv tails for decode.
+    ``init_state`` (B, H, P, N) starts the scan from a state, as in the
+    JAX package (the plain scan takes it; the kernel refuses it).
     ``impl="plain"`` runs the plain scan in place of the kernel
     (comparison only)."""
     B, S, M = xin.shape
@@ -142,6 +145,7 @@ def mamba_full(
         c.reshape(B, S, G, N),
         chunk=min(cfg.ssm_chunk, S),
         d_skip=p["d_skip"],
+        init_state=init_state,
         impl=impl,
     )
     y = y.reshape(B, S, H * P)

@@ -1,13 +1,14 @@
 """Model stacks of the ported paths: the dense model on the paged KV
-cache (the serving path), the Mamba2 SSM stack, and the encoder-decoder
-(an encoder over frame embeddings, a decoder with self- and
-cross-attention).
+cache (the serving path), the Mamba2 SSM stack, the Zamba2-style hybrid
+(groups of Mamba2 layers, each followed by one shared attention block),
+and the encoder-decoder (an encoder over frame embeddings, a decoder
+with self- and cross-attention).
 
 Mirrors the main-path parts of the JAX package's
 ``repro/models/transformer.py``: the param and cache spec trees, the
-whole-prompt prefill of the SSM and encoder-decoder families, one chunk
-of a chunked prefill (dense), and the decode step (dense, SSM and
-encoder-decoder).  Layer params and caches are stacked over a leading
+whole-prompt prefill of the SSM, hybrid and encoder-decoder families,
+one chunk of a chunked prefill (dense), and the decode step (dense, SSM,
+hybrid and encoder-decoder).  Layer params and caches are stacked over a leading
 ``layers`` axis, as there; JAX's ``lax.scan`` over that axis is a Python
 loop here.  The decode and chunk steps update
 the cache in place and return the same cache dict.
@@ -56,6 +57,21 @@ def build_specs(cfg: ModelConfig) -> Dict[str, Any]:
                                         ("layers", "embed"), init="ones")},
             "mamba": S.mamba_specs(cfg, cfg.num_layers),
         }
+    elif cfg.family == "hybrid":
+        specs["layers"] = {
+            "norm": {"scale": ParamSpec((cfg.num_layers, cfg.d_model),
+                                        ("layers", "embed"), init="ones")},
+            "mamba": S.mamba_specs(cfg, cfg.num_layers),
+        }
+        # one shared attention block, applied every attn_period layers
+        specs["shared_attn"] = {
+            "norm1": {"scale": ParamSpec((cfg.d_model,), ("embed",),
+                                         init="ones")},
+            "attn": L.attention_specs(cfg, 0),
+            "norm2": {"scale": ParamSpec((cfg.d_model,), ("embed",),
+                                         init="ones")},
+            "mlp": L.mlp_specs(cfg, 0),
+        }
     elif cfg.family == "encdec":
         ne, nd = cfg.encoder_layers, cfg.num_layers
 
@@ -102,6 +118,11 @@ def paged_blocks_sharded_cfg(cfg: ModelConfig) -> bool:
     then stripes pool PAGES over its `model` axis)."""
     hkv = cfg.num_kv_heads or cfg.num_heads
     return hkv % TP_WIDTH != 0
+
+
+def n_shared_attn(cfg: ModelConfig) -> int:
+    """Applications of the hybrid's shared attention block."""
+    return cfg.num_layers // cfg.attn_period if cfg.attn_period else 0
 
 
 def _ssm_cache_specs(cfg: ModelConfig, n_layers: int, batch: int):
@@ -157,6 +178,10 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
     same rule, so the host pool sized from this dimension matches the JAX
     engine's page for page.
 
+    Hybrid: the SSM layout of every Mamba2 layer under ``"layers"``, and
+    per-slot paged pools ``(n_shared_attn, batch, n_pool, BLOCK_SIZE,
+    Hkv, D)`` under ``"attn"``, one per application of the shared block.
+
     Encoder-decoder: the decoder's paged self-attention pools under
     ``"self"``, the cross-attention cache ``cross_k`` / ``cross_v``
     ``(L, batch, enc_len, Hkv, D)`` of the encoder output, and the int32
@@ -165,6 +190,12 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
     layout = cache_layout(cfg)
     if layout == "ssm":
         return {"layers": _ssm_cache_specs(cfg, cfg.num_layers, batch)}
+    if layout == "hybrid":
+        return {
+            "layers": _ssm_cache_specs(cfg, cfg.num_layers, batch),
+            "attn": _paged_cache_specs(cfg, n_shared_attn(cfg), batch,
+                                       max_seq, pool_slack),
+        }
     if layout != "paged":
         raise NotImplementedError(
             f"cache layout {layout!r} is not ported yet")
@@ -212,19 +243,57 @@ def _copy_into(dst, src) -> None:
 # ---------------------------------------------------------------------------
 # SSM stack and whole-prompt prefill
 # ---------------------------------------------------------------------------
+def _mamba_layer(params, i: int, x, cfg: ModelConfig, impl):
+    """Mamba2 layer ``i`` over the whole sequence: (x, its cache)."""
+    lp = _layer(params["layers"], i)
+    m_in = L.apply_norm(lp["norm"], x, cfg)
+    m, cache = S.mamba_full(lp["mamba"], m_in, cfg, impl=impl)
+    return x + m, cache
+
+
 def run_ssm_stack(params, x, cfg: ModelConfig, *, emit_cache: bool = False,
                   impl: Optional[str] = None):
     """Full-sequence pass over the stacked Mamba2 layers.  Returns (x,
     caches stacked over layers, or None)."""
     caches = []
     for i in range(cfg.num_layers):
-        lp = _layer(params["layers"], i)
-        m_in = L.apply_norm(lp["norm"], x, cfg)
-        m, cache = S.mamba_full(lp["mamba"], m_in, cfg, impl=impl)
-        x = x + m
+        x, cache = _mamba_layer(params, i, x, cfg, impl)
         if emit_cache:
             caches.append(cache)
     return x, (_stack(caches) if emit_cache else None)
+
+
+def _shared_mlp(shared, x, cfg: ModelConfig):
+    """The MLP half of the hybrid's shared block, after its attention."""
+    return x + L.apply_mlp(shared["mlp"],
+                           L.apply_norm(shared["norm2"], x, cfg), cfg)
+
+
+def run_hybrid_stack(params, x, cfg: ModelConfig, *,
+                     emit_cache: bool = False, impl: Optional[str] = None):
+    """Zamba2-style: groups of ``attn_period`` Mamba2 layers, each group
+    followed by the *same* shared attention block (causal, the flash
+    kernel); the trailing Mamba2 layers after.  Returns (x, None) or,
+    with ``emit_cache``, (x, (the Mamba2 caches stacked over all layers in
+    layer order, (K, V) of the block's applications stacked
+    ``(n_shared_attn, B, S, Hkv, D)``))."""
+    shared = params["shared_attn"]
+    caches, ks, vs = [], [], []
+    for i in range(cfg.num_layers):
+        x, cache = _mamba_layer(params, i, x, cfg, impl)
+        if emit_cache:
+            caches.append(cache)
+        if (i + 1) % cfg.attn_period == 0:  # the end of a group
+            a_in = L.apply_norm(shared["norm1"], x, cfg)
+            a, (k, v) = L.attention_full(shared["attn"], a_in, cfg,
+                                         causal=True, impl=impl)
+            x = _shared_mlp(shared, x + a, cfg)
+            if emit_cache:
+                ks.append(k)
+                vs.append(v)
+    if not emit_cache:
+        return x, None
+    return x, (_stack(caches), (torch.stack(ks), torch.stack(vs)))
 
 
 def run_encoder_stack(params, x, cfg: ModelConfig, *,
@@ -276,6 +345,9 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
     — the per-sequence logit position; default: position -1}; the cache
     holds each layer's final state and conv tails.
 
+    Hybrid: as SSM; the cache is {"mamba": every Mamba2 layer's cache
+    stacked, "attn_k", "attn_v": (n_shared_attn, B, S, Hkv, D)}.
+
     Encoder-decoder: ``batch`` also holds "enc_embeds" (B, S_enc, M), the
     frame embeddings of the audio frontend (a stub in both packages); the
     encoder runs over them, then the decoder over "tokens".  The cache is
@@ -296,6 +368,11 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
     elif cfg.family == "ssm":
         x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
         x, cache = run_ssm_stack(params, x, cfg, emit_cache=True, impl=impl)
+    elif cfg.family == "hybrid":
+        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        x, (mcache, (k, v)) = run_hybrid_stack(params, x, cfg,
+                                               emit_cache=True, impl=impl)
+        cache = {"mamba": mcache, "attn_k": k, "attn_v": v}
     else:
         raise NotImplementedError(
             f"whole-prompt prefill of family {cfg.family!r} is not ported "
@@ -364,6 +441,17 @@ def prefill_chunk(params, cache, batch, cfg: ModelConfig, *,
 # ---------------------------------------------------------------------------
 # Decode step
 # ---------------------------------------------------------------------------
+def _mamba_decode_layer(params, cache, i: int, x, cfg: ModelConfig):
+    """Mamba2 layer ``i`` on one token; its state and conv tails in
+    ``cache["layers"]`` are replaced in place."""
+    lp = _layer(params["layers"], i)
+    cl = _layer(cache["layers"], i)
+    m, new_c = S.mamba_decode(lp["mamba"], L.apply_norm(lp["norm"], x, cfg),
+                              cfg, cl)
+    _copy_into(cl, new_c)
+    return x + m
+
+
 def decode_step(params, cache, batch, cfg: ModelConfig, *,
                 n_kv: Optional[int] = None, global_pages: bool = False,
                 impl: Optional[str] = None):
@@ -380,28 +468,38 @@ def decode_step(params, cache, batch, cfg: ModelConfig, *,
     SSM layout: ``batch`` needs only "tokens"; each layer's state and
     conv tails are replaced in place by the step's new f32 values.
 
+    Hybrid: the Mamba2 layers as in the SSM layout; after each group of
+    ``attn_period`` layers the shared block attends over its
+    application's paged pool (``cache["attn"]``, the paged kernel) as the
+    dense layers do over theirs.
+
     Encoder-decoder: each decoder layer writes the token's K/V into its
     paged self-attention pool and attends over it (the paged kernel),
     then cross-attends over the fixed cross cache of the encoder output,
     masked by ``cache["enc_len"]`` (the decode kernel).
     """
-    if cache_layout(cfg) == "ssm":
-        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    layout = cache_layout(cfg)
+    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    if layout == "ssm":
         for i in range(cfg.num_layers):
-            lp = _layer(params["layers"], i)
-            cl = _layer(cache["layers"], i)
-            m_in = L.apply_norm(lp["norm"], x, cfg)
-            m, new_c = S.mamba_decode(lp["mamba"], m_in, cfg, cl)
-            _copy_into(cl, new_c)
-            x = x + m
+            x = _mamba_decode_layer(params, cache, i, x, cfg)
         x = L.apply_norm(params["final_norm"], x, cfg)
         return L.unembed(params["embed"], x[:, 0], cfg), cache
     lengths = batch["lengths"]
     block_table = batch["block_table"]
     paged = dict(block_table=block_table, n_kv=n_kv,
                  global_pages=global_pages, impl=impl)
-    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
-    if cfg.is_encdec:
+    if layout == "hybrid":
+        shared = params["shared_attn"]
+        for i in range(cfg.num_layers):
+            x = _mamba_decode_layer(params, cache, i, x, cfg)
+            if (i + 1) % cfg.attn_period == 0:  # the end of a group
+                pools = _layer(cache["attn"], (i + 1) // cfg.attn_period - 1)
+                a_in = L.apply_norm(shared["norm1"], x, cfg)
+                a, _ = L.attention_decode(shared["attn"], a_in, cfg, pools,
+                                          lengths, **paged)
+                x = _shared_mlp(shared, x + a, cfg)
+    elif cfg.is_encdec:
         for i in range(cfg.num_layers):
             lp = _layer(params["dec_layers"], i)
             a_in = L.apply_norm(lp["norm1"], x, cfg)

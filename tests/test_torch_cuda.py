@@ -2,7 +2,9 @@
 through the kernels against the engine through the plain versions, a
 full-width Mamba2 layer with the SSD kernel against the plain scan, and
 a full-width seamless-m4t-medium decoder layer through the flash, paged
-(per-slot) and contiguous decode kernels against the plain versions, the
+(per-slot) and contiguous decode kernels against the plain versions, a
+full-width zamba2-7b Mamba2 layer and shared-attention application (the
+SSD kernel, flash at head dim 112, per-slot paged) against them, the
 block-gather kernel against ``pool[idx]`` (bit-exact), the sampling
 uniforms on the card against their numpy twin (bit-exact), and a sampled
 fork engine on the card against the same engine on the CPU.
@@ -113,7 +115,8 @@ def _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal, q_offset,
     got = ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     assert flash_attention_kernel.launches == before + 1
-    plan = plan_splits(B, S_q, H, S_kv, q_offset=q_offset, causal=causal)
+    plan = plan_splits(B, S_q, H, S_kv, q_offset=q_offset, causal=causal,
+                       head_dim=D)
     split = dtype == torch.bfloat16 and plan.splits > 1
     assert flash_attention_kernel.combine_launches == combines + split
     want = ref.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
@@ -159,6 +162,57 @@ def test_flash_kernel_peaked_softmax_matches_plain(card, dtype, B, S_q, S_kv,
     plan = _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal,
                        q_offset, q_scale=PEAKED_Q)
     assert plan.splits == splits
+
+
+# head dims outside the compiled 32 / 64 / 128: zamba2's 112, phi3's 96,
+# 80, and 48 (laid out for 64 columns)
+ANY_D = [112, 96, 80, 48]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", ANY_D)
+@pytest.mark.parametrize(
+    "B,S_q,S_kv,H,Hkv,causal,q_offset,splits",
+    [(1, 128, 1024, 14, 2, True, 768, 5),     # a chunk at a q_offset
+     (2, 200, 1000, 14, 2, True, 400, 2),
+     (2, 63, 65, 7, 1, True, 2, 2),
+     (2, 128, 1024, 16, 16, False, 0, 3),     # non-causal, split
+     (2, 65, 1000, 14, 2, False, 0, 3),
+     (8, 128, 1024, 16, 16, True, 896, 1),    # no split
+     (8, 1024, 1024, 32, 32, True, 0, 1)],    # zamba2's prefill shape
+)
+def test_flash_kernel_any_head_dim_matches_plain(card, dtype, D, B, S_q,
+                                                 S_kv, H, Hkv, causal,
+                                                 q_offset, splits):
+    """The run-time-D form (one consumer warpgroup, tiles laid out for 64
+    or 128 columns and zero past D), split and unsplit."""
+    plan = _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal,
+                       q_offset)
+    assert plan.consumers == 1 and plan.splits == splits
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [112, 96, 80])
+@pytest.mark.parametrize("B,S_q,S_kv,H,Hkv,causal,q_offset",
+                         [(1, 128, 1024, 14, 2, True, 768),
+                          (2, 128, 1024, 16, 16, False, 0),
+                          (8, 1024, 1024, 32, 32, True, 0)])
+def test_flash_kernel_any_head_dim_peaked_softmax(card, dtype, D, B, S_q,
+                                                  S_kv, H, Hkv, causal,
+                                                  q_offset):
+    _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal, q_offset,
+                q_scale=PEAKED_Q)
+
+
+@pytest.mark.parametrize("D", [100, 136, 4])
+def test_flash_kernel_refuses_other_head_dims(card, D):
+    """D % 8 != 0 (a TMA row must be whole 16-byte units) or D > 128: the
+    wrapper raises, launching nothing."""
+    q = torch.zeros((1, 64, 2, D), dtype=torch.bfloat16, device=card)
+    before = flash_attention_kernel.launches
+    with pytest.raises(ValueError, match="D % 8"):
+        flash_attention_kernel(q, q, q, causal=True)
+    assert flash_attention_kernel.launches == before
 
 
 DECODE_LENGTHS = [0, 1, 127, 128, 1000, 1024, 4095, 4096]
@@ -217,7 +271,9 @@ def _decode_case(card, dtype, H, Hkv, D, S_max, lengths, seed, q_scale=1.0):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,n_pool,mb,H,Hkv,D,n_kv",
-                         [(8, 16, 9, 14, 2, 64, 8), (8, 3, 3, 16, 16, 64, 3)])
+                         [(8, 16, 9, 14, 2, 64, 8), (8, 3, 3, 16, 16, 64, 3),
+                          # zamba2's shared attention: G 1, D 112
+                          (8, 10, 10, 32, 32, 112, 9)])
 def test_per_slot_paged_kernel_matches_plain(card, dtype, B, n_pool, mb, H,
                                              Hkv, D, n_kv):
     """Per-slot page ids, each row its own permutation of its pool's
@@ -363,7 +419,8 @@ def _ssd_inputs(card, dtype, B, S, H, P, N, seed):
     "B,S,H,P,N,chunk",
     [(1, 128, 4, 32, 16, 64), (2, 256, 8, 64, 32, 128),
      (1, 256, 16, 32, 64, 64), (2, 127, 80, 64, 128, 127),
-     (2, 512, 80, 64, 128, 128), (1, 96, 6, 32, 16, 128)],
+     (2, 512, 80, 64, 128, 128), (1, 96, 6, 32, 16, 128),
+     (2, 256, 112, 64, 64, 128)],  # zamba2: 112 heads of 64, state 64
 )
 def test_ssd_kernel_matches_plain(card, dtype, B, S, H, P, N, chunk):
     """y and the final state, held to the tolerance of the dtype times
@@ -382,6 +439,26 @@ def test_ssd_kernel_matches_plain(card, dtype, B, S, H, P, N, chunk):
         scale = float(want.float().abs().max())
         err = float((got.float() - want.float()).abs().max())
         assert err <= tol * scale, (err, scale)
+
+
+@pytest.mark.parametrize("case", ["groups", "init_state"])
+def test_ssd_kernel_refuses_what_the_tpu_kernel_refuses(card, case):
+    """The kernel keeps the TPU kernel's limits: one B/C group and a zero
+    initial state (the plain version takes both)."""
+    x, dt, a, b, c, d = _ssd_inputs(card, torch.float32, 1, 128, 4, 32, 16,
+                                    1)
+    init = None
+    if case == "groups":
+        b, c = b.repeat(1, 1, 2, 1), c.repeat(1, 1, 2, 1)
+    else:
+        init = torch.zeros((1, 4, 32, 16), device=card)
+    before = ssd_chunk_scan_kernel.launches
+    with pytest.raises(ValueError):
+        ops.ssd_chunk_scan(x, dt, a, b, c, d_skip=d, init_state=init)
+    assert ssd_chunk_scan_kernel.launches == before
+    y, _ = ops.ssd_chunk_scan(x, dt, a, b, c, d_skip=d, init_state=init,
+                              impl="plain")
+    assert bool(torch.isfinite(y).all())
 
 
 def test_full_width_mamba_layer_kernel_matches_plain(card):
@@ -491,3 +568,63 @@ def test_sampled_fork_engine_card_matches_cpu(card):
                             if dev != "cpu" else 0)
         out[str(dev)] = [r.generated for r in reqs + grp.branches]
     assert out["cpu"] == out[str(card)]
+
+
+def test_full_width_zamba2_layers_kernels_match_plain(card):
+    """One full-width zamba2-7b Mamba2 layer and one application of the
+    shared attention block (bf16, seeded init, the attention projections
+    conditioned as ``chip_smoke.conditioned`` does), 2 sequences of 256
+    tokens: the Mamba2 block (SSD kernel: 112 heads of 64, state 64), the
+    shared block's causal attention (flash, head dim 112) and one decode
+    step over its per-slot pool (paged, G 1), each against the plain
+    version on the same input, within 2e-2 of the largest magnitude, and
+    the attention outputs also row by row."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models import ssm as S
+    from repro_torch.models import transformer as T
+
+    cfg = ARCHS["zamba2-7b"].scaled(num_layers=1, attn_period=1)
+    model = Model(cfg, device=card)
+    params = model.init_params(0)
+    M, H = cfg.d_model, cfg.num_heads
+    attn = params["shared_attn"]["attn"]
+    for name in ("wq", "wk", "wv"):
+        attn[name] = attn[name] * (H / M) ** 0.5
+    attn["wo"] = attn["wo"] / H ** 0.5
+    params = model.compute_params(params)
+    mp = T._layer(params["layers"], 0)["mamba"]
+    shared = params["shared_attn"]
+    g = torch.Generator(device=card).manual_seed(6)
+    xin = torch.randn((2, 256, M), generator=g, device=card).to(
+        torch.bfloat16)
+    counts = (ssd_chunk_scan_kernel.launches, flash_attention_kernel.launches,
+              paged_attention_kernel.launches)
+    outs = {}
+    for impl in (None, "plain"):
+        m, mc = S.mamba_full(mp, xin, cfg, impl=impl)
+        a, (k, v) = L.attention_full(shared["attn"], xin, cfg, causal=True,
+                                     impl=impl)
+        # the prompt on pages 3 and 1 of each slot's 4-page pool
+        pools = {n: torch.zeros((2, 4, 128, 32, 112), dtype=torch.bfloat16,
+                                device=card) for n in ("k_pool", "v_pool")}
+        for n, kv in (("k_pool", k), ("v_pool", v)):
+            pools[n][:, 3], pools[n][:, 1] = kv[:, :128], kv[:, 128:]
+        table = torch.tensor([[3, 1, 2, 0], [3, 1, 0, 2]], dtype=torch.int32,
+                             device=card)
+        lengths = torch.full((2,), 256, dtype=torch.int32, device=card)
+        d, _ = L.attention_decode(shared["attn"], xin[:, -1:], cfg, pools,
+                                  lengths, block_table=table, impl=impl)
+        outs[impl] = (m, mc["state"], a, d)
+    torch.cuda.synchronize()
+    assert (ssd_chunk_scan_kernel.launches, flash_attention_kernel.launches,
+            paged_attention_kernel.launches) == (counts[0] + 1,
+                                                 counts[1] + 1,
+                                                 counts[2] + 1)
+    for i, (got, want) in enumerate(zip(outs[None], outs["plain"])):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
+        if i >= 2:  # the attention outputs, row by row
+            _close_rows(got, want, torch.bfloat16)

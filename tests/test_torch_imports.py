@@ -1,7 +1,7 @@
 """The PyTorch package stands alone: importing it, running an engine
-step, a sampled engine with a copy-on-write fork, an SSM prefill and
-decode and an encoder-decoder prefill and decode pulls in neither JAX
-nor the JAX package, and its entry points run on the card unless told
+step, a sampled engine with a copy-on-write fork, and an SSM, an
+encoder-decoder and a hybrid prefill and decode pulls in neither JAX nor
+the JAX package, and its entry points run on the card unless told
 otherwise."""
 
 import pathlib
@@ -69,6 +69,19 @@ cache["enc_len"][:] = 16
 ed.decode_step(params, cache, {
     "tokens": logits.argmax(-1).to(torch.int32)[:, None],
     "lengths": torch.full((1,), 8, dtype=torch.int32),
+    "block_table": torch.ones((1, 2), dtype=torch.int32)})
+hy = Model(smoke_config(ARCHS["zamba2-7b"]), device="cpu")
+params = hy.init_params(0)
+logits, pcache = hy.prefill(params, {
+    "tokens": torch.arange(1, 17, dtype=torch.int32)[None]})
+cache = hy.init_cache(ShapeConfig("serve", "decode", 64, 1))
+for k, dst in cache["layers"].items():
+    dst.copy_(pcache["mamba"][k])
+cache["attn"]["k_pool"][:, 0, 1, :16] = pcache["attn_k"][:, 0]
+cache["attn"]["v_pool"][:, 0, 1, :16] = pcache["attn_v"][:, 0]
+hy.decode_step(params, cache, {
+    "tokens": logits.argmax(-1).to(torch.int32)[:, None],
+    "lengths": torch.full((1,), 16, dtype=torch.int32),
     "block_table": torch.ones((1, 2), dtype=torch.int32)})
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"

@@ -96,6 +96,8 @@ def test_paged_plain_local_pages_matches_oracle():
         (14, 2, 64, 256, 128),  # qwen2-0.5b group, second chunk
         (14, 2, 64, 384, 256),  # third chunk
         (4, 2, 32, 256, 128),   # smoke config group
+        (4, 4, 112, 256, 128),  # zamba2's shared-attention head dim
+        (6, 2, 96, 256, 128),   # phi3's head dim
     ],
 )
 def test_flash_plain_matches_pallas_interpret(H, Hkv, D, S_kv, q_offset):

@@ -141,13 +141,30 @@ def test_chunked_scan_equals_token_recurrence():
 
 @pytest.mark.parametrize("case", ["groups", "init_state", "ragged"])
 def test_ops_scan_refuses_what_the_kernel_refuses(case):
+    """On the CPU ``ops.ssd_chunk_scan`` refuses only what the JAX oracle
+    asserts (a sequence that is not whole chunks); what the kernel alone
+    refuses, B/C groups and an initial state, the plain version computes
+    as the oracle does (the card tests hold that the kernel refuses)."""
     G = 2 if case == "groups" else 1
     S = 200 if case == "ragged" else 128
-    x, dt, a, b, c, d = _t(*_scan_case(9, 1, S, 4, 32, 16, G=G))
-    init = torch.zeros((1, 4, 32, 16)) if case == "init_state" else None
-    with pytest.raises(ValueError):
-        ops.ssd_chunk_scan(x, dt, a, b, c, chunk=128, d_skip=d,
-                           init_state=init)
+    x, dt, a, b, c, d = _scan_case(9, 1, S, 4, 32, 16, G=G)
+    init = None
+    if case == "init_state":
+        init = np.random.RandomState(10).standard_normal(
+            (1, 4, 32, 16)).astype(np.float32)
+    args = dict(chunk=128, d_skip=torch.from_numpy(d),
+                init_state=None if init is None else torch.from_numpy(init))
+    if case == "ragged":
+        with pytest.raises(ValueError):
+            ops.ssd_chunk_scan(*_t(x, dt, a, b, c), **args)
+        return
+    got_y, got_s = ops.ssd_chunk_scan(*_t(x, dt, a, b, c), **args)
+    want_y, want_s = jref.ssd_chunk_scan(
+        *_j(x, dt, a, b, c), chunk=128, d_skip=jnp.asarray(d),
+        init_state=None if init is None else jnp.asarray(init))
+    np.testing.assert_allclose(got_y.numpy(), np.asarray(want_y), **Y_TOL)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s),
+                               **STATE_TOL)
 
 
 # ---------------------------------------------------------------------------
