@@ -723,7 +723,8 @@ def phase_kernel_table(torch, launches, errs):
         n_bytes = (2 * q.numel() * elt + 2 * kv_rows * Hkv * D * elt)
         flops = 4 * H * D * keys
         b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
-        plan = flash_plan(1, S_q, H, S_kv, q_offset=off, causal=True)
+        plan = flash_plan(1, S_q, H, S_kv, q_offset=off, causal=True,
+                          head_dim=D)
         rows.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1834,7 +1835,8 @@ def encdec_table_rows(torch, launches, errs):
 
     l_ms = time_ms(lfn, iters=10, warmup=2)
     # the f32 route (the CUDA-core body kept for the f32 checks), beside
-    # the plain version and SDPA in f32
+    # the plain version and SDPA in f32: PERF.md's table gives every
+    # kernel row its plain and library times
     q32, k32, v32 = (x.float() for x in (q, k, v))
     f32 = {"f32_ms": time_ms(lambda: flash_attention_kernel(
                q32, k32, v32, causal=False), iters=3, warmup=1),
@@ -1844,7 +1846,7 @@ def encdec_table_rows(torch, launches, errs):
                *(x.transpose(1, 2) for x in (q32, k32, v32))),
                iters=3, warmup=1)}
     del q32, k32, v32
-    plan = flash_plan(ED_BATCH, S, H, S, causal=False)
+    plan = flash_plan(ED_BATCH, S, H, S, causal=False, head_dim=D)
     n_bytes = 4 * q.numel() * elt
     flops = 4 * ED_BATCH * H * S * S * D
     b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")

@@ -62,9 +62,10 @@
 //   serves the correctness checks held to 1e-4 (kernel) and 1e-3 (the
 //   seamless and zamba2 models in f32), which TF32 tensor-core products
 //   would miss.
-// Head dims.  D 32, 64 and 128 are compiled forms.  Any other D with
-//   D % 8 == 0 and D <= 128 (phi3's 96, zamba2's 112) runs a run-time-D
-//   form (kAnyD).  bf16: the D 64 (D <= 64) or D 128 instantiation with
+// Head dims: any D with D % 8 == 0 and D <= 128.  f32 has one body for
+//   every D, with D a run-time argument.  bf16 has compiled forms for
+//   D 32, 64 and 128; any other D (phi3's 96, zamba2's 112) runs a
+//   run-time-D form (kAnyD): the D 64 (D <= 64) or D 128 instantiation with
 //   the tensor maps spanning the real D, so TMA writes zeros into columns
 //   D .. 63 / 127 of every Q, K and V box, as it does for rows past S.
 //   Zeros add nothing to Q.K^T; the P.V columns past D are never stored,
@@ -72,8 +73,7 @@
 //   real D.  A row of D % 8 == 0 columns is whole 16-byte units, which
 //   the tensor maps' strides need.  The form runs one consumer warpgroup
 //   (the two-warpgroup D 128 form spills) over key tiles of 64, so that
-//   two blocks share an SM.  f32: the D 128 body with the
-//   shared-memory rows, the loops and the stores cut to the real D.
+//   two blocks share an SM.
 #include "common.cuh"
 #include "hopper.cuh"
 
@@ -91,20 +91,21 @@ constexpr size_t smem_floats(int d) {
   return (kBlockQ + 2 * kBlockK) * (d + 1) + kBlockQ * (kBlockK + 1);
 }
 
-// D: the head dim, or with kAnyD the largest one (128) and d_rt the real
-template <typename T, int D, bool kAnyD>
+// the accumulator is sized for the largest head dim; dh is the real one
+constexpr int kMaxD = 128;
+
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q,  // (B, S_q, H, D)
                      const T* __restrict__ k,  // (B, S_kv, Hkv, D)
                      const T* __restrict__ v,  // (B, S_kv, Hkv, D)
                      T* __restrict__ out,      // (B, S_q, H, D)
                      int S_q, int S_kv, int H, int Hkv, int q_offset,
-                     int causal, float scale, int d_rt) {
-  const int dh = kAnyD ? d_rt : D;
+                     int causal, float scale, int dh) {
   const int LD = dh + 1;
   constexpr int LP = kBlockK + 1;
   constexpr int KPT = kBlockK / 4;  // score columns per thread
-  constexpr int DPT = D / 4;        // output columns per thread
+  constexpr int DPT = kMaxD / 4;    // output columns per thread
 
   extern __shared__ float smem[];
   float* qs = smem;                 // kBlockQ * LD
@@ -199,7 +200,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
       const int d = c + 4 * i;
-      if (kAnyD && d >= dh) break;
+      if (d >= dh) break;
       float o = 0.f;
 #pragma unroll 16
       for (int t = 0; t < kBlockK; ++t) o = fmaf(pr[t], vs[t * LD + d], o);
@@ -214,22 +215,21 @@ __global__ void __launch_bounds__(kThreads)
     const float denom = fmaxf(l, 1e-30f);
 #pragma unroll
     for (int i = 0; i < DPT; ++i) {
-      if (kAnyD && c + 4 * i >= dh) break;
+      if (c + 4 * i >= dh) break;
       ob[c + 4 * i] = repro::from_float<T>(acc[i] / denom);
     }
   }
 }
 
-template <int D, bool kAnyD>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        int B, int S_q, int S_kv, int H, int Hkv, int d,
                        int q_offset, int causal, float scale,
                        cudaStream_t stream) {
   const size_t smem = smem_floats(d) * sizeof(float);
-  cudaError_t err = repro::set_smem(flash_fwd_kernel<float, D, kAnyD>, smem);
+  cudaError_t err = repro::set_smem(flash_fwd_kernel<float>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S_q + kBlockQ - 1) / kBlockQ, H, B);
-  flash_fwd_kernel<float, D, kAnyD><<<grid, kThreads, smem, stream>>>(
+  flash_fwd_kernel<float><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S_q, S_kv, H,
       Hkv, q_offset, causal, scale, d);
@@ -758,22 +758,9 @@ extern "C" int repro_flash_attention(int device, int dtype, const void* q,
       D <= 0 || D > 128 || D % 8 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == REPRO_F32) {
-    switch (D) {
-      case 32:
-        return launch_f32<32, false>(q, k, v, out, B, S_q, S_kv, H, Hkv, D,
-                                     q_offset, causal, scale, s);
-      case 64:
-        return launch_f32<64, false>(q, k, v, out, B, S_q, S_kv, H, Hkv, D,
-                                     q_offset, causal, scale, s);
-      case 128:
-        return launch_f32<128, false>(q, k, v, out, B, S_q, S_kv, H, Hkv, D,
-                                      q_offset, causal, scale, s);
-      default:
-        return launch_f32<128, true>(q, k, v, out, B, S_q, S_kv, H, Hkv, D,
-                                     q_offset, causal, scale, s);
-    }
-  }
+  if (dtype == REPRO_F32)
+    return launch_f32(q, k, v, out, B, S_q, S_kv, H, Hkv, D, q_offset, causal,
+                      scale, s);
   // (consumers, keys) outside the built pairs: the launchers refuse
   if (dtype != REPRO_BF16 || S_kv <= 0 || splits < 1 ||
       tiles_per_split < 1 || static_cast<int64_t>(B) * splits > 65535 ||

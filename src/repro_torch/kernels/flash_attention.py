@@ -42,9 +42,9 @@ from . import _build
 from .ref import flash_attention as flash_attention_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: head dims with a compiled form; others up to MAX_HEAD_DIM run at run time
-COMPILED_HEAD_DIMS = (32, 64, 128)
-MAX_HEAD_DIM = 128
+#: head dims with a compiled form; others up to _MAX_HEAD_DIM run at run time
+_COMPILED_HEAD_DIMS = (32, 64, 128)
+_MAX_HEAD_DIM = 128
 #: the H100's streaming multiprocessors: the blocks a launch should fill
 SMS = 132
 #: query rows per consumer warpgroup
@@ -63,7 +63,7 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def plan_splits(B: int, S_q: int, H: int, S_kv: int, *, q_offset: int = 0,
-                causal: bool = True, head_dim: int = 64) -> FlashPlan:
+                causal: bool = True, head_dim: int) -> FlashPlan:
     """The bf16 kernel's launch shape, from shapes only.  Two consumer
     warpgroups (128-row tiles, which halve the K/V traffic) where those
     tiles alone fill the SMs and ``head_dim`` has a compiled form, else
@@ -77,12 +77,12 @@ def plan_splits(B: int, S_q: int, H: int, S_kv: int, *, q_offset: int = 0,
     1) * t)`` with ``t = tiles_per_split``."""
     kv_end = min(S_kv, q_offset + S_q) if causal else S_kv
     consumers = 1
-    if (head_dim in COMPILED_HEAD_DIMS
+    if (head_dim in _COMPILED_HEAD_DIMS
             and B * H * _cdiv(S_q, 2 * ROWS) >= SMS):
         consumers = 2
     blocks = B * H * _cdiv(S_q, consumers * ROWS)
     if blocks >= SMS:
-        keys = 128 if head_dim in COMPILED_HEAD_DIMS else 64
+        keys = 128 if head_dim in _COMPILED_HEAD_DIMS else 64
         return FlashPlan(consumers, keys, 1, max(1, _cdiv(kv_end, keys)))
     n_tiles = max(1, _cdiv(kv_end, 64))
     per = _cdiv(n_tiles, min(n_tiles, _cdiv(SMS, blocks)))
@@ -122,9 +122,9 @@ def flash_attention_kernel(
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
-    if H % Hkv or D % 8 or not 0 < D <= MAX_HEAD_DIM:
+    if H % Hkv or D % 8 or not 0 < D <= _MAX_HEAD_DIM:
         raise ValueError(f"H={H} Hkv={Hkv} D={D}: the kernel takes whole "
-                         f"GQA groups and D % 8 == 0, D <= {MAX_HEAD_DIM}")
+                         f"GQA groups and D % 8 == 0, D <= {_MAX_HEAD_DIM}")
     if k.device != q.device or v.device != q.device:
         raise ValueError("all operands must be on q's device")
     if q.dtype == torch.bfloat16 and S_kv < 1:
@@ -158,5 +158,5 @@ flash_attention_kernel.launches = 0
 #: of those, the calls that also launched the split combine
 flash_attention_kernel.combine_launches = 0
 
-__all__ = ["COMPILED_HEAD_DIMS", "MAX_HEAD_DIM", "FlashPlan",
-           "flash_attention_kernel", "flash_attention_plain", "plan_splits"]
+__all__ = ["FlashPlan", "flash_attention_kernel", "flash_attention_plain",
+           "plan_splits"]

@@ -232,7 +232,8 @@ def test_split_flash_causal_chunk_matches_pallas(q_offset):
     q = _rand(rs, (B, S_q, H, D))
     k = _rand(rs, (B, S_kv, Hkv, D))
     v = _rand(rs, (B, S_kv, Hkv, D))
-    plan = fmod.plan_splits(B, S_q, H, S_kv, q_offset=q_offset, causal=True)
+    plan = fmod.plan_splits(B, S_q, H, S_kv, q_offset=q_offset, causal=True,
+                            head_dim=D)
     assert plan.splits > 1
     got = split_flash(*map(torch.from_numpy, (q, k, v)), plan, causal=True,
                       q_offset=q_offset)
@@ -255,7 +256,7 @@ def test_split_flash_ragged_matches_jax_ref(S_q, S_kv, q_offset, causal):
     k = _rand(rs, (B, S_kv, Hkv, D))
     v = _rand(rs, (B, S_kv, Hkv, D))
     plan = fmod.plan_splits(B, S_q, H, S_kv, q_offset=q_offset,
-                            causal=causal)
+                            causal=causal, head_dim=D)
     got = split_flash(*map(torch.from_numpy, (q, k, v)), plan,
                       causal=causal, q_offset=q_offset)
     want = jref.flash_attention(*map(jnp.asarray, (q, k, v)), causal=causal,
@@ -266,10 +267,10 @@ def test_split_flash_ragged_matches_jax_ref(S_q, S_kv, q_offset, causal):
 # ---------------------------------------------------------------------------
 # the planners
 # ---------------------------------------------------------------------------
-def _flash_live_blocks(B, S_q, H, S_kv, q_offset, causal):
+def _flash_live_blocks(B, S_q, H, S_kv, q_offset, causal, head_dim=64):
     """Blocks of the plan that compute at least one tile."""
     plan = fmod.plan_splits(B, S_q, H, S_kv, q_offset=q_offset,
-                            causal=causal)
+                            causal=causal, head_dim=head_dim)
     rows = fmod.ROWS * plan.consumers
     live = 0
     for q0 in range(0, S_q, rows):
@@ -289,7 +290,7 @@ def _flash_live_blocks(B, S_q, H, S_kv, q_offset, causal):
 def test_flash_planner_covers_every_tile_once(B, S_q, H, S_kv, q_offset,
                                               causal):
     plan = fmod.plan_splits(B, S_q, H, S_kv, q_offset=q_offset,
-                            causal=causal)
+                            causal=causal, head_dim=64)
     end = min(S_kv, q_offset + S_q) if causal else S_kv
     n_tiles = -(-end // plan.keys)
     covered = [t for s in range(plan.splits)
@@ -312,6 +313,18 @@ def test_flash_planner_fills_the_card_at_path_shapes(B, S_q, H, S_kv,
     assert live >= fmod.SMS
 
 
+@pytest.mark.parametrize("D", [112, 96, 80])
+def test_flash_planner_runtime_d_form_at_zamba2_prefill(D):
+    """zamba2's prefill (B 8, S 1024, H 32) at a head dim without a
+    compiled form: one warpgroup over 64-key tiles, the only launch shape
+    the run-time-D form has, and still enough blocks for the card.  The
+    compiled D 128 form takes two warpgroups at the same shape."""
+    plan, live = _flash_live_blocks(8, 1024, 32, 1024, 0, True, head_dim=D)
+    assert (plan.consumers, plan.keys, plan.splits) == (1, 64, 1)
+    assert live >= fmod.SMS
+    assert fmod.plan_splits(8, 1024, 32, 1024, head_dim=128).consumers == 2
+
+
 def test_flash_planner_reaches_every_kernel_shape():
     """The card tests' causal cases (tests/test_torch_cuda.py) reach every
     bf16 plan: split key ranges (tiles of 64), one range of 128-key tiles
@@ -320,7 +333,7 @@ def test_flash_planner_reaches_every_kernel_shape():
     for B, S_q, S_kv, H, off in ((1, 128, 1024, 14, 768),
                                  (8, 128, 1024, 16, 896),
                                  (4, 1000, 1000, 16, 0)):
-        plan = fmod.plan_splits(B, S_q, H, S_kv, q_offset=off)
+        plan = fmod.plan_splits(B, S_q, H, S_kv, q_offset=off, head_dim=64)
         kinds.add((plan.consumers, plan.keys, plan.splits > 1))
     assert kinds == {(1, 64, True), (1, 128, False), (2, 128, False)}
 
