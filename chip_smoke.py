@@ -26,9 +26,9 @@ random weights from a seed:
     form) and 32 greedy ``Model.decode_step`` calls (per-slot paged
     attention over the shared block's pools).
 
-It checks that each path went through its kernels (launch counts), and
-times each kernel beside its plain version, its bound and a library
-call.  The page gather is held bit for bit, and the sampling uniforms
+It checks that each path went through its kernels (launch counts, and
+the split combines beside them), and times each kernel beside its plain
+version, its bound and a library call.  The page gather is held bit for bit, and the sampling uniforms
 and the sampler against their host versions.  Every phase prints one
 JSON line; the card's name and power limit
 print as ``nvidia-smi`` gives them; the line before the last is the
@@ -184,6 +184,21 @@ def queued_ms(fn, n: int = 20) -> float:
     return start.elapsed_time(end) / n
 
 
+def host_us(fn, n: int = 1000) -> float:
+    """Host time per call of ``fn`` in µs: ``n`` calls enqueued with no
+    synchronise between them (the device drains the queue after)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / n * 1e6
+
+
 def device_timings(torch, kernel_fn, library_fn=None, n: int = 20) -> dict:
     """Device time per call (``dev_ms``: ``n`` calls queued behind a sleep
     kernel, every kernel a call launches included, the split combine too)
@@ -199,13 +214,14 @@ def device_timings(torch, kernel_fn, library_fn=None, n: int = 20) -> dict:
 # kernel inputs at the serving path's shapes
 # ---------------------------------------------------------------------------
 def paged_inputs(torch, dtype, lengths, *, n_pool=16, mb=9, H=14, Hkv=2,
-                 D=64, seed=0):
+                 D=64, seed=0, q_scale=1.0):
     """Decode-step operands: per-slot pools flattened to global ids, rows
     that cross slots, ``lengths`` already counting the new token."""
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(seed)
     B = len(lengths)
-    q = (torch.randn((B, H, D), generator=g, device=dev) * 0.3).to(dtype)
+    q = (torch.randn((B, H, D), generator=g, device=dev) * 0.3
+         * q_scale).to(dtype)
     kp = (torch.randn((B, n_pool, 128, Hkv, D), generator=g, device=dev)
           * 0.3).to(dtype)
     vp = (torch.randn((B, n_pool, 128, Hkv, D), generator=g, device=dev)
@@ -259,6 +275,37 @@ def local_table(torch, B, n_pool, mb, seed=0):
         if r not in rows or len(rows) >= distinct:
             rows.append(r)
     return torch.tensor(rows, dtype=torch.int32, device="cuda")
+
+
+def paged_plan_fields(B, Hkv, n_kv, lengths) -> dict:
+    """The paged kernel's launch plan at a shape (``plan_splits``, from
+    shapes only) and its live blocks for these lengths: the blocks whose
+    split holds at least one of its row's keys (a row of length <= 0
+    sweeps every split)."""
+    from repro_torch.kernels.paged_attention import plan_splits
+
+    plan = plan_splits(B, Hkv, n_kv, 128)
+    per = plan.block * plan.tiles_per_split
+    live = Hkv * sum(min(plan.splits, -(-n // per)) if n > 0 else plan.splits
+                     for n in lengths)
+    return {"tile_rows": plan.block, "splits": plan.splits,
+            "tiles_per_split": plan.tiles_per_split,
+            "blocks": B * Hkv * plan.splits, "live_blocks": live}
+
+
+def paged_plan_dev_ms(fn, B, Hkv, n_kv) -> dict:
+    """Device time per call (``queued_ms``) of ``fn(plan)`` under the
+    planner's plan and under tiles of 128, 64 and 32 rows at one and two
+    tiles a split: what the planner's choice rests on."""
+    from repro_torch.kernels.paged_attention import PagedPlan, plan_splits
+
+    planned = plan_splits(B, Hkv, n_kv, 128)
+    out = {"planned": queued_ms(lambda: fn(planned))}
+    for rows, per in itertools.product((128, 64, 32), (1, 2)):
+        n = n_kv * 128 // rows
+        plan = PagedPlan(rows, -(-n // per), per)
+        out[f"{rows}x{per}"] = queued_ms(lambda plan=plan: fn(plan))
+    return out
 
 
 def max_err(a, b) -> float:
@@ -327,21 +374,29 @@ def phase_parity(torch):
 
     errs = {}
     rows = []
-    lengths = [1001, 645, 129, 388, 901, 261, 0, 1]  # idle + fresh rows
-    for dname in ("float32", "bfloat16"):
+    # idle and fresh rows; then the split edges of a tile (the planner cuts
+    # pages in two: 63 / 64 / 65 and 127 / 128 / 129) and the
+    # full n_kv sweep, also with q scaled up for a peaked softmax
+    cases = [([1001, 645, 129, 388, 901, 261, 0, 1], 1.0),
+             ([0, 1, 63, 64, 65, 127, 129, 1024], 1.0),
+             ([0, 1, 63, 64, 65, 127, 129, 1024], PEAKED_Q)]
+    for (lengths, qs), dname in itertools.product(cases,
+                                                  ("float32", "bfloat16")):
         dtype = getattr(torch, dname)
-        q, kp, vp, table, lens = paged_inputs(torch, dtype, lengths)
+        q, kp, vp, table, lens = paged_inputs(torch, dtype, lengths,
+                                              q_scale=qs)
         got = paged_attention_kernel(q, kp, vp, table, lens, n_kv=8,
                                      global_pages=True)
         want = ref.paged_attention(q, kp, vp, table, lens, n_kv=8,
                                    global_pages=True)
         torch.cuda.synchronize()
-        e = max_err(got, want)
+        case = attention_errs(got, want, dname, f"paged {lengths} x{qs}")
         rows.append({"kernel": "paged_attention", "dtype": dname,
-                     "case": "B=8 H=14 Hkv=2 D=64 n_kv=8<9 cross-slot",
-                     "max_abs_err": e, "tol": KERNEL_TOL[dname]})
-        check(e <= KERNEL_TOL[dname], f"paged {dname} err {e}")
-        errs["paged_attention", dname] = e
+                     "case": f"B=8 H=14 Hkv=2 D=64 n_kv=8<9 cross-slot "
+                             f"q_scale={qs}", "lengths": lengths,
+                     "plan": paged_plan_fields(8, 2, 8, lengths), **case})
+        errs["paged_attention", dname] = max(
+            case["max_abs_err"], errs.get(("paged_attention", dname), 0.0))
         for (S_kv, off), qs in itertools.product(
                 ((1024, 768), (128, 0), (512, 300)), (1.0, PEAKED_Q)):
             q, k, v = flash_inputs(torch, dtype, S_kv, q_scale=qs)
@@ -590,14 +645,15 @@ def phase_engine(torch, model, params):
 
     # warm-up pass (allocator, cuBLAS handles, kernel loads), not counted
     run_engine(torch, model, params)
-    paged_attention_kernel.launches = 0
-    flash_attention_kernel.launches = 0
-    flash_attention_kernel.combine_launches = 0
+    for k in (paged_attention_kernel, flash_attention_kernel):
+        k.launches = 0
+        k.combine_launches = 0
     eng, reqs, wall, step_ms = run_engine(torch, model, params)
     launches = {"paged_attention": paged_attention_kernel.launches,
                 "flash_attention": flash_attention_kernel.launches}
     # device launches of the split combine, beside the wrapper calls
-    combines = {"flash_attention": flash_attention_kernel.combine_launches}
+    combines = {"paged_attention": paged_attention_kernel.combine_launches,
+                "flash_attention": flash_attention_kernel.combine_launches}
     st = eng.stats()
     check(all(r.done and len(r.generated) == 32 for r in reqs),
           "not every request finished with 32 tokens")
@@ -610,6 +666,10 @@ def phase_engine(torch, model, params):
     check(launches["flash_attention"] == N_LAYERS * st["prefill_chunks"],
           f"flash launches {launches} vs {st['prefill_chunks']}")
     check(all(v > 0 for v in launches.values()), f"launches {launches}")
+    # every n_kv bucket of this engine splits the page sweep (its pages are
+    # cut to tiles of 64 or 32 rows): each paged call also combines
+    check(combines["paged_attention"] == launches["paged_attention"],
+          f"paged combines {combines} vs launches {launches}")
     check(st["pool_unreclaimed"] == 0, "pages left unreclaimed")
     # the same requests through the plain attention: how many of the
     # greedy tokens agree (bf16 rounding may flip near-ties; reported)
@@ -678,12 +738,15 @@ def phase_kernel_table(torch, launches, errs):
     lengths = [n + 17 for n in PROMPT_LENS]
     n_kv = 8  # pow2 bucket of ceil(max len / 128), capped at mb = 9
     q, kp, vp, table, lens = paged_inputs(torch, bf, lengths)
-    k_ms = time_ms(lambda: paged_attention_kernel(q, kp, vp, table, lens,
-                                                  n_kv=n_kv,
-                                                  global_pages=True))
+    def pfn(plan=None):
+        return paged_attention_kernel(q, kp, vp, table, lens, n_kv=n_kv,
+                                      global_pages=True, plan=plan)
+
+    k_ms = time_ms(pfn)
     p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens,
                                                n_kv=n_kv,
                                                global_pages=True))
+
     tok = sum(lengths)
     n_bytes = (2 * q.numel() * elt + tok * Hkv * D * 2 * elt
                + table.numel() * 4 + lens.numel() * 4)
@@ -696,9 +759,13 @@ def phase_kernel_table(torch, launches, errs):
              "max_abs_err": errs["paged_attention", "bfloat16"],
              "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
              "bound_by": b_by, "library_ms": None,
+             **device_timings(torch, pfn),
+             "plan": paged_plan_fields(8, Hkv, n_kv, lengths),
+             "plan_dev_ms": paged_plan_dev_ms(pfn, 8, Hkv, n_kv),
              "library_note": "no single PyTorch call attends over pages "
                              "named by a block table",
-             "shape": f"B=8 lengths={lengths} n_kv={n_kv}"}
+             "shape": f"B=8 lengths={lengths} n_kv={n_kv} H={H} Hkv={Hkv} "
+                      f"D={D} global ids"}
     # flash: the last chunk of the 900-token prompt (start 768, 8 pages),
     # and the first chunk of every prompt (start 0, one page)
     rows = [paged]
@@ -1059,6 +1126,13 @@ def block_gather_table_rows(torch, launches, errs):
         dev_ms = {k: _profile_window(torch, lambda f=f: [
             f() for _ in range(20)])["device_busy_s"] * 1e3 / 20
             for k, f in fns.items()}
+        # the host's enqueue alone: 1,000 calls with no synchronise, kernel
+        # and index_select in turns, 7 rounds, the median of each
+        rounds = {"kernel": [], "library": []}
+        for _ in range(7):
+            for k in rounds:
+                rounds[k].append(host_us(fns[k]))
+        host = {k: statistics.median(v) for k, v in rounds.items()}
         page_bytes = pool[0].numel() * pool.element_size()
         n_bytes = 2 * m * page_bytes + idx.numel() * 4
         b_ms, b_by = bound_ms(n_bytes, 0, "bfloat16")
@@ -1069,6 +1143,8 @@ def block_gather_table_rows(torch, launches, errs):
                      "max_abs_err": errs["block_gather", "bfloat16"],
                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": l_ms,
+                     "host_us": host["kernel"],
+                     "library_host_us": host["library"],
                      "library_note": "torch.index_select on the same "
                                      "flattened pool (timed only)",
                      "shape": f"pool ({QWEN_POOL_PAGES}, 128, 2, 64) M={m}: "
@@ -1419,32 +1495,38 @@ def phase_per_slot_parity(torch):
     """The paged kernel with per-slot (local) page ids against the plain
     version: phase kernel_parity's paged shape with a different
     permutation of each slot's pages in each row, and seamless's
-    self-attention pool (3 pages of 128 per slot, 16 kv heads of 64)."""
+    self-attention pool (3 pages of 128 per slot, 16 kv heads of 64),
+    also at a tile's split edges (63 / 64 / 65, 129) and the full sweep,
+    with q scaled up for a peaked softmax."""
+    seamless = dict(n_pool=3, mb=3, H=16, Hkv=16, D=64)
+    edges = [0, 1, 63, 64, 65, 127, 129, 384]  # a tile's split edges
     cases = [
         (dict(n_pool=16, mb=9, H=14, Hkv=2, D=64), 8,
-         [1001, 645, 129, 388, 901, 261, 0, 1]),
-        (dict(n_pool=3, mb=3, H=16, Hkv=16, D=64), 3,
-         [160, 129, 145, 1, 0, 128, 256, 300]),
+         [1001, 645, 129, 388, 901, 261, 0, 1], 1.0),
+        (seamless, 3, [160, 129, 145, 1, 0, 128, 256, 300], 1.0),
+        (seamless, 3, edges, 1.0), (seamless, 3, edges, PEAKED_Q),
     ]
     rows, errs = [], {}
-    for shape, n_kv, lengths in cases:
+    for shape, n_kv, lengths, qs in cases:
         for dname in ("float32", "bfloat16"):
-            rows.append(per_slot_case(torch, dname, shape, n_kv, lengths))
-            if shape["n_pool"] == 3:
-                errs["paged_attention_per_slot", dname] = \
-                    rows[-1]["max_abs_err"]
+            rows.append(per_slot_case(torch, dname, shape, n_kv, lengths,
+                                      q_scale=qs))
+            if shape is seamless:
+                errs["paged_attention_per_slot", dname] = max(
+                    rows[-1]["max_abs_err"],
+                    errs.get(("paged_attention_per_slot", dname), 0.0))
     emit({"phase": "per_slot_parity", "ok": True, "cases": rows})
     return errs
 
 
-def per_slot_case(torch, dname, shape, n_kv, lengths):
+def per_slot_case(torch, dname, shape, n_kv, lengths, q_scale=1.0):
     """The paged kernel with per-slot page ids against the plain version:
     a different permutation of each slot's pages in each row."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention_kernel
 
     q, kp, vp, _, lens = paged_inputs(torch, getattr(torch, dname), lengths,
-                                      **shape)
+                                      q_scale=q_scale, **shape)
     table = local_table(torch, len(lengths), shape["n_pool"], shape["mb"])
     got = paged_attention_kernel(q, kp, vp, table, lens, n_kv=n_kv,
                                  global_pages=False)
@@ -1453,10 +1535,12 @@ def per_slot_case(torch, dname, shape, n_kv, lengths):
     torch.cuda.synchronize()
     name = (f"B={len(lengths)} " + " ".join(f"{n}={x}"
                                             for n, x in shape.items())
-            + f" n_kv={n_kv}")
+            + f" n_kv={n_kv} q_scale={q_scale}")
     case = attention_errs(got, want, dname, f"per-slot {name}")
     return {"kernel": "paged_attention (per-slot pages)", "dtype": dname,
-            "case": name, "lengths": lengths, **case}
+            "case": name, "lengths": lengths,
+            "plan": paged_plan_fields(len(lengths), shape["Hkv"], n_kv,
+                                      lengths), **case}
 
 
 def phase_flash_noncausal_parity(torch):
@@ -1699,8 +1783,9 @@ def phase_encdec_generate(torch, model, params, enc, toks, table):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
-    flash_attention_kernel.combine_launches = 0
-    decode_attention_kernel.combine_launches = 0
+    for k in (flash_attention_kernel, decode_attention_kernel,
+              paged_attention_kernel):
+        k.combine_launches = 0
     t0 = time.perf_counter()
     logits, pc = model.prefill(params, {"enc_embeds": enc, "tokens": toks})
     torch.cuda.synchronize()
@@ -1721,12 +1806,17 @@ def phase_encdec_generate(torch, model, params, enc, toks, table):
     want = dict(at_prefill, decode_attention=L * ED_STEPS,
                 paged_attention=L * ED_STEPS)
     check(launches == want, f"launches {launches}, want {want}")
+    combines = {
+        "flash_attention": flash_attention_kernel.combine_launches,
+        "decode_attention": decode_attention_kernel.combine_launches,
+        "paged_attention": paged_attention_kernel.combine_launches}
+    # the self pool's 3 pages a slot are 6 splits: every paged call combines
+    check(combines["paged_attention"] == launches["paged_attention"],
+          f"paged combines {combines} vs launches {launches}")
     emit({"phase": "encdec_generate", "ok": True, "arch": model.cfg.name,
           "batch": ED_BATCH, "frames": ED_FRAMES,
           "prompt_tokens": ED_PROMPT, "decode_steps": ED_STEPS,
-          "launches": launches, "combine_launches": {
-              "flash_attention": flash_attention_kernel.combine_launches,
-              "decode_attention": decode_attention_kernel.combine_launches},
+          "launches": launches, "combine_launches": combines,
           "prefill_ms": prefill_ms,
           "median_decode_step_ms": statistics.median(step_ms),
           "decode_tokens_per_s": ED_BATCH * ED_STEPS / decode_s,
@@ -1799,7 +1889,10 @@ def encdec_table_rows(torch, launches, errs):
     q, kp, vp, _, lens = paged_inputs(torch, bf, lengths, n_pool=3, mb=3,
                                       H=H, Hkv=Hkv, D=D)
     table = local_table(torch, ED_BATCH, 3, 3)
-    k_ms = time_ms(lambda: paged_attention_kernel(q, kp, vp, table, lens))
+    def pfn(plan=None):
+        return paged_attention_kernel(q, kp, vp, table, lens, plan=plan)
+
+    k_ms = time_ms(pfn)
     p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens))
     n_rows = sum(lengths)
     n_bytes = (2 * q.numel() * elt + n_rows * Hkv * D * 2 * elt
@@ -1813,6 +1906,9 @@ def encdec_table_rows(torch, launches, errs):
                  "max_abs_err": errs["paged_attention_per_slot", "bfloat16"],
                  "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": None,
+                 **device_timings(torch, pfn),
+                 "plan": paged_plan_fields(ED_BATCH, Hkv, 3, lengths),
+                 "plan_dev_ms": paged_plan_dev_ms(pfn, ED_BATCH, Hkv, 3),
                  "library_note": "no single PyTorch call attends over pages "
                                  "named by a block table",
                  "shape": f"B={ED_BATCH} n_pool=3 lengths="
@@ -1921,14 +2017,23 @@ def phase_flash_anyd_parity(torch):
 def phase_hybrid_kernel_parity(torch):
     """The SSD kernel at zamba2's prefill shape (112 heads of 64, state
     64) and the per-slot paged kernel at its shared block's decode shape
-    (G 1, head dim 112, 10 pages of 128 per slot), in f32 and bf16."""
+    (G 1, head dim 112, 10 pages of 128 per slot; also at a tile's split
+    edges and the full sweep, with q scaled up), in f32 and bf16."""
     rows, errs = ssd_cases(torch, [dict(HY_SSD_SHAPE)], HY_SSD_SHAPE,
                            "ssd_scan_zamba2")
     shape = dict(n_pool=HY_POOL, mb=HY_POOL, H=32, Hkv=32, D=112)
-    lengths = [HY_SEQ, HY_MAX_SEQ - 1, 1, 0, 500, 129, 128, HY_SEQ + 16]
-    for dname in ("float32", "bfloat16"):
-        rows.append(per_slot_case(torch, dname, shape, HY_POOL, lengths))
-        errs["paged_attention_zamba2", dname] = rows[-1]["max_abs_err"]
+    cases = [([HY_SEQ, HY_MAX_SEQ - 1, 1, 0, 500, 129, 128, HY_SEQ + 16],
+              1.0)]
+    # a tile's split edges and the full sweep, also with a peaked softmax
+    edges = [0, 1, 63, 64, 65, 129, HY_POOL * 128, HY_MAX_SEQ]
+    cases += [(edges, 1.0), (edges, PEAKED_Q)]
+    for (lengths, qs), dname in itertools.product(cases,
+                                                  ("float32", "bfloat16")):
+        rows.append(per_slot_case(torch, dname, shape, HY_POOL, lengths,
+                                  q_scale=qs))
+        errs["paged_attention_zamba2", dname] = max(
+            rows[-1]["max_abs_err"],
+            errs.get(("paged_attention_zamba2", dname), 0.0))
     emit({"phase": "hybrid_kernel_parity", "ok": True, "cases": rows})
     return errs
 
@@ -2137,7 +2242,8 @@ def phase_hybrid_generate(torch, model, params, tokens, table):
     torch.cuda.reset_peak_memory_stats()
     for k in kernels.values():
         k.launches = 0
-    flash_attention_kernel.combine_launches = 0
+    for k in (flash_attention_kernel, paged_attention_kernel):
+        k.combine_launches = 0
     t0 = time.perf_counter()
     logits, pc = model.prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
@@ -2155,11 +2261,15 @@ def phase_hybrid_generate(torch, model, params, tokens, table):
     launches = {n: k.launches for n, k in kernels.items()}
     want = dict(at_prefill, paged_attention=n_attn * HY_STEPS)
     check(launches == want, f"launches {launches}, want {want}")
+    combines = {"flash_attention": flash_attention_kernel.combine_launches,
+                "paged_attention": paged_attention_kernel.combine_launches}
+    # 10 pages a slot are 10 splits of two tiles: every paged call combines
+    check(combines["paged_attention"] == launches["paged_attention"],
+          f"paged combines {combines} vs launches {launches}")
     emit({"phase": "hybrid_generate", "ok": True, "arch": model.cfg.name,
           "batch": HY_BATCH, "prompt_tokens": HY_SEQ,
           "decode_steps": HY_STEPS, "launches": launches,
-          "combine_launches": {
-              "flash_attention": flash_attention_kernel.combine_launches},
+          "combine_launches": combines,
           "prefill_ms": prefill_ms,
           "median_decode_step_ms": statistics.median(step_ms),
           "decode_tokens_per_s": HY_BATCH * HY_STEPS / decode_s,
@@ -2238,8 +2348,8 @@ def hybrid_table_rows(torch, launches, errs):
     q, kp, vp, _, lens = paged_inputs(torch, bf, lengths, n_pool=HY_POOL,
                                       mb=HY_POOL, H=H, Hkv=H, D=D)
     table = local_table(torch, B, HY_POOL, HY_POOL)
-    def pfn():
-        return paged_attention_kernel(q, kp, vp, table, lens)
+    def pfn(plan=None):
+        return paged_attention_kernel(q, kp, vp, table, lens, plan=plan)
 
     k_ms = time_ms(pfn)
     p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens))
@@ -2256,6 +2366,8 @@ def hybrid_table_rows(torch, launches, errs):
                  "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                  "bound_by": b_by, "library_ms": None,
                  **device_timings(torch, pfn),
+                 "plan": paged_plan_fields(B, H, HY_POOL, lengths),
+                 "plan_dev_ms": paged_plan_dev_ms(pfn, B, H, HY_POOL),
                  "library_note": "no single PyTorch call attends over pages "
                                  "named by a block table",
                  "shape": f"B={B} n_pool={HY_POOL} lengths={HY_MAX_SEQ} "
@@ -2319,8 +2431,24 @@ def _profile_window(torch, fn) -> dict:
     return {"wall_s": wall, "device_busy_s": busy_s,
             "busy_share_profiled": busy_s / wall,
             "kernel_launches": sum(r[2] for r in rows),
+            **_split_attention_ms(rows),
             "top": [{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
                     for us, k, n in rows[:10]]}
+
+
+def _split_attention_ms(rows) -> dict:
+    """Device ms of the decode body by address rule (the paged kernel's
+    split kernel, the contiguous one's) and of the split combine, which
+    the paged, decode and flash kernels share.  The combine is launched to
+    overlap the split kernel before it, so its span includes its wait."""
+    out = {"paged_split_ms": 0.0, "decode_split_ms": 0.0, "combine_ms": 0.0}
+    for us, key, _ in rows:
+        for name, part in (("paged_split_ms", "PagedRows"),
+                           ("decode_split_ms", "ContiguousRows"),
+                           ("combine_ms", "combine_splits_kernel")):
+            if part in key:
+                out[name] += us / 1e3
+    return out
 
 
 def _profile_decode(torch, model, params, logits, cache, batch, steps):
@@ -2381,7 +2509,7 @@ def phase_profile(torch, model, params, wall_unprofiled: float):
           "busy_share_profiled": busy_s / wall,
           "busy_share_vs_unprofiled_wall": busy_s / wall_unprofiled,
           "kernel_launches": sum(r[2] for r in rows),
-          "engine_steps": eng.steps,
+          "engine_steps": eng.steps, **_split_attention_ms(rows),
           "top": [{"kernel": k[:80], "device_ms": us / 1e3, "calls": n}
                   for us, k, n in rows[:12]]})
 

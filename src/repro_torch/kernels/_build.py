@@ -9,7 +9,9 @@ is reused.  :func:`build` starts one ``nvcc`` per source, all at once.
 
 Nothing is built when this module is imported: the first kernel launch
 builds what it needs, and ``chip_smoke.py`` calls :func:`build` up front.
-A failed build raises with the compiler's stderr.
+A failed build raises with the compiler's stderr.  Wrappers launch through
+an :class:`Entry` (one packed argument block per call) on the stream
+:func:`device_stream` reads.
 """
 
 from __future__ import annotations
@@ -18,10 +20,13 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 import time
 from pathlib import Path
 from typing import Dict, Iterable, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -32,34 +37,6 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",
 )
-
-# ctypes signatures of the C entry points, by library
-_VP, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_I64 = ctypes.c_int64
-_SIGNATURES = {
-    "paged_attention": {
-        "repro_paged_attention": (
-            [_INT, _INT] + [_VP] * 6 + [_INT] * 9 + [_F32, _VP], _INT),
-    },
-    "decode_attention": {
-        "repro_decode_attention": (
-            [_INT, _INT] + [_VP] * 5 + [_INT] * 6 + [_F32, _INT, _INT, _VP,
-                                                     _VP], _INT),
-    },
-    "flash_attention": {
-        "repro_flash_attention": (
-            [_INT, _INT, _VP, _VP, _VP, _VP] + [_INT] * 8
-            + [_F32, _INT, _INT, _INT, _INT, _VP, _VP], _INT),
-    },
-    "ssd_scan": {
-        "repro_ssd_chunk_scan": (
-            [_INT, _INT] + [_VP] * 8 + [_INT] * 6 + [_VP], _INT),
-    },
-    "block_gather": {
-        "repro_block_gather": ([_INT, _VP, _VP, _VP, _INT, _I64, _I64, _VP],
-                               _INT),
-    },
-}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -146,17 +123,44 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build([name])
         lib = ctypes.CDLL(str(library_path(name)))
-        for fn, (argtypes, restype) in _SIGNATURES[name].items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
-        lib.repro_error_string.argtypes = [_INT]
+        lib.repro_error_string.argtypes = [ctypes.c_int]
         lib.repro_error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
 
 
-def check(lib: ctypes.CDLL, err: int, what: str) -> None:
-    """Raise if a C entry point returned a CUDA error."""
-    if err:
-        msg = lib.repro_error_string(err).decode()
-        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+class Entry:
+    """A C entry point of a kernel library, called with its arguments
+    packed into one block: 8 bytes each, little-endian, ``q`` in ``fmt``
+    for an integer (a size, a flag, a data pointer, the stream) and ``d``
+    for a float, in the order the entry reads them (``repro::Args`` in
+    ``csrc/common.cuh``).  ctypes then converts one argument, the bytes of
+    the block, where it would convert each of 8 to 23 one by one; the
+    block is a new ``bytes`` object each call, so calls from several
+    threads do not share it.  The library is loaded, and built if need
+    be, at the first call.  A nonzero return (a refused shape or a failed
+    launch) raises with CUDA's message."""
+
+    def __init__(self, lib: str, fn: str, fmt: str):
+        self.lib, self.fn = lib, fn
+        self._pack = struct.Struct("<" + fmt).pack
+        self._call = None
+
+    def __call__(self, *args) -> None:
+        call = self._call
+        if call is None:
+            call = getattr(load(self.lib), self.fn)
+            call.argtypes = [ctypes.c_char_p]
+            call.restype = ctypes.c_int
+            self._call = call
+        err = call(self._pack(*args))
+        if err:
+            msg = load(self.lib).repro_error_string(err).decode()
+            raise RuntimeError(f"{self.fn}: CUDA error {err} ({msg})")
+
+
+def device_stream(t: torch.Tensor) -> Tuple[int, int]:
+    """The index of ``t``'s device and the raw handle of that device's
+    current stream, read without building a ``torch.cuda.Stream``."""
+    device = t.get_device()
+    return device, torch._C._cuda_getCurrentRawStream(device)

@@ -27,6 +27,9 @@ from . import _build
 from .ref import block_gather as block_gather_plain
 
 
+_launch = _build.Entry("block_gather", "repro_block_gather", "8q")
+
+
 def block_gather_kernel(pool: torch.Tensor,
                         indices: torch.Tensor) -> torch.Tensor:
     """Launch the gather on the current stream of ``pool``'s device;
@@ -36,7 +39,14 @@ def block_gather_kernel(pool: torch.Tensor,
     it, since a gather from a copy would read stale pages silently.
     ``indices`` is a 1-D int32 tensor.  On the CPU (the host built it) it
     is checked against ``[0, N_pool)`` and uploaded; on the card it is
-    used as it is, and an index out of range gives a zero page."""
+    used as it is, and an index out of range gives a zero page.
+
+    The host path is kept short, since at the engine's sizes a call's
+    enqueue outlasts its copy: the page size comes from the pool's size
+    (no view), the stream from :func:`_build.device_stream` (no
+    ``torch.cuda.Stream``), devices compare as indices, and the C entry
+    takes one packed argument block and sets the device only when it is
+    not current."""
     if not pool.is_cuda:
         raise ValueError("block_gather_kernel takes a CUDA pool")
     if not pool.is_contiguous():
@@ -45,26 +55,24 @@ def block_gather_kernel(pool: torch.Tensor,
         raise ValueError(f"pool {tuple(pool.shape)} is not (N_pool, *page)")
     if indices.dtype != torch.int32 or indices.dim() != 1:
         raise TypeError("indices must be a 1-D int32 tensor")
+    device, stream = _build.device_stream(pool)
     n_pool = pool.shape[0]
     if not indices.is_cuda:
         if indices.numel() and (int(indices.min()) < 0
                                 or int(indices.max()) >= n_pool):
             raise IndexError(f"page index outside [0, {n_pool})")
         indices = indices.to(pool.device)
-    elif indices.device != pool.device:
+    elif indices.get_device() != device:
         raise ValueError("indices must be on the pool's device")
-    indices = indices.contiguous()
+    if not indices.is_contiguous():
+        indices = indices.contiguous()
     m = indices.shape[0]
-    out = torch.empty((m, *pool.shape[1:]), dtype=pool.dtype,
-                      device=pool.device)
-    page_bytes = pool[0].numel() * pool.element_size()
-    lib = _build.load("block_gather")
-    err = lib.repro_block_gather(
-        pool.device.index, pool.data_ptr(), indices.data_ptr(),
-        out.data_ptr(), m, n_pool, page_bytes,
-        torch.cuda.current_stream(pool.device).cuda_stream,
-    )
-    _build.check(lib, err, "block_gather kernel launch")
+    out = pool.new_empty((m, *pool.shape[1:]))
+    # numel, not stride(0): a contiguous pool of one page may have any
+    # stride on its first axis
+    page_bytes = pool.numel() // n_pool * pool.element_size() if n_pool else 0
+    _launch(device, pool.data_ptr(), indices.data_ptr(), out.data_ptr(), m,
+            n_pool, page_bytes, stream)
     block_gather_kernel.launches += 1
     return out
 

@@ -78,16 +78,20 @@ int word_bytes(const void* pool, const void* out, int64_t page_bytes) {
 
 }  // namespace
 
-extern "C" int repro_block_gather(int device, const void* pool,
-                                  const void* idx, void* out, int m,
-                                  int64_t n_pool, int64_t page_bytes,
-                                  void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+// Packed arguments (common.cuh: Args), in order: device, pool, idx, out, m,
+// n_pool, page_bytes, stream.
+extern "C" int repro_block_gather(const void* packed) {
+  const repro::Args a(packed);
+  cudaError_t err = repro::use_device(a.i32(0));
   if (err != cudaSuccess) return err;
-  if (m < 0 || n_pool <= 0 || page_bytes <= 0)
+  const void* pool = a.ptr(1);
+  const void* idx = a.ptr(2);
+  void* out = a.ptr(3);
+  const int64_t m = a.i64(4), n_pool = a.i64(5), page_bytes = a.i64(6);
+  if (m < 0 || m > 0x7fffffff || n_pool <= 0 || page_bytes <= 0)
     return cudaErrorInvalidValue;
   if (m == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaStream_t s = static_cast<cudaStream_t>(a.ptr(7));
   switch (word_bytes(pool, out, page_bytes)) {
     case 16:
       return launch<uint4>(pool, idx, out, m, n_pool, page_bytes, s);

@@ -8,6 +8,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 // dtype codes passed from Python
 enum ReproDtype { REPRO_F32 = 0, REPRO_BF16 = 1 };
@@ -62,130 +63,39 @@ inline cudaError_t set_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
-// ---------------------------------------------------------------------------
-// Single-token GQA decode attention for one (sequence, kv head): the block
-// body shared by the paged kernel (paged_attention.cu) and the contiguous
-// one (decode_attention.cu), which differ only in where a tile's rows lie.
-//
-// The block streams n_tiles tiles of `block` key/value rows.  Tile ik's
-// rows for this kv head start at element offset tile_off(ik) of k and v,
-// consecutive rows row_stride elements apart.  For each tile it
-//   1. stages the tile's K and V rows in shared memory (f32, rows padded
-//      by one word so per-token reads fall in distinct banks);
-//   2. scores all G query rows of the group against the tile in f32 (G
-//      need not be a power of two: qwen2-0.5b has G = 7);
-//   3. updates the online softmax (m, l) per row with one warp per row
-//      and accumulates p @ V in f32, p rounded to the value dtype first.
-// Positions >= length are masked to kNegInf.  Once a row has seen a real
-// key, every later masked position contributes exp(-1e30 - m) == 0
-// exactly, so callers stop at the last tile holding a valid position; a
-// row with length <= 0 has none and sweeps every tile, as the TPU kernels
-// do (uniform weights over the masked window).  The output is
-// acc / max(l, 1e-30), stored in T.
-// ---------------------------------------------------------------------------
-inline size_t decode_smem_bytes(int G, int D, int block) {
-  return sizeof(float) *
-         (2 * static_cast<size_t>(block) * (D + 1) + 2 * G * D + G * block +
-          3 * G);
-}
-
-template <typename T, typename TileOffset>
-__device__ __forceinline__ void decode_block(
-    const T* __restrict__ q_g,  // the group's G query rows, (G, D)
-    const T* __restrict__ k, const T* __restrict__ v,
-    T* __restrict__ out_g,      // (G, D)
-    int G, int D, int block, int64_t row_stride, int length, int n_tiles,
-    float scale, TileOffset tile_off, float* smem) {
-  const int ld = D + 1;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int n_warps = blockDim.x >> 5;
-
-  float* ks = smem;               // block * ld
-  float* vs = ks + block * ld;    // block * ld
-  float* qs = vs + block * ld;    // G * D
-  float* acc = qs + G * D;        // G * D
-  float* ps = acc + G * D;        // G * block: scores, then weights
-  float* m_s = ps + G * block;    // G
-  float* l_s = m_s + G;           // G
-  float* a_s = l_s + G;           // G
-
-  for (int i = tid; i < G * D; i += blockDim.x) {
-    qs[i] = to_float(q_g[i]);
-    acc[i] = 0.f;
+// Arguments of a C entry point arrive packed in one block (_build.Entry):
+// 8 bytes each, little-endian, an int64 (a size, a flag, a data pointer or
+// the stream) or a double (a scale), in the order the entry documents.
+// memcpy reads them: the block need not be aligned.
+class Args {
+ public:
+  explicit Args(const void* block) : p_(static_cast<const char*>(block)) {}
+  int64_t i64(int k) const {
+    int64_t x;
+    memcpy(&x, p_ + 8 * k, 8);
+    return x;
   }
-  for (int g = tid; g < G; g += blockDim.x) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
+  int i32(int k) const { return static_cast<int>(i64(k)); }
+  float f32(int k) const {
+    double x;
+    memcpy(&x, p_ + 8 * k, 8);
+    return static_cast<float>(x);
   }
-  __syncthreads();
-
-  for (int ik = 0; ik < n_tiles; ++ik) {
-    const int64_t off = tile_off(ik);
-    const T* kp = k + off;
-    const T* vp = v + off;
-    for (int i = tid; i < block * D; i += blockDim.x) {
-      const int t = i / D;
-      const int d = i - t * D;
-      ks[t * ld + d] = to_float(kp[t * row_stride + d]);
-      vs[t * ld + d] = to_float(vp[t * row_stride + d]);
-    }
-    __syncthreads();
-
-    // scores: one thread per token, all G rows of the group
-    for (int t = tid; t < block; t += blockDim.x) {
-      const float* kr = ks + t * ld;
-      const bool valid = ik * block + t < length;
-      for (int g = 0; g < G; ++g) {
-        const float* qr = qs + g * D;
-        float s = 0.f;
-        for (int d = 0; d < D; ++d) s = fmaf(qr[d], kr[d], s);
-        ps[g * block + t] = valid ? s * scale : kNegInf;
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one warp per query row
-    for (int g = warp; g < G; g += n_warps) {
-      float* pr = ps + g * block;
-      float mx = kNegInf;
-      for (int t = lane; t < block; t += 32) mx = fmaxf(mx, pr[t]);
-      mx = warp_max(mx);
-      const float m_prev = m_s[g];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int t = lane; t < block; t += 32) {
-        const float p = expf(pr[t] - m_new);
-        sum += p;
-        pr[t] = round_to<T>(p);
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * alpha + p @ V
-    for (int i = tid; i < G * D; i += blockDim.x) {
-      const int g = i / D;
-      const int d = i - g * D;
-      const float* pr = ps + g * block;
-      float o = 0.f;
-      for (int t = 0; t < block; ++t) o = fmaf(pr[t], vs[t * ld + d], o);
-      acc[i] = acc[i] * a_s[g] + o;
-    }
-    __syncthreads();
+  void* ptr(int k) const {
+    return reinterpret_cast<void*>(static_cast<intptr_t>(i64(k)));
   }
 
-  for (int i = tid; i < G * D; i += blockDim.x) {
-    const int g = i / D;
-    out_g[i] = from_float<T>(acc[i] / fmaxf(l_s[g], 1e-30f));
-  }
+ private:
+  const char* p_;
+};
+
+// Make `device` current for the launch; a no-op when it already is, as on
+// every call but the first of a single-card process.
+inline cudaError_t use_device(int device) {
+  int current = -1;
+  const cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return err;
+  return current == device ? cudaSuccess : cudaSetDevice(device);
 }
 
 // ---------------------------------------------------------------------------
@@ -196,18 +106,27 @@ __device__ __forceinline__ void decode_block(
 // The row is
 //   out = sum_s 2^(m_s - M) acc_s / max(sum_s 2^(m_s - M) l_s, 1e-30),
 // M = max_s m_s.  A split with l_s == 0 saw no key (it lay wholly past the
-// row's keys) and is skipped: its acc is not read.  A split that saw keys
-// has l_s >= 1, since its largest weight is 2^0.  One warp per row: the
-// lanes take the splits for (m, l), then the columns for acc, 128 at a
-// time.
+// row's keys) and is skipped: its acc, never written, is not added.  A
+// split that saw keys has l_s >= 1, since its largest weight is 2^0.  One
+// warp per row: the lanes take the splits for (m, l), then the columns for
+// acc, 128 at a time, loading kCombineBatch splits' sums before adding
+// them.
+//
+// It is launched to overlap the split kernel before it (programmatic
+// dependent launch): its blocks may be scheduled once every block of that
+// grid has started and run griddepcontrol.launch_dependents (or exited),
+// and they wait at griddepcontrol.wait until the grid has finished and its
+// writes are visible.
 // ---------------------------------------------------------------------------
 constexpr int kCombineWarps = 8;
+constexpr int kCombineBatch = 4;  // splits whose sums load together
 
 template <typename T>
 __global__ void __launch_bounds__(kCombineWarps * 32)
     combine_splits_kernel(const float* __restrict__ acc,
                           const float* __restrict__ ml, T* __restrict__ out,
                           int64_t rows, int D, int splits) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int lane = threadIdx.x & 31;
   const int64_t row =
       static_cast<int64_t>(blockIdx.x) * kCombineWarps + (threadIdx.x >> 5);
@@ -235,13 +154,28 @@ __global__ void __launch_bounds__(kCombineWarps * 32)
         if (p[1] > 0.f) w = exp2f(p[0] - M);
       }
       const int n = min(32, splits - s0);
-      for (int j = 0; j < n; ++j) {
-        const float wj = __shfl_sync(0xffffffffu, w, j);
-        if (wj == 0.f) continue;  // the same for every lane: no divergence
-        const float* a = acc + ((s0 + j) * rows + row) * D + c0;
+      for (int j0 = 0; j0 < n; j0 += kCombineBatch) {
+        // the batch's loads first, so that they are in flight together,
+        // then the sums in split order (a skipped split's value, read from
+        // the workspace but never written, is not added)
+        float x[kCombineBatch][4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (c0 + lane + 32 * c < D) num[c] += wj * a[lane + 32 * c];
+        for (int jj = 0; jj < kCombineBatch; ++jj) {
+          const int j = min(j0 + jj, n - 1);
+          const float* a = acc + ((s0 + j) * rows + row) * D + c0;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            x[jj][c] = c0 + lane + 32 * c < D ? a[lane + 32 * c] : 0.f;
+        }
+#pragma unroll
+        for (int jj = 0; jj < kCombineBatch; ++jj) {
+          const float wj = __shfl_sync(0xffffffffu, w, min(j0 + jj, 31));
+          // the same for every lane: no divergence
+          if (j0 + jj >= n || wj == 0.f) continue;
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c0 + lane + 32 * c < D) num[c] += wj * x[jj][c];
+        }
       }
     }
 #pragma unroll
@@ -255,10 +189,18 @@ template <typename T>
 inline cudaError_t launch_combine(const float* acc, const float* ml, T* out,
                                   int64_t rows, int D, int splits,
                                   cudaStream_t stream) {
-  combine_splits_kernel<T>
-      <<<static_cast<unsigned>((rows + kCombineWarps - 1) / kCombineWarps),
-         kCombineWarps * 32, 0, stream>>>(acc, ml, out, rows, D, splits);
-  return cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim =
+      dim3(static_cast<unsigned>((rows + kCombineWarps - 1) / kCombineWarps));
+  cfg.blockDim = dim3(kCombineWarps * 32);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, combine_splits_kernel<T>, acc, ml, out,
+                            rows, D, splits);
 }
 
 }  // namespace repro

@@ -745,14 +745,12 @@ cudaError_t launch_bf16_any_d(int consumers, int keys, const void* q,
 
 }  // namespace
 
-extern "C" int repro_flash_attention(int device, int dtype, const void* q,
-                                     const void* k, const void* v, void* out,
-                                     int B, int S_q, int S_kv, int H,
-                                     int Hkv, int D, int q_offset, int causal,
-                                     float scale, int consumers, int keys,
-                                     int splits, int tiles_per_split,
-                                     void* workspace, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+static int flash_entry(int device, int dtype, const void* q, const void* k,
+                       const void* v, void* out, int B, int S_q, int S_kv,
+                       int H, int Hkv, int D, int q_offset, int causal,
+                       float scale, int consumers, int keys, int splits,
+                       int tiles_per_split, void* workspace, void* stream) {
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return err;
   if (B <= 0 || S_q <= 0 || Hkv <= 0 || H % Hkv != 0 || q_offset < 0 ||
       D <= 0 || D > 128 || D % 8 != 0)
@@ -789,4 +787,16 @@ extern "C" int repro_flash_attention(int device, int dtype, const void* q,
                                     S_q, S_kv, H, Hkv, D, q_offset, causal,
                                     scale, splits, tiles_per_split, s);
   }
+}
+
+// Packed arguments (common.cuh: Args), in order: device, dtype, q, k, v, out,
+// B, S_q, S_kv, H, Hkv, D, q_offset, causal, scale (double), consumers,
+// keys, splits, tiles_per_split, workspace, stream.
+extern "C" int repro_flash_attention(const void* packed) {
+  const repro::Args a(packed);
+  return flash_entry(a.i32(0), a.i32(1), a.ptr(2), a.ptr(3), a.ptr(4),
+                     a.ptr(5), a.i32(6), a.i32(7), a.i32(8), a.i32(9),
+                     a.i32(10), a.i32(11), a.i32(12), a.i32(13), a.f32(14),
+                     a.i32(15), a.i32(16), a.i32(17), a.i32(18), a.ptr(19),
+                     a.ptr(20));
 }

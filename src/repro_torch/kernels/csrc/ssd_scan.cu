@@ -342,13 +342,11 @@ cudaError_t launch_pn(int P, int N, const void* x, const float* dt,
 
 }  // namespace
 
-extern "C" int repro_ssd_chunk_scan(int device, int dtype, const void* x,
-                                    const void* dt, const void* a,
-                                    const void* b, const void* c,
-                                    const void* d, void* y, void* state,
-                                    int B, int S, int H, int P, int N,
-                                    int chunk, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+static int ssd_entry(int device, int dtype, const void* x, const void* dt,
+                     const void* a, const void* b, const void* c,
+                     const void* d, void* y, void* state, int B, int S, int H,
+                     int P, int N, int chunk, void* stream) {
+  cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return err;
   if (B <= 0 || S <= 0 || H <= 0 || chunk <= 0 || chunk > kMaxChunk ||
       S % chunk != 0)
@@ -368,4 +366,14 @@ extern "C" int repro_ssd_chunk_scan(int device, int dtype, const void* x,
     default:
       return cudaErrorInvalidValue;
   }
+}
+
+// Packed arguments (common.cuh: Args), in order: device, dtype, x, dt, a, b,
+// c, d, y, state, B, S, H, P, N, chunk, stream.
+extern "C" int repro_ssd_chunk_scan(const void* packed) {
+  const repro::Args a(packed);
+  return ssd_entry(a.i32(0), a.i32(1), a.ptr(2), a.ptr(3), a.ptr(4),
+                   a.ptr(5), a.ptr(6), a.ptr(7), a.ptr(8), a.ptr(9),
+                   a.i32(10), a.i32(11), a.i32(12), a.i32(13), a.i32(14),
+                   a.i32(15), a.ptr(16));
 }

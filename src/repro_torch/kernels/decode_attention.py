@@ -8,9 +8,10 @@ sequence against a contiguous ``(B, S_max, Hkv, D)`` cache whose first
 encoder-decoder's cross-attention decode (``layers.attention_decode``
 with ``cross=True``), over the cross cache of the encoder output.
 
-The kernel (``csrc/decode_attention.cu``) splits each row's key range
-across blocks: a block per (split, kv head, sequence), a split being
-whole tiles of 128 cache rows.  :func:`plan_splits` picks the split from
+The kernel (``csrc/decode_attention.cu``, its block body in
+``csrc/decode_split.cuh``, shared with the paged kernel) splits each
+row's key range across blocks: a block per (split, kv head, sequence), a
+split being whole tiles of 128 cache rows.  :func:`plan_splits` picks the split from
 ``S_max`` and ``B * Hkv`` alone (``lengths`` lives on the card); splits
 past a row's length leave at once, and a second small kernel combines
 the splits' partial softmax states.  On the H100 it is bound by bytes:
@@ -39,6 +40,9 @@ BLOCK_K = 128
 #: the H100's 132 (most of them leave at once past a row's length)
 MAX_BLOCKS = 32 * 132
 
+_launch = _build.Entry("decode_attention", "repro_decode_attention",
+                       "13qd4q")
+
 
 class DecodePlan(NamedTuple):
     block: int            # cache rows per tile
@@ -65,8 +69,10 @@ def decode_attention_kernel(
 ) -> torch.Tensor:
     """Launch the decode kernel on ``q``'s stream; returns (B, H, D) in
     q.dtype.  ``S_max`` must be a multiple of ``min(128, S_max)``, as the
-    TPU kernel asserts.  D 32, 64 and 128 take the kernel's 16-byte key
-    slices; any other D takes its run-time-D form.  A row with
+    TPU kernel asserts.  D 32, 64, 112 and 128 take the kernel's 16-byte
+    key slices; any other D takes its run-time-D form.  Tiles load by 16-byte
+    ``cp.async`` where rows are whole 16-byte chunks and the caches are
+    16-byte aligned, element by element otherwise.  A row with
     ``lengths <= 0`` attends uniformly over all ``S_max`` rows, as the TPU
     kernel and the plain softmax do."""
     if not q.is_cuda:
@@ -87,28 +93,23 @@ def decode_attention_kernel(
         raise ValueError(f"S_max {S_max} is not a multiple of {plan.block}")
     if lengths.dtype != torch.int32 or lengths.shape != (B,):
         raise TypeError("lengths must be (B,) int32")
-    for t in (k_cache, v_cache, lengths):
-        if t.device != q.device:
-            raise ValueError("all operands must be on q's device")
+    device, stream = _build.device_stream(q)
+    if (k_cache.get_device() != device or v_cache.get_device() != device
+            or lengths.get_device() != device):
+        raise ValueError("all operands must be on q's device")
     q = q.contiguous()
-    # 16-byte loads from the caches: copy a view that is not aligned
-    k_cache, v_cache = (t if t.data_ptr() % 16 == 0 else t.clone()
-                        for t in (k_cache.contiguous(), v_cache.contiguous()))
+    k_cache = k_cache.contiguous()
+    v_cache = v_cache.contiguous()
     lengths = lengths.contiguous()
     out = torch.empty_like(q)
     ws = None
     if plan.splits > 1:  # partial (acc, m, l) of each split, f32
         ws = torch.empty(plan.splits * B * H * (D + 2), dtype=torch.float32,
                          device=q.device)
-    lib = _build.load("decode_attention")
-    err = lib.repro_decode_attention(
-        q.device.index, _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-        v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H, Hkv, D,
-        S_max, plan.block, 1.0 / math.sqrt(D), plan.splits,
-        plan.tiles_per_split, None if ws is None else ws.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, err, "decode_attention kernel launch")
+    _launch(device, _DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
+            v_cache.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, H,
+            Hkv, D, S_max, plan.block, 1.0 / math.sqrt(D), plan.splits,
+            plan.tiles_per_split, 0 if ws is None else ws.data_ptr(), stream)
     decode_attention_kernel.launches += 1
     if plan.splits > 1:
         decode_attention_kernel.combine_launches += 1

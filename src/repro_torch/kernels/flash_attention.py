@@ -50,6 +50,8 @@ SMS = 132
 #: query rows per consumer warpgroup
 ROWS = 64
 
+_launch = _build.Entry("flash_attention", "repro_flash_attention", "14qd6q")
+
 
 class FlashPlan(NamedTuple):
     consumers: int        # consumer warpgroups per block: 64 rows each
@@ -125,7 +127,8 @@ def flash_attention_kernel(
     if H % Hkv or D % 8 or not 0 < D <= _MAX_HEAD_DIM:
         raise ValueError(f"H={H} Hkv={Hkv} D={D}: the kernel takes whole "
                          f"GQA groups and D % 8 == 0, D <= {_MAX_HEAD_DIM}")
-    if k.device != q.device or v.device != q.device:
+    device, stream = _build.device_stream(q)
+    if k.get_device() != device or v.get_device() != device:
         raise ValueError("all operands must be on q's device")
     if q.dtype == torch.bfloat16 and S_kv < 1:
         raise ValueError("the bf16 kernel needs at least one key")
@@ -138,15 +141,10 @@ def flash_attention_kernel(
         if plan.splits > 1:  # partial (acc, m, l) of each split, f32
             ws = torch.empty(plan.splits * B * S_q * H * (D + 2),
                              dtype=torch.float32, device=q.device)
-    lib = _build.load("flash_attention")
-    err = lib.repro_flash_attention(
-        q.device.index, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
-        v.data_ptr(), out.data_ptr(), B, S_q, S_kv, H, Hkv, D, q_offset,
-        1 if causal else 0, 1.0 / math.sqrt(D), *plan,
-        None if ws is None else ws.data_ptr(),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    _build.check(lib, err, "flash_attention kernel launch")
+    _launch(device, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), B, S_q, S_kv, H, Hkv, D, q_offset,
+            1 if causal else 0, 1.0 / math.sqrt(D), *plan,
+            0 if ws is None else ws.data_ptr(), stream)
     flash_attention_kernel.launches += 1
     if plan.splits > 1:
         flash_attention_kernel.combine_launches += 1

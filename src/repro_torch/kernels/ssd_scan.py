@@ -37,6 +37,8 @@ _HEAD_DIMS = (32, 64)
 _STATE_DIMS = (16, 32, 64, 128)
 MAX_CHUNK = 128
 
+_launch = _build.Entry("ssd_scan", "repro_ssd_chunk_scan", "17q")
+
 
 def _check_args(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
                 chunk: int, init_state: Optional[torch.Tensor]) -> int:
@@ -88,8 +90,9 @@ def ssd_chunk_scan_kernel(
             or (d_skip is not None and d_skip.shape != (H,))):
         raise ValueError(f"dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
                          f"b {tuple(b.shape)} for x {tuple(x.shape)}")
+    device, stream = _build.device_stream(x)
     operands = [dt, a, b, c] + ([d_skip] if d_skip is not None else [])
-    if any(t.device != x.device for t in operands):
+    if any(t.get_device() != device for t in operands):
         raise ValueError("all operands must be on x's device")
     d = (d_skip if d_skip is not None
          else torch.zeros((H,), dtype=torch.float32, device=x.device))
@@ -97,14 +100,9 @@ def ssd_chunk_scan_kernel(
     dt, a, d = (t.float().contiguous() for t in (dt, a, d))
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    lib = _build.load("ssd_scan")
-    err = lib.repro_ssd_chunk_scan(
-        x.device.index, _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(),
-        a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
-        y.data_ptr(), state.data_ptr(), B, S, H, P, N, chunk,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    _build.check(lib, err, "ssd_chunk_scan kernel launch")
+    _launch(device, _DTYPES[x.dtype], x.data_ptr(), dt.data_ptr(),
+            a.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
+            y.data_ptr(), state.data_ptr(), B, S, H, P, N, chunk, stream)
     ssd_chunk_scan_kernel.launches += 1
     return y, state
 

@@ -1,4 +1,6 @@
-"""The CUDA kernels against their plain versions on the card, the engine
+"""The CUDA kernels against their plain versions on the card (the paged
+kernel at each path's decode shape, at a tile's split edges and under
+launch plans its planner does not pick), the engine
 through the kernels against the engine through the plain versions, a
 full-width Mamba2 layer with the SSD kernel against the plain scan, and
 a full-width seamless-m4t-medium decoder layer through the flash, paged
@@ -33,7 +35,9 @@ from repro_torch.kernels.decode_attention import decode_attention_kernel
 from repro_torch.kernels.decode_attention import plan_splits as decode_plan
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.flash_attention import plan_splits
+from repro_torch.kernels.paged_attention import PagedPlan
 from repro_torch.kernels.paged_attention import paged_attention_kernel
+from repro_torch.kernels.paged_attention import plan_splits as paged_plan
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
 
 # the test workers share the machine's cores: one intra-op thread each
@@ -92,13 +96,126 @@ def test_paged_kernel_matches_plain(card, dtype, B, n_pool, mb, H, Hkv, D,
                             dtype=torch.int32)
     lengths[-1] = 0  # an idle row: uniform weights over the masked sweep
     before = paged_attention_kernel.launches
+    combines = paged_attention_kernel.combine_launches
     got = ops.paged_attention(q, kp, vp, table, lengths, n_kv=n_kv,
                               global_pages=True)
     torch.cuda.synchronize()
     assert paged_attention_kernel.launches == before + 1
+    split = paged_plan(B, Hkv, n_kv, 128).splits > 1
+    assert paged_attention_kernel.combine_launches == combines + split
     want = ref.paged_attention(q, kp, vp, table, lengths, n_kv=n_kv,
                                global_pages=True)
-    _close(got, want, dtype)
+    _close_rows(got, want, dtype)
+
+
+# the split edges of a 64-row tile (block - 1, block, block + 1; a page's
+# end), an idle row, a fresh one, and the full n_kv sweep, at each path's
+# decode shape
+PAGED_SHAPES = {
+    # qwen2's engine: G 7, global ids across slots, n_kv 8 of 9 columns
+    "qwen2": dict(B=8, n_pool=16, mb=9, H=14, Hkv=2, D=64, n_kv=8,
+                  global_pages=True,
+                  lengths=[0, 1, 63, 64, 65, 129, 1024, 901]),
+    # seamless's self-attention: G 1, per-slot ids, 3 pages a slot
+    "seamless": dict(B=8, n_pool=3, mb=3, H=16, Hkv=16, D=64, n_kv=3,
+                     global_pages=False,
+                     lengths=[0, 1, 63, 64, 65, 129, 384, 160]),
+    # zamba2's shared block: G 1, D 112 (compiled, 14 chunks on 16 lanes)
+    "zamba2": dict(B=8, n_pool=10, mb=10, H=32, Hkv=32, D=112, n_kv=10,
+                   global_pages=False,
+                   lengths=[0, 1, 63, 64, 65, 129, 1280, 1056]),
+    "d32": dict(B=6, n_pool=4, mb=5, H=8, Hkv=2, D=32, n_kv=4,
+                global_pages=True, lengths=[0, 1, 31, 33, 65, 512]),
+    "d128": dict(B=6, n_pool=4, mb=4, H=16, Hkv=16, D=128, n_kv=3,
+                 global_pages=False, lengths=[0, 1, 63, 65, 129, 384]),
+    # the run-time-D form: rows of whole 16-byte chunks (D 80), and rows
+    # that are not (D 36 in bf16: element by element)
+    "d80": dict(B=6, n_pool=4, mb=4, H=8, Hkv=8, D=80, n_kv=3,
+                global_pages=True, lengths=[0, 1, 63, 65, 129, 384]),
+    "d36": dict(B=6, n_pool=3, mb=3, H=4, Hkv=2, D=36, n_kv=3,
+                global_pages=False, lengths=[0, 1, 127, 128, 129, 384]),
+}
+
+
+def _paged_split_case(card, dtype, shape, seed, q_scale=1.0, plan=None):
+    """The paged kernel against the plain version at one of PAGED_SHAPES:
+    global ids drawn from every slot's pages, or per-slot ids, each row
+    its own permutation of its pool.  Returns the plan it ran."""
+    s = PAGED_SHAPES[shape]
+    B, n_pool, mb, H, Hkv, D, n_kv = (s[k] for k in (
+        "B", "n_pool", "mb", "H", "Hkv", "D", "n_kv"))
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((B, H, D), generator=g,
+                    device=card).to(dtype) * (0.3 * q_scale)
+    kp = torch.randn((B, n_pool, 128, Hkv, D), generator=g,
+                     device=card).to(dtype) * 0.3
+    vp = torch.randn((B, n_pool, 128, Hkv, D), generator=g,
+                     device=card).to(dtype) * 0.3
+    rs = np.random.RandomState(seed)
+    if s["global_pages"]:
+        table = rs.randint(0, B * n_pool, (B, mb))
+    else:
+        table = np.stack([rs.permutation(n_pool)[:mb] for _ in range(B)])
+    table = torch.tensor(table, dtype=torch.int32, device=card)
+    lengths = torch.tensor(s["lengths"], dtype=torch.int32, device=card)
+    if plan is None:
+        plan = paged_plan(B, Hkv, n_kv, 128)
+    before = paged_attention_kernel.launches
+    combines = paged_attention_kernel.combine_launches
+    got = paged_attention_kernel(q, kp, vp, table, lengths, n_kv=n_kv,
+                                 global_pages=s["global_pages"], plan=plan)
+    torch.cuda.synchronize()
+    assert paged_attention_kernel.launches == before + 1
+    assert (paged_attention_kernel.combine_launches
+            == combines + (plan.splits > 1))
+    want = ref.paged_attention(q, kp, vp, table, lengths, n_kv=n_kv,
+                               global_pages=s["global_pages"])
+    _close_rows(got, want, dtype)
+    return plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", list(PAGED_SHAPES))
+@pytest.mark.parametrize("q_scale", [1.0, PEAKED_Q])
+def test_paged_kernel_split_edges(card, dtype, shape, q_scale):
+    """The planner's split at each path's decode shape, the split edges,
+    and q scaled up so that the splits' maxima differ."""
+    plan = _paged_split_case(card, dtype, shape, len(shape) + 7,
+                             q_scale=q_scale)
+    assert plan.splits > 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,plan", [
+    ("qwen2", PagedPlan(128, 1, 8)),    # one split: no combine
+    ("qwen2", PagedPlan(128, 8, 1)),    # a page a split
+    ("qwen2", PagedPlan(32, 32, 1)),    # a quarter page a split
+    ("qwen2", PagedPlan(64, 6, 3)),     # three half pages a split
+    ("zamba2", PagedPlan(128, 1, 10)),
+    ("zamba2", PagedPlan(128, 4, 3)),   # the last split one tile
+    ("zamba2", PagedPlan(64, 20, 1)),
+    ("seamless", PagedPlan(32, 12, 1)),
+])
+def test_paged_kernel_other_plans(card, dtype, shape, plan):
+    """Launch shapes the planner does not pick at these shapes: one split,
+    several tiles a split (pages crossed inside a split), tiles of 32 and
+    64 rows (a page cut in tiles)."""
+    _paged_split_case(card, dtype, shape, 11, q_scale=PEAKED_Q, plan=plan)
+
+
+def test_paged_kernel_refuses_a_plan_that_misses_tiles(card):
+    """A plan that covers fewer than n_kv pages, or tiles that do not
+    divide the page, launches nothing and raises."""
+    q = torch.zeros((2, 4, 64), dtype=torch.bfloat16, device=card)
+    kp = torch.zeros((2, 3, 128, 2, 64), dtype=torch.bfloat16, device=card)
+    table = torch.zeros((2, 3), dtype=torch.int32, device=card)
+    lengths = torch.ones((2,), dtype=torch.int32, device=card)
+    before = paged_attention_kernel.launches
+    for plan in (PagedPlan(128, 2, 1), PagedPlan(96, 4, 1)):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            paged_attention_kernel(q, kp, kp, table, lengths, n_kv=3,
+                                   plan=plan)
+    assert paged_attention_kernel.launches == before
 
 
 def _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal, q_offset,
@@ -229,7 +346,8 @@ SPLIT_LENGTHS = [0, 1, 127, 128, 129, 1024, 4095, 4096]
      # S_max 128: one split, no combine; B 1
      (14, 2, 64, 128, [0, 1, 127, 128]), (16, 16, 64, 128, [0, 1, 127, 128]),
      (14, 2, 64, 4096, [1024]), (16, 16, 128, 4096, [129]),
-     # D outside 32 / 64 / 128: the run-time-D form (zamba2's 112; 80)
+     # D 112 (zamba2's, compiled with 16 lanes a key for 14 chunks) and
+     # D 80 (the run-time-D form)
      (16, 16, 112, 4096, SPLIT_LENGTHS), (14, 2, 80, 4096, DECODE_LENGTHS),
      (7, 1, 112, 128, [0, 1, 127, 128])],
 )
@@ -292,11 +410,14 @@ def test_per_slot_paged_kernel_matches_plain(card, dtype, B, n_pool, mb, H,
                             dtype=torch.int32)
     lengths[-1] = 0
     before = paged_attention_kernel.launches
+    combines = paged_attention_kernel.combine_launches
     got = ops.paged_attention(q, kp, vp, table, lengths, n_kv=n_kv)
     torch.cuda.synchronize()
     assert paged_attention_kernel.launches == before + 1
-    _close(got, ref.paged_attention(q, kp, vp, table, lengths, n_kv=n_kv),
-           dtype)
+    split = paged_plan(B, Hkv, n_kv, 128).splits > 1
+    assert paged_attention_kernel.combine_launches == combines + split
+    _close_rows(got, ref.paged_attention(q, kp, vp, table, lengths,
+                                         n_kv=n_kv), dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,8 +1,8 @@
 """The split-and-combine arithmetic of the port's attention kernels, held
 against the JAX package on the CPU.
 
-The bf16 flash kernel and the contiguous decode kernel split a row's key
-range across blocks: each split keeps its own online-softmax state (m, l,
+The bf16 flash kernel, the contiguous decode kernel and the paged decode
+kernel split a row's key range across blocks: each split keeps its own online-softmax state (m, l,
 acc), rounds its weights to the value dtype against its own running
 max, and a combine merges the splits as
 ``sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30)``.  The
@@ -10,11 +10,13 @@ kernels run only on the card, so this file emulates that arithmetic in
 plain PyTorch, with the wrappers' own split planners and the kernels'
 tile rules (a split wholly past a row's keys contributes ``m = -1e30,
 l = 0``; a decode row with ``length <= 0`` sweeps every split), and
-holds it against ``decode_attention_pallas`` and
-``flash_attention_pallas`` in interpret mode and against the JAX
-package's ``ref`` oracles.  It also checks the planners: every key tile
-falls in exactly one split, and the path's shapes give at least one
-block per SM.
+holds it against ``decode_attention_pallas``,
+``paged_attention_pallas`` and ``flash_attention_pallas`` in interpret
+mode and against the JAX package's ``ref`` oracles.  The paged kernel's
+tiles are gathered by the block table (a tile is a page or a piece of
+one), with global ids across slots or per-slot ids.  It also checks the
+planners: every key tile falls in exactly one split, and the path's
+shapes give at least one block per SM.
 
 Tolerances: f32 at rtol = atol = 2e-5, as tests/test_kernels.py holds the
 Pallas bodies to their oracles (the splits sum in another order); bf16
@@ -22,6 +24,7 @@ weights at 2e-2, the gap the card tests allow between the kernels (which
 round unnormalised weights against a split's max) and the plain
 versions."""
 
+import functools
 import math
 
 import jax.numpy as jnp
@@ -32,8 +35,10 @@ import torch
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_pallas
 from repro.kernels.paged_attention import decode_attention_pallas
+from repro.kernels.paged_attention import paged_attention_pallas
 from repro_torch.kernels import decode_attention as dmod
 from repro_torch.kernels import flash_attention as fmod
+from repro_torch.kernels import paged_attention as pmod
 
 # the test workers share the machine's cores: one intra-op thread each
 torch.set_num_threads(1)
@@ -110,6 +115,48 @@ def split_decode(q, k, v, lengths, plan, pdtype=torch.float32):
                     rows = slice(t * blk, (t + 1) * blk)
                     pos = torch.arange(t * blk, (t + 1) * blk)
                     tiles.append((k[b, rows, h], v[b, rows, h],
+                                  (pos < length)[None, :].expand(G, blk)))
+                states.append(_split_state(qg, tiles, pdtype))
+            out[b, h * G:(h + 1) * G] = _combine(states)
+    return out
+
+
+def split_paged(q, k_pool, v_pool, table, lengths, plan, *, n_kv,
+                global_pages, pdtype=torch.float32):
+    """The paged kernel's arithmetic: q (B, H, D), pools (B, N_pool,
+    page_rows, Hkv, D), table (B, max_blocks); ``plan`` from
+    ``pmod.plan_splits``.  Tile t of row b is rows ``[(t % tpp) * block,
+    (t % tpp + 1) * block)`` of page ``table[b, t // tpp]`` (of the
+    slot-flattened pool for global ids, of row b's own pool otherwise),
+    ``tpp = page_rows / block``; only the first ``n_kv`` columns count."""
+    B, H, D = q.shape
+    n_pool, page_rows, Hkv = k_pool.shape[1:4]
+    G = H // Hkv
+    blk, tps = plan.block, plan.tiles_per_split
+    tpp = page_rows // blk
+    n_tiles = n_kv * tpp
+    kfl = k_pool.reshape(-1, page_rows, Hkv, D)
+    vfl = v_pool.reshape(-1, page_rows, Hkv, D)
+    out = torch.zeros(B, H, D)
+    for b in range(B):
+        length = int(lengths[b])
+        n_live = min(n_tiles, -(-length // blk)) if length > 0 else n_tiles
+        base = 0 if global_pages else b * n_pool
+        for h in range(Hkv):
+            qg = q[b, h * G:(h + 1) * G]
+            states = []
+            for s in range(plan.splits):
+                t0, t1 = s * tps, min(n_live, (s + 1) * tps)
+                if t0 >= t1:  # wholly past the row's keys
+                    states.append((torch.full((G,), NEG_INF),
+                                   torch.zeros(G), torch.zeros(G, D)))
+                    continue
+                tiles = []
+                for t in range(t0, t1):
+                    page = base + int(table[b, t // tpp])
+                    rows = slice((t % tpp) * blk, (t % tpp + 1) * blk)
+                    pos = torch.arange(t * blk, (t + 1) * blk)
+                    tiles.append((kfl[page, rows, h], vfl[page, rows, h],
                                   (pos < length)[None, :].expand(G, blk)))
                 states.append(_split_state(qg, tiles, pdtype))
             out[b, h * G:(h + 1) * G] = _combine(states)
@@ -215,6 +262,93 @@ def test_empty_split_is_the_combines_identity():
     assert torch.isfinite(_combine(all_empty)).all()
     assert not torch.allclose(_combine(states + [(
         torch.full((5,), 50.0), torch.ones(5), torch.zeros(5, 8))]), base)
+
+
+# ---------------------------------------------------------------------------
+# paged: emulation vs the Pallas body and the JAX oracle
+# ---------------------------------------------------------------------------
+# lengths 0 (an idle row), 1, a page - 1, a page, a page + 1, the full
+# n_kv sweep; the tables have 4 columns, of which n_kv = 3 are swept
+PAGED_LENGTHS = [0, 1, 127, 128, 129, 384]
+PAGED_CASES = {
+    # G 7 / D 64 (qwen2's group), global ids drawn from every slot's pages
+    "g7_global": dict(H=7, Hkv=1, D=64, global_pages=True),
+    # G 1 / D 112 (zamba2's shared block), each row a permutation of its
+    # own pool's pages
+    "g1_d112_local": dict(H=2, Hkv=2, D=112, global_pages=False),
+}
+PAGED_PLANS = [None, pmod.PagedPlan(128, 3, 1), pmod.PagedPlan(64, 3, 2),
+               pmod.PagedPlan(128, 1, 3)]
+
+
+def _paged_inputs(case, dtype):
+    """Numpy inputs of a PAGED_CASES case (f32, or rounded to bf16)."""
+    c = PAGED_CASES[case]
+    rs = np.random.RandomState(c["D"] + c["H"])
+    B, n_pool, mb, n_kv = len(PAGED_LENGTHS), 3, 4, 3
+    q = _rand(rs, (B, c["H"], c["D"]))
+    kp = _rand(rs, (B, n_pool, 128, c["Hkv"], c["D"]))
+    vp = _rand(rs, (B, n_pool, 128, c["Hkv"], c["D"]))
+    if dtype == "bfloat16":
+        q, kp, vp = (np.asarray(jnp.asarray(x, jnp.bfloat16), np.float32)
+                     for x in (q, kp, vp))
+    if c["global_pages"]:
+        table = rs.randint(0, B * n_pool, (B, mb))
+    else:
+        table = np.stack([np.concatenate([rs.permutation(n_pool), [0]])
+                          for _ in range(B)])
+    return (q, kp, vp, table.astype(np.int32),
+            np.asarray(PAGED_LENGTHS, np.int32), n_kv, c["global_pages"])
+
+
+@functools.lru_cache(maxsize=None)
+def _paged_want(case, dtype):
+    """The Pallas body in interpret mode (in ``dtype``) and, for f32, the
+    JAX oracle, on a case's inputs."""
+    q, kp, vp, table, lens, n_kv, glob = _paged_inputs(case, dtype)
+    jd = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    pallas = paged_attention_pallas(
+        *(jnp.asarray(x, jd) for x in (q, kp, vp)), jnp.asarray(table),
+        jnp.asarray(lens), n_kv=n_kv, global_pages=glob, interpret=True)
+    wants = [np.asarray(pallas, np.float32)]
+    if dtype == "float32":
+        wants.append(np.asarray(jref.paged_attention(
+            *map(jnp.asarray, (q, kp, vp, table, lens)), n_kv=n_kv,
+            global_pages=glob)))
+    return wants
+
+
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+@pytest.mark.parametrize("plan", PAGED_PLANS,
+                         ids=["planned", "page_a_split", "two_halves",
+                              "one_split"])
+def test_split_paged_matches_jax(case, plan):
+    """f32: the planner's split (pages cut to tiles of 32 rows at these
+    small shapes), a page a split, two half pages a split (a split that
+    crosses a page), and one split sweeping every page."""
+    q, kp, vp, table, lens, n_kv, glob = _paged_inputs(case, "float32")
+    B, H = q.shape[:2]
+    Hkv = kp.shape[3]
+    if plan is None:
+        plan = pmod.plan_splits(B, Hkv, n_kv, 128)
+        assert plan == (32, 12, 1)
+    got = split_paged(*map(torch.from_numpy, (q, kp, vp, table, lens)),
+                      plan, n_kv=n_kv, global_pages=glob)
+    for want in _paged_want(case, "float32"):
+        np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+@pytest.mark.parametrize("case", list(PAGED_CASES))
+def test_split_paged_bf16_weights_match_pallas(case):
+    """Weights rounded to bf16 against each split's own max, bf16 pools,
+    against the Pallas body on the same bf16 inputs."""
+    q, kp, vp, table, lens, n_kv, glob = _paged_inputs(case, "bfloat16")
+    plan = pmod.plan_splits(q.shape[0], kp.shape[3], n_kv, 128)
+    got = split_paged(*map(torch.from_numpy, (q, kp, vp, table, lens)),
+                      plan, n_kv=n_kv, global_pages=glob,
+                      pdtype=torch.bfloat16)
+    np.testing.assert_allclose(got.numpy(), _paged_want(case, "bfloat16")[0],
+                               **BF16_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -357,3 +491,56 @@ def test_decode_planner_fills_the_card_at_seamless_shape():
     per = plan.block * plan.tiles_per_split
     live = B * Hkv * -(-length // per)
     assert live >= 132 and plan.splits * B * Hkv <= dmod.MAX_BLOCKS
+
+
+@pytest.mark.parametrize("B,Hkv,n_kv,page_rows",
+                         [(8, 2, 8, 128), (8, 16, 3, 128), (8, 32, 10, 128),
+                          (1, 2, 1, 128), (64, 16, 32, 128), (3, 4, 5, 96),
+                          (2, 1, 7, 200), (8, 2, 9, 16), (200, 32, 64, 128)])
+def test_paged_planner_covers_every_tile_once(B, Hkv, n_kv, page_rows):
+    """Every (row, kv head) sweeps n_kv pages of page_rows / block tiles;
+    each tile falls in exactly one split, and a tile never crosses a
+    page."""
+    plan = pmod.plan_splits(B, Hkv, n_kv, page_rows)
+    assert 0 < plan.block <= pmod.MAX_TILE and page_rows % plan.block == 0
+    n_tiles = n_kv * (page_rows // plan.block)
+    covered = [t for s in range(plan.splits)
+               for t in range(s * plan.tiles_per_split,
+                              min(n_tiles, (s + 1) * plan.tiles_per_split))]
+    assert covered == list(range(n_tiles))
+    assert (plan.splits - 1) * plan.tiles_per_split < n_tiles
+    assert B * Hkv * (plan.splits - 1) <= pmod.MAX_BLOCKS
+
+
+def _paged_live_blocks(plan, Hkv, lengths):
+    """Blocks of the plan that see at least one key of their row."""
+    per = plan.block * plan.tiles_per_split
+    return Hkv * sum(min(plan.splits, -(-n // per)) for n in lengths)
+
+
+# each path's decode shape at the step the smoke run times: B, Hkv, n_kv
+# and the rows' lengths (qwen2: the engine's prompts + 16 tokens + the
+# new one; seamless: 128-token prompts + 32 steps; zamba2: 1024 + 32)
+PAGED_PATH_SHAPES = {
+    "qwen2": (8, 2, 8, [277, 917, 537, 157, 117, 417, 794, 350]),
+    "seamless": (8, 16, 3, [160] * 8),
+    "zamba2": (8, 32, 10, [1056] * 8),
+}
+
+
+@pytest.mark.parametrize("path,plan,live", [
+    ("qwen2", (64, 16, 1), 120), ("seamless", (64, 6, 1), 384),
+    ("zamba2", (64, 10, 2), 2304)])
+def test_paged_planner_live_blocks_at_path_shapes(path, plan, live):
+    """The plan and its live blocks at each path's decode shape: tiles of
+    half a page; at zamba2's, two tiles a split (a tile a split would
+    pass MAX_BLOCKS).  zamba2 and seamless give more live blocks than the
+    H100 has SMs; the engine's 8 x 2 x 8 pages give 256 blocks, 120 of
+    them live (tiles of 32 rows would give 228 of 512, and measured no
+    faster: PERF.md)."""
+    B, Hkv, n_kv, lengths = PAGED_PATH_SHAPES[path]
+    assert pmod.plan_splits(B, Hkv, n_kv, 128) == plan
+    plan = pmod.PagedPlan(*plan)
+    assert _paged_live_blocks(plan, Hkv, lengths) == live
+    if path != "qwen2":
+        assert live >= pmod.SMS
