@@ -293,21 +293,6 @@ def paged_plan_fields(B, Hkv, n_kv, lengths) -> dict:
             "blocks": B * Hkv * plan.splits, "live_blocks": live}
 
 
-def paged_plan_dev_ms(fn, B, Hkv, n_kv) -> dict:
-    """Device time per call (``queued_ms``) of ``fn(plan)`` under the
-    planner's plan and under tiles of 128, 64 and 32 rows at one and two
-    tiles a split: what the planner's choice rests on."""
-    from repro_torch.kernels.paged_attention import PagedPlan, plan_splits
-
-    planned = plan_splits(B, Hkv, n_kv, 128)
-    out = {"planned": queued_ms(lambda: fn(planned))}
-    for rows, per in itertools.product((128, 64, 32), (1, 2)):
-        n = n_kv * 128 // rows
-        plan = PagedPlan(rows, -(-n // per), per)
-        out[f"{rows}x{per}"] = queued_ms(lambda plan=plan: fn(plan))
-    return out
-
-
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
 
@@ -738,9 +723,9 @@ def phase_kernel_table(torch, launches, errs):
     lengths = [n + 17 for n in PROMPT_LENS]
     n_kv = 8  # pow2 bucket of ceil(max len / 128), capped at mb = 9
     q, kp, vp, table, lens = paged_inputs(torch, bf, lengths)
-    def pfn(plan=None):
+    def pfn():
         return paged_attention_kernel(q, kp, vp, table, lens, n_kv=n_kv,
-                                      global_pages=True, plan=plan)
+                                      global_pages=True)
 
     k_ms = time_ms(pfn)
     p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens,
@@ -761,7 +746,6 @@ def phase_kernel_table(torch, launches, errs):
              "bound_by": b_by, "library_ms": None,
              **device_timings(torch, pfn),
              "plan": paged_plan_fields(8, Hkv, n_kv, lengths),
-             "plan_dev_ms": paged_plan_dev_ms(pfn, 8, Hkv, n_kv),
              "library_note": "no single PyTorch call attends over pages "
                              "named by a block table",
              "shape": f"B=8 lengths={lengths} n_kv={n_kv} H={H} Hkv={Hkv} "
@@ -1889,8 +1873,8 @@ def encdec_table_rows(torch, launches, errs):
     q, kp, vp, _, lens = paged_inputs(torch, bf, lengths, n_pool=3, mb=3,
                                       H=H, Hkv=Hkv, D=D)
     table = local_table(torch, ED_BATCH, 3, 3)
-    def pfn(plan=None):
-        return paged_attention_kernel(q, kp, vp, table, lens, plan=plan)
+    def pfn():
+        return paged_attention_kernel(q, kp, vp, table, lens)
 
     k_ms = time_ms(pfn)
     p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens))
@@ -1908,7 +1892,6 @@ def encdec_table_rows(torch, launches, errs):
                  "bound_by": b_by, "library_ms": None,
                  **device_timings(torch, pfn),
                  "plan": paged_plan_fields(ED_BATCH, Hkv, 3, lengths),
-                 "plan_dev_ms": paged_plan_dev_ms(pfn, ED_BATCH, Hkv, 3),
                  "library_note": "no single PyTorch call attends over pages "
                                  "named by a block table",
                  "shape": f"B={ED_BATCH} n_pool=3 lengths="
@@ -2348,8 +2331,8 @@ def hybrid_table_rows(torch, launches, errs):
     q, kp, vp, _, lens = paged_inputs(torch, bf, lengths, n_pool=HY_POOL,
                                       mb=HY_POOL, H=H, Hkv=H, D=D)
     table = local_table(torch, B, HY_POOL, HY_POOL)
-    def pfn(plan=None):
-        return paged_attention_kernel(q, kp, vp, table, lens, plan=plan)
+    def pfn():
+        return paged_attention_kernel(q, kp, vp, table, lens)
 
     k_ms = time_ms(pfn)
     p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens))
@@ -2367,7 +2350,6 @@ def hybrid_table_rows(torch, launches, errs):
                  "bound_by": b_by, "library_ms": None,
                  **device_timings(torch, pfn),
                  "plan": paged_plan_fields(B, H, HY_POOL, lengths),
-                 "plan_dev_ms": paged_plan_dev_ms(pfn, B, H, HY_POOL),
                  "library_note": "no single PyTorch call attends over pages "
                                  "named by a block table",
                  "shape": f"B={B} n_pool={HY_POOL} lengths={HY_MAX_SEQ} "

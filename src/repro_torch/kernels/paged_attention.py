@@ -40,7 +40,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: lets 7 blocks share an SM where a 128-row one lets 3 (measured faster
 #: on the H100: PERF.md)
 MAX_TILE = 64
-#: the fewest rows a tile holds when pages are cut to fill the card
+#: the fewest rows a tile holds when pages are cut to fill the card: at
+#: the serving engine's first steps (n_kv 1 and 2) 32-row tiles measured
+#: 11-15% faster than 64-row ones on the H100, and level at n_kv 4
+#: (tools/paged_tile_rows.py; PERF.md)
 MIN_TILE = 32
 #: streaming multiprocessors of the H100
 SMS = 132
@@ -88,7 +91,6 @@ def paged_attention_kernel(
     *,
     n_kv: Optional[int] = None,
     global_pages: bool = False,
-    plan: Optional[PagedPlan] = None,
 ) -> torch.Tensor:
     """Launch the paged decode kernel on ``q``'s stream.
 
@@ -96,9 +98,7 @@ def paged_attention_kernel(
     N_pool + page`` into the slot-flattened pool; otherwise they are page
     ids inside row b's own pool ``k_pool[b]``.  Only the first ``n_kv``
     columns are swept.  The caller guarantees every swept entry is a
-    valid id (the engine's rows pad with the scratch page 0).  ``plan``
-    overrides :func:`plan_splits` (to time or test another launch shape).
-    Returns (B, H, D) in q.dtype.
+    valid id (the engine's rows pad with the scratch page 0).  Returns (B, H, D) in q.dtype.
     """
     if not q.is_cuda:
         raise ValueError("paged_attention_kernel takes CUDA tensors")
@@ -128,8 +128,7 @@ def paged_attention_kernel(
         raise ValueError("all operands must be on q's device")
     mb = block_table.shape[1]
     n_kv = mb if n_kv is None else min(int(n_kv), mb)
-    if plan is None:
-        plan = plan_splits(B, Hkv, n_kv, page_rows)
+    plan = plan_splits(B, Hkv, n_kv, page_rows)
     q = q.contiguous()
     k_pool = k_pool.contiguous()
     v_pool = v_pool.contiguous()

@@ -35,6 +35,7 @@ from repro_torch.kernels.decode_attention import decode_attention_kernel
 from repro_torch.kernels.decode_attention import plan_splits as decode_plan
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.flash_attention import plan_splits
+from repro_torch.kernels import paged_attention as paged_module
 from repro_torch.kernels.paged_attention import PagedPlan
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels.paged_attention import plan_splits as paged_plan
@@ -137,10 +138,11 @@ PAGED_SHAPES = {
 }
 
 
-def _paged_split_case(card, dtype, shape, seed, q_scale=1.0, plan=None):
+def _paged_split_case(card, dtype, shape, seed, q_scale=1.0):
     """The paged kernel against the plain version at one of PAGED_SHAPES:
     global ids drawn from every slot's pages, or per-slot ids, each row
-    its own permutation of its pool.  Returns the plan it ran."""
+    its own permutation of its pool.  Returns the plan it ran (the
+    module's ``plan_splits``, which a test may replace)."""
     s = PAGED_SHAPES[shape]
     B, n_pool, mb, H, Hkv, D, n_kv = (s[k] for k in (
         "B", "n_pool", "mb", "H", "Hkv", "D", "n_kv"))
@@ -158,12 +160,11 @@ def _paged_split_case(card, dtype, shape, seed, q_scale=1.0, plan=None):
         table = np.stack([rs.permutation(n_pool)[:mb] for _ in range(B)])
     table = torch.tensor(table, dtype=torch.int32, device=card)
     lengths = torch.tensor(s["lengths"], dtype=torch.int32, device=card)
-    if plan is None:
-        plan = paged_plan(B, Hkv, n_kv, 128)
+    plan = paged_module.plan_splits(B, Hkv, n_kv, 128)
     before = paged_attention_kernel.launches
     combines = paged_attention_kernel.combine_launches
     got = paged_attention_kernel(q, kp, vp, table, lengths, n_kv=n_kv,
-                                 global_pages=s["global_pages"], plan=plan)
+                                 global_pages=s["global_pages"])
     torch.cuda.synchronize()
     assert paged_attention_kernel.launches == before + 1
     assert (paged_attention_kernel.combine_launches
@@ -196,14 +197,16 @@ def test_paged_kernel_split_edges(card, dtype, shape, q_scale):
     ("zamba2", PagedPlan(64, 20, 1)),
     ("seamless", PagedPlan(32, 12, 1)),
 ])
-def test_paged_kernel_other_plans(card, dtype, shape, plan):
+def test_paged_kernel_other_plans(card, monkeypatch, dtype, shape, plan):
     """Launch shapes the planner does not pick at these shapes: one split,
     several tiles a split (pages crossed inside a split), tiles of 32 and
     64 rows (a page cut in tiles)."""
-    _paged_split_case(card, dtype, shape, 11, q_scale=PEAKED_Q, plan=plan)
+    monkeypatch.setattr(paged_module, "plan_splits", lambda *_: plan)
+    assert _paged_split_case(card, dtype, shape, 11,
+                             q_scale=PEAKED_Q) == plan
 
 
-def test_paged_kernel_refuses_a_plan_that_misses_tiles(card):
+def test_paged_kernel_refuses_a_plan_that_misses_tiles(card, monkeypatch):
     """A plan that covers fewer than n_kv pages, or tiles that do not
     divide the page, launches nothing and raises."""
     q = torch.zeros((2, 4, 64), dtype=torch.bfloat16, device=card)
@@ -212,9 +215,10 @@ def test_paged_kernel_refuses_a_plan_that_misses_tiles(card):
     lengths = torch.ones((2,), dtype=torch.int32, device=card)
     before = paged_attention_kernel.launches
     for plan in (PagedPlan(128, 2, 1), PagedPlan(96, 4, 1)):
+        monkeypatch.setattr(paged_module, "plan_splits",
+                            lambda *_, plan=plan: plan)
         with pytest.raises(RuntimeError, match="CUDA error"):
-            paged_attention_kernel(q, kp, kp, table, lengths, n_kv=3,
-                                   plan=plan)
+            paged_attention_kernel(q, kp, kp, table, lengths, n_kv=3)
     assert paged_attention_kernel.launches == before
 
 
@@ -385,6 +389,53 @@ def _decode_case(card, dtype, H, Hkv, D, S_max, lengths, seed, q_scale=1.0):
     split = decode_plan(B, Hkv, S_max).splits > 1
     assert decode_attention_kernel.combine_launches == combines + split
     _close_rows(got, ref.decode_attention(q, k, v, lengths), dtype)
+
+
+def _misaligned(t):
+    """A copy of ``t`` whose storage starts one element past a 16-byte
+    boundary: contiguous, but its base takes no 16-byte load."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["decode", "paged"])
+@pytest.mark.parametrize("H,Hkv,D", [(14, 2, 64), (16, 16, 112)])
+def test_split_kernels_take_a_misaligned_cache(card, dtype, kernel, H, Hkv,
+                                               D):
+    """K and V views one element past a 16-byte boundary, at compiled D:
+    the tiles load element by element and the outputs still match the
+    plain version, the split edges included."""
+    g = torch.Generator(device=card).manual_seed(D + H)
+    lengths = torch.tensor(SPLIT_LENGTHS[:6], dtype=torch.int32, device=card)
+    B = lengths.numel()
+    shape = (B, 1024, Hkv, D) if kernel == "decode" else (B, 8, 128, Hkv, D)
+    q = torch.randn((B, H, D), generator=g,
+                    device=card).to(dtype) * (0.3 * PEAKED_Q)
+    k = torch.randn(shape, generator=g, device=card).to(dtype) * 0.3
+    v = torch.randn(shape, generator=g, device=card).to(dtype) * 0.3
+    mk, mv = _misaligned(k), _misaligned(v)
+    if kernel == "decode":
+        before = decode_attention_kernel.launches
+        got = ops.decode_attention(q, mk, mv, lengths)
+        torch.cuda.synchronize()
+        assert decode_attention_kernel.launches == before + 1
+        want = ref.decode_attention(q, k, v, lengths)
+    else:  # global ids drawn from every slot's pages
+        table = torch.tensor(np.random.RandomState(D).randint(0, B * 8,
+                                                              (B, 8)),
+                             dtype=torch.int32, device=card)
+        before = paged_attention_kernel.launches
+        got = ops.paged_attention(q, mk, mv, table, lengths,
+                                  global_pages=True)
+        torch.cuda.synchronize()
+        assert paged_attention_kernel.launches == before + 1
+        want = ref.paged_attention(q, k, v, table, lengths,
+                                   global_pages=True)
+    _close_rows(got, want, dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
