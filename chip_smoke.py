@@ -336,6 +336,25 @@ def phase_device(torch):
           "python": sys.version.split()[0]})
 
 
+def hgmma_counts(lib: Path) -> dict:
+    """Warpgroup MMA instructions (HGMMA) in each kernel of a built
+    library (``cuobjdump -sass``, from the toolkit beside nvcc): which
+    kernels run on the tensor cores."""
+    from repro_torch.kernels import _build
+
+    tool = Path(_build.find_nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            counts[fn] = 0
+        elif fn is not None and " HGMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def phase_build():
     from repro_torch.kernels import _build
 
@@ -347,8 +366,15 @@ def phase_build():
             _build.library_path(name).name + ".log")
         report[name] = [ln.strip() for ln in log.read_text().splitlines()
                         if "Used" in ln or "spill" in ln]
+    # the SSD library's kernels: the bf16 scan runs wgmma (HGMMA), the f32
+    # body none
+    hgmma = hgmma_counts(_build.library_path("ssd_scan"))
+    bf16 = [n for n in hgmma if "ssd_wgmma_kernel" in n]
+    check(len(bf16) == 2 and all(hgmma[n] > 0 for n in bf16),
+          f"the bf16 SSD kernels run no warpgroup MMA: {hgmma}")
     emit({"phase": "build", "ok": True, "seconds": seconds,
-          "wall_s": time.perf_counter() - t0, "ptxas": report})
+          "wall_s": time.perf_counter() - t0, "ptxas": report,
+          "ssd_scan_hgmma": hgmma})
 
 
 def phase_parity(torch):
@@ -1141,15 +1167,19 @@ def block_gather_table_rows(torch, launches, errs):
 # ---------------------------------------------------------------------------
 # the SSM path: mamba2-2.7b prefill (SSD scan kernel) and greedy decode
 # ---------------------------------------------------------------------------
-def ssd_inputs(torch, dtype, B, S, H, P, N, seed=2):
+def ssd_inputs(torch, dtype, B, S, H, P, N, seed=2, steep=False):
     """Scan operands as ``mamba_full`` makes them: x, B and C in the
-    activation dtype, dt = softplus(...) and a = -exp(...) in f32."""
+    activation dtype, dt = softplus(...) and a = -exp(...) in f32.
+    ``steep``: dt ~ 3 and |a| ~ 7, so cum falls by ~20 a row and the decay
+    above the diagonal overflows to inf (the kernel must select it away)."""
     dev = torch.device("cuda")
+    shift, a_shift = (3.0, 2.0) if steep else (-1.0, 0.0)
     g = torch.Generator(device=dev).manual_seed(seed)
     x = torch.randn((B, S, H, P), generator=g, device=dev) * 0.3
     dt = torch.nn.functional.softplus(
-        torch.randn((B, S, H), generator=g, device=dev) - 1.0)
-    a = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.3)
+        torch.randn((B, S, H), generator=g, device=dev) + shift)
+    a = -torch.exp(torch.randn((H,), generator=g, device=dev) * 0.3
+                   + a_shift)
     b = torch.randn((B, S, 1, N), generator=g, device=dev) * 0.3
     c = torch.randn((B, S, 1, N), generator=g, device=dev) * 0.3
     d = torch.randn((H,), generator=g, device=dev)
@@ -1157,12 +1187,16 @@ def ssd_inputs(torch, dtype, B, S, H, P, N, seed=2):
 
 
 def phase_ssd_parity(torch):
-    """The SSD kernel against the plain scan, y and the final state, each
-    held to the dtype's tolerance times its largest magnitude: the
-    prefill shape in f32 and bf16, one short chunk (S = 127), and a
-    smoke shape whose head count is not a multiple of 8."""
+    """The SSD kernel against the plain scan (``ssd_cases``: y to the
+    dtype's tolerance, the state to f32's): the prefill shape in f32 and
+    bf16, one short chunk (S = 127), chunks of 127 over two sequences (a
+    tile that read the next sequence's rows would show), B 1, steep
+    decay, and a smoke shape (P 32, N 16) whose head count is not a
+    multiple of 8."""
     full = SSD_SHAPE
     cases = [dict(full), dict(full, S=127, chunk=127),
+             dict(full, B=2, S=254, chunk=127), dict(full, B=1),
+             dict(full, B=2, S=256, steep=True),
              dict(B=2, S=256, H=6, P=32, N=16, chunk=128)]
     rows, errs = ssd_cases(torch, cases, full, "ssd_scan")
     emit({"phase": "ssd_parity", "ok": True, "cases": rows})
@@ -1170,9 +1204,10 @@ def phase_ssd_parity(torch):
 
 
 def ssd_cases(torch, cases, full, err_name):
-    """Each case in f32 and bf16, y and the final state held to the
-    dtype's tolerance times each one's largest magnitude; the errors of
-    case ``full`` are returned under ``err_name``."""
+    """Each case in f32 and bf16, y held to the dtype's tolerance times
+    its largest magnitude and the final state to the f32 tolerance times
+    its own; the errors of case ``full`` are returned under
+    ``err_name``."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
 
@@ -1190,12 +1225,16 @@ def ssd_cases(torch, cases, full, err_name):
             row = {"kernel": "ssd_scan", "dtype": dname,
                    "case": " ".join(f"{k}={v}" for k, v in case.items()),
                    "tol_rel": KERNEL_TOL[dname]}
-            for name, g_, w_ in (("y", got[0], want[0]),
-                                 ("state", got[1], want[1])):
+            # the state is f32 on both routes: the bf16 kernel carries it
+            # in f32 and takes xu as two bf16 operands (~16 bits)
+            row["state_tol_rel"] = KERNEL_TOL["float32"]
+            for name, g_, w_, tol in (
+                    ("y", got[0], want[0], KERNEL_TOL[dname]),
+                    ("state", got[1], want[1], KERNEL_TOL["float32"])):
                 check(bool(torch.isfinite(g_).all()), f"ssd {name} not finite")
                 e, scale = max_err(g_, w_), float(w_.float().abs().max())
                 row[f"{name}_max_abs_err"], row[f"{name}_max_abs"] = e, scale
-                check(e <= KERNEL_TOL[dname] * scale,
+                check(e <= tol * scale,
                       f"ssd {dname} {case} {name}: err {e} at scale {scale}")
             rows.append(row)
             if case == full:
@@ -1398,9 +1437,22 @@ def phase_ssm_generate(torch, model, params, tokens):
     return launches
 
 
+def ssd_plan_fields(torch, B, H, P, N) -> dict:
+    """The bf16 SSD kernel's launch plan at a shape, as the built library
+    reports it (``ssd_scan.bf16_plan``): blocks, threads, ring stages,
+    shared memory, and the compiled kernel's registers and local memory."""
+    from repro_torch.kernels.ssd_scan import bf16_plan
+
+    plan = bf16_plan(B, H, P, N, torch.cuda.current_device())
+    check(0 < plan["threads"] <= plan["max_threads"],
+          f"SSD plan {plan}: a block takes more threads than the kernel")
+    return plan
+
+
 def ssd_table_row(torch, launches, errs, name="ssd_scan", sh=SSD_SHAPE):
     """The SSD kernel at a prefill shape, bf16: kernel and plain time
-    beside the bound, and the kernel's device and cold-L2 times."""
+    beside the bound, the kernel's device and cold-L2 times and its
+    launch plan."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
 
@@ -1415,6 +1467,7 @@ def ssd_table_row(torch, launches, errs, name="ssd_scan", sh=SSD_SHAPE):
     p_ms = time_ms(lambda: ref.ssd_chunk_scan(x, dt, a, b, c, chunk=L,
                                               d_skip=d), iters=5, warmup=2)
     timings = device_timings(torch, kfn)
+    plan = ssd_plan_fields(torch, B, H, P, N)
     ssd_chunk_scan_kernel.launches = saved
     # each input read once, each output written once: x and y (bf16), dt
     # (f32), B and C (bf16), a and d (f32), the final state (f32)
@@ -1435,7 +1488,7 @@ def ssd_table_row(torch, launches, errs, name="ssd_scan", sh=SSD_SHAPE):
             "bound_by": b_by, "library_ms": None, **timings,
             "library_note": "no single PyTorch call computes the SSD scan",
             "shape": " ".join(f"{k}={v}" for k, v in sh.items()),
-            "bytes": n_bytes, "flops": flops}
+            "plan": plan, "bytes": n_bytes, "flops": flops}
 
 
 # ---------------------------------------------------------------------------
@@ -1999,11 +2052,15 @@ def phase_flash_anyd_parity(torch):
 
 def phase_hybrid_kernel_parity(torch):
     """The SSD kernel at zamba2's prefill shape (112 heads of 64, state
-    64) and the per-slot paged kernel at its shared block's decode shape
-    (G 1, head dim 112, 10 pages of 128 per slot; also at a tile's split
-    edges and the full sweep, with q scaled up), in f32 and bf16."""
-    rows, errs = ssd_cases(torch, [dict(HY_SSD_SHAPE)], HY_SSD_SHAPE,
-                           "ssd_scan_zamba2")
+    64; also chunks of 127 over two sequences, B 1 and steep decay) and
+    the per-slot paged kernel at its shared block's decode shape (G 1,
+    head dim 112, 10 pages of 128 per slot; also at a tile's split edges
+    and the full sweep, with q scaled up), in f32 and bf16."""
+    full = HY_SSD_SHAPE
+    rows, errs = ssd_cases(
+        torch, [dict(full), dict(full, B=2, S=254, chunk=127),
+                dict(full, B=1), dict(full, B=2, S=256, steep=True)],
+        full, "ssd_scan_zamba2")
     shape = dict(n_pool=HY_POOL, mb=HY_POOL, H=32, Hkv=32, D=112)
     cases = [([HY_SEQ, HY_MAX_SEQ - 1, 1, 0, 500, 129, 128, HY_SEQ + 16],
               1.0)]

@@ -322,13 +322,14 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
 #pragma unroll
   for (int kk = 0; kk < KN / 16; ++kk) {
     if constexpr (D == 32) {
-      hp::wgmma_rs_m64n32k16(o, pa[kk], nmajor_desc<D, KN>(v_tile, kk, 0),
-                             1);
+      hp::wgmma_rs_m64n32k16<1>(o, pa[kk],
+                                nmajor_desc<D, KN>(v_tile, kk, 0), 1);
     } else {
 #pragma unroll
       for (int j = 0; j < D / 64; ++j)
-        hp::wgmma_rs_m64n64k16(*reinterpret_cast<float(*)[32]>(&o[32 * j]),
-                               pa[kk], nmajor_desc<D, KN>(v_tile, kk, j), 1);
+        hp::wgmma_rs_m64n64k16<1>(
+            *reinterpret_cast<float(*)[32]>(&o[32 * j]), pa[kk],
+            nmajor_desc<D, KN>(v_tile, kk, j), 1);
     }
   }
 }

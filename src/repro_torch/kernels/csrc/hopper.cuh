@@ -61,6 +61,12 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
+// order this thread's generic-proxy writes to shared memory before later
+// async-proxy reads of them (wgmma operands written by threads)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // named barriers (id 0 is __syncthreads): `count` threads in all, some
 // waiting (sync) and some only signalling (arrive)
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
@@ -194,8 +200,37 @@ __device__ __forceinline__ void wgmma_ss_m64n128k16(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
-// D(64x64, f32) (+)= A(64x16, registers) . B(16x64, smem, N-major:
-// transposed on the fly)
+// Register-A wgmma: D(64xN, f32) (+)= A(64x16, registers) . B(16xN,
+// smem).  TransB 0 reads B K-major; 1 reads it N-major, transposed on the
+// fly.
+template <int TransB>
+__device__ __forceinline__ void wgmma_rs_m64n128k16(float (&d)[64],
+                                                    const uint32_t (&a)[4],
+                                                    uint64_t desc_b,
+                                                    int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n"
+      "}\n"
+      : REPRO_ACC8(0), REPRO_ACC8(8), REPRO_ACC8(16), REPRO_ACC8(24),
+        REPRO_ACC8(32), REPRO_ACC8(40), REPRO_ACC8(48), REPRO_ACC8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(accumulate), "n"(TransB));
+}
+
+template <int TransB>
 __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
                                                    const uint32_t (&a)[4],
                                                    uint64_t desc_b,
@@ -209,14 +244,14 @@ __device__ __forceinline__ void wgmma_rs_m64n64k16(float (&d)[32],
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n"
       "}\n"
       : REPRO_ACC8(0), REPRO_ACC8(8), REPRO_ACC8(16), REPRO_ACC8(24)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate));
+        "r"(accumulate), "n"(TransB));
 }
 
-// D(64x32, f32) (+)= A(64x16, registers) . B(16x32, smem, N-major)
+template <int TransB>
 __device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16],
                                                    const uint32_t (&a)[4],
                                                    uint64_t desc_b,
@@ -228,14 +263,44 @@ __device__ __forceinline__ void wgmma_rs_m64n32k16(float (&d)[16],
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n"
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n"
       "}\n"
       : REPRO_ACC8(0), REPRO_ACC8(8)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
-        "r"(accumulate));
+        "r"(accumulate), "n"(TransB));
 }
 
 #undef REPRO_ACC8
+
+// Four 8x8 bf16 matrices from shared memory into the A fragment layout of
+// a 16-row warp slice (lane l gives the address of row l % 8 of matrix
+// l / 8); .trans delivers each matrix transposed.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+// The inverse of ldmatrix_x4: four 8x8 bf16 matrices from the A fragment
+// layout to shared memory, lane l addressing row l % 8 of matrix l / 8.
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr,
+                                            const uint32_t (&r)[4]) {
+  asm volatile(
+      "stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::
+          "r"(addr),
+      "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+      : "memory");
+}
 
 // 2^x, flushing subnormals: one MUFU instruction (exp2f adds range fixes)
 __device__ __forceinline__ float ex2(float x) {

@@ -7,15 +7,20 @@ B/C group (G == 1), no initial state, ``S`` a multiple of ``chunk``.
 ``chunk`` is a runtime argument up to 128, so a 127-token prefill runs
 one chunk of 127.
 
-The kernel (``csrc/ssd_scan.cu``) runs one block per (head, sequence)
-and loops over the chunks in order, the (P, N) f32 state held in shared
-memory for the whole sequence, as the TPU kernel holds it in VMEM.
-Within a chunk it forms the scores C . B, the causal decay and the
-intra-chunk product, the inter-chunk term from the carried state and
-the skip term, then folds the chunk into the state.  All arithmetic is
-f32 on CUDA cores; on the H100 the scan is bound by the bytes of x and
-y when its flops run on the tensor cores, which this first version does
-not use.  Its times are in PERF.md.
+bf16 runs ``csrc/ssd_scan.cu``'s warpgroup-MMA kernel: a block takes one
+(head, sequence) and loops over the chunks in order; TMA brings each
+chunk's C, B and x tiles through a two-stage ring while the previous
+chunk computes; the scores C . B^T, the intra-chunk product, the
+inter-chunk term and the state update run on the tensor cores with bf16
+operands and f32 accumulators, and the (P, N) state stays f32 in
+registers for the whole sequence, as the TPU kernel holds it in VMEM (a
+bf16 copy of it is the inter term's operand; the state update takes its
+f32 factor as two bf16 operands, so that the state keeps ~16 bits).  f32
+runs the first version's CUDA-core body, kept for the correctness checks
+held to 1e-4 (bf16 operands would miss them).  Times are in PERF.md.
+bf16 takes any head dim P % 8 == 0 up to 64 and state dim N % 8 == 0 up
+to 128 (its tiles are laid out for 64 and 64 or 128 columns, zero past P
+and N); f32 takes its compiled forms, P 32 or 64 and N 16, 32, 64 or 128.
 
 :func:`ssd_chunk_scan_plain` is the plain PyTorch version;
 ``ops.ssd_chunk_scan`` sends CPU tensors to it and CUDA tensors to
@@ -33,11 +38,19 @@ from . import _build
 from .ref import ssd_chunk_scan as ssd_chunk_scan_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# f32: the compiled forms of the CUDA-core body
 _HEAD_DIMS = (32, 64)
 _STATE_DIMS = (16, 32, 64, 128)
+# bf16: tiles laid out for 64 columns of x and 64 or 128 of B and C, zero
+# past P and N; a TMA row stride is whole 16-byte units
+_MAX_HEAD_DIM, _MAX_STATE_DIM = 64, 128
 MAX_CHUNK = 128
 
 _launch = _build.Entry("ssd_scan", "repro_ssd_chunk_scan", "17q")
+_plan = _build.Entry("ssd_scan", "repro_ssd_plan", "6q")
+#: the keys of :func:`bf16_plan`, in the order the C entry writes them
+PLAN_FIELDS = ("blocks", "threads", "stages", "smem_bytes", "registers",
+               "local_bytes", "max_threads")
 
 
 def _check_args(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
@@ -82,10 +95,17 @@ def ssd_chunk_scan_kernel(
         raise TypeError("x, b and c must share one dtype")
     B, S, H, P = x.shape
     N = b.shape[3]
-    if P not in _HEAD_DIMS or N not in _STATE_DIMS or chunk > MAX_CHUNK:
-        raise ValueError(f"P={P} N={N} chunk={chunk}: the kernel takes P in "
-                         f"{_HEAD_DIMS}, N in {_STATE_DIMS}, chunk <= "
-                         f"{MAX_CHUNK}")
+    if x.dtype == torch.float32:
+        shapes_ok = P in _HEAD_DIMS and N in _STATE_DIMS
+        takes = f"P in {_HEAD_DIMS}, N in {_STATE_DIMS}"
+    else:
+        shapes_ok = (0 < P <= _MAX_HEAD_DIM and P % 8 == 0
+                     and 0 < N <= _MAX_STATE_DIM and N % 8 == 0)
+        takes = (f"P % 8 == 0 up to {_MAX_HEAD_DIM}, N % 8 == 0 up to "
+                 f"{_MAX_STATE_DIM}")
+    if not shapes_ok or chunk > MAX_CHUNK:
+        raise ValueError(f"P={P} N={N} chunk={chunk}: the {x.dtype} kernel "
+                         f"takes {takes}, chunk <= {MAX_CHUNK}")
     if (dt.shape != (B, S, H) or a.shape != (H,) or b.shape[:2] != (B, S)
             or (d_skip is not None and d_skip.shape != (H,))):
         raise ValueError(f"dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
@@ -96,7 +116,9 @@ def ssd_chunk_scan_kernel(
         raise ValueError("all operands must be on x's device")
     d = (d_skip if d_skip is not None
          else torch.zeros((H,), dtype=torch.float32, device=x.device))
-    x, b, c = x.contiguous(), b.contiguous(), c.contiguous()
+    # TMA reads the bf16 tensors from 16-byte aligned bases
+    x, b, c = (t.contiguous() for t in (x, b, c))
+    x, b, c = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (x, b, c))
     dt, a, d = (t.float().contiguous() for t in (dt, a, d))
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
@@ -110,4 +132,16 @@ def ssd_chunk_scan_kernel(
 #: launches of the kernel since the count was last set to 0
 ssd_chunk_scan_kernel.launches = 0
 
-__all__ = ["ssd_chunk_scan_kernel", "ssd_chunk_scan_plain"]
+
+def bf16_plan(B: int, H: int, P: int, N: int, device: int = 0) -> dict:
+    """The bf16 kernel's launch plan at (B, H, P, N), read from the built
+    library: blocks, threads a block, ring stages, dynamic shared memory,
+    and the compiled kernel's registers a thread, local memory a thread
+    (spills) and most threads a block.  Builds the library if need be;
+    raises on a shape the bf16 kernel refuses."""
+    out = torch.zeros(len(PLAN_FIELDS), dtype=torch.int64)
+    _plan(device, B, H, P, N, out.data_ptr())
+    return dict(zip(PLAN_FIELDS, out.tolist()))
+
+
+__all__ = ["bf16_plan", "ssd_chunk_scan_kernel", "ssd_chunk_scan_plain"]

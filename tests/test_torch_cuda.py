@@ -2,7 +2,10 @@
 kernel at each path's decode shape, at a tile's split edges and under
 launch plans its planner does not pick), the engine
 through the kernels against the engine through the plain versions, a
-full-width Mamba2 layer with the SSD kernel against the plain scan, and
+full-width Mamba2 layer with the SSD kernel against the plain scan (the
+scan itself at both prefill shapes, B 1, chunks of 127 over two
+sequences, steep decay and other head and state dims; its f32 route bit
+for bit against the first version's digest), and
 a full-width seamless-m4t-medium decoder layer through the flash, paged
 (per-slot) and contiguous decode kernels against the plain versions, a
 full-width zamba2-7b Mamba2 layer and shared-attention application (the
@@ -39,6 +42,7 @@ from repro_torch.kernels import paged_attention as paged_module
 from repro_torch.kernels.paged_attention import PagedPlan
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels.paged_attention import plan_splits as paged_plan
+from repro_torch.kernels.ssd_scan import bf16_plan
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
 
 # the test workers share the machine's cores: one intra-op thread each
@@ -574,31 +578,60 @@ def test_engine_kernels_match_plain_tokens(card):
     assert out[None] == out["plain"]
 
 
-def _ssd_inputs(card, dtype, B, S, H, P, N, seed):
+def _ssd_inputs(card, dtype, B, S, H, P, N, seed, steep=False):
+    """Scan operands as mamba_full makes them; steep: dt ~ 3 and |a| ~ 7,
+    so cum falls by ~20 a row and e^{cum_i - cum_j} above the diagonal
+    overflows to inf (the kernel must select, not multiply by a mask)."""
+    shift, a_shift = (3.0, 2.0) if steep else (-1.0, 0.0)
     g = torch.Generator(device=card).manual_seed(seed)
     x = (torch.randn((B, S, H, P), generator=g, device=card) * 0.3)
     dt = torch.nn.functional.softplus(
-        torch.randn((B, S, H), generator=g, device=card) - 1.0)
-    a = -torch.exp(torch.randn((H,), generator=g, device=card) * 0.3)
+        torch.randn((B, S, H), generator=g, device=card) + shift)
+    a = -torch.exp(torch.randn((H,), generator=g, device=card) * 0.3
+                   + a_shift)
     b = torch.randn((B, S, 1, N), generator=g, device=card) * 0.3
     c = torch.randn((B, S, 1, N), generator=g, device=card) * 0.3
     d = torch.randn((H,), generator=g, device=card)
     return x.to(dtype), dt, a, b.to(dtype), c.to(dtype), d
 
 
+def _hold_ssd(got_y, got_s, want_y, want_s, dtype):
+    """y within the dtype's tolerance of its largest magnitude; the final
+    state, f32 on both routes, within the f32 tolerance of its largest
+    magnitude (the bf16 kernel carries it in f32 and takes xu as two bf16
+    operands, so it keeps ~16 bits)."""
+    for got, want, tol in (
+            (got_y, want_y, TOL[dtype]["atol"]),
+            (got_s, want_s, TOL[torch.float32]["atol"])):
+        assert got.shape == want.shape
+        scale = float(want.float().abs().max())
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= tol * scale, (err, scale)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize(
-    "B,S,H,P,N,chunk",
-    [(1, 128, 4, 32, 16, 64), (2, 256, 8, 64, 32, 128),
-     (1, 256, 16, 32, 64, 64), (2, 127, 80, 64, 128, 127),
-     (2, 512, 80, 64, 128, 128), (1, 96, 6, 32, 16, 128),
-     (2, 256, 112, 64, 64, 128)],  # zamba2: 112 heads of 64, state 64
+    "B,S,H,P,N,chunk,steep",
+    [(1, 128, 4, 32, 16, 64, False), (2, 256, 8, 64, 32, 128, False),
+     (1, 256, 16, 32, 64, 64, False), (2, 127, 80, 64, 128, 127, False),
+     (2, 512, 80, 64, 128, 128, False), (1, 96, 6, 32, 16, 128, False),
+     (2, 256, 112, 64, 64, 128, False),  # zamba2: 112 heads, state 64
+     # the two prefill paths at full width: mamba2 and zamba2
+     (8, 1024, 80, 64, 128, 128, False), (8, 1024, 112, 64, 64, 128, False),
+     # B 1 (few blocks)
+     (1, 1024, 112, 64, 64, 128, False), (1, 1024, 80, 64, 128, 128, False),
+     # chunk 127 over two sequences: a tile that read the next sequence's
+     # rows would show
+     (2, 254, 112, 64, 64, 127, False), (2, 254, 80, 64, 128, 127, False),
+     # steep decay: inf above the diagonal must not become NaN
+     (2, 256, 80, 64, 128, 128, True), (2, 256, 112, 64, 64, 128, True)],
 )
-def test_ssd_kernel_matches_plain(card, dtype, B, S, H, P, N, chunk):
-    """y and the final state, held to the tolerance of the dtype times
-    the largest magnitude of each (the state sums up to 128 rows)."""
+def test_ssd_kernel_matches_plain(card, dtype, B, S, H, P, N, chunk, steep):
+    """y held to the tolerance of the dtype times its largest magnitude,
+    the final state (a sum of up to 128 rows a chunk) to the f32
+    tolerance times its own."""
     x, dt, a, b, c, d = _ssd_inputs(card, dtype, B, S, H, P, N,
-                                    B * S + H + N)
+                                    B * S + H + N, steep)
     before = ssd_chunk_scan_kernel.launches
     got_y, got_s = ops.ssd_chunk_scan(x, dt, a, b, c, chunk=chunk, d_skip=d)
     torch.cuda.synchronize()
@@ -606,11 +639,98 @@ def test_ssd_kernel_matches_plain(card, dtype, B, S, H, P, N, chunk):
     want_y, want_s = ref.ssd_chunk_scan(x, dt, a, b, c, chunk=min(chunk, S),
                                         d_skip=d)
     assert got_y.dtype == dtype and got_s.dtype == torch.float32
-    tol = TOL[dtype]["atol"]
-    for got, want in ((got_y, want_y), (got_s, want_s)):
-        scale = float(want.float().abs().max())
-        err = float((got.float() - want.float()).abs().max())
-        assert err <= tol * scale, (err, scale)
+    _hold_ssd(got_y, got_s, want_y, want_s, dtype)
+
+
+@pytest.mark.parametrize("P,N", [(48, 96), (16, 24), (64, 80), (8, 8)])
+def test_ssd_bf16_kernel_at_other_head_and_state_dims(card, P, N):
+    """The bf16 kernel lays its tiles out for 64 columns of x and 64 or 128
+    of B and C, zero past P and N, so it takes any P % 8 == 0 up to 64 and
+    N % 8 == 0 up to 128 (chunks of 127 over two sequences here); the f32
+    body takes only its compiled forms and refuses these."""
+    x, dt, a, b, c, d = _ssd_inputs(card, torch.bfloat16, 2, 254, 6, P, N,
+                                    P + N)
+    got_y, got_s = ops.ssd_chunk_scan(x, dt, a, b, c, chunk=127, d_skip=d)
+    want_y, want_s = ref.ssd_chunk_scan(x, dt, a, b, c, chunk=127, d_skip=d)
+    torch.cuda.synchronize()
+    _hold_ssd(got_y, got_s, want_y, want_s, torch.bfloat16)
+    before = ssd_chunk_scan_kernel.launches
+    with pytest.raises(ValueError):
+        ops.ssd_chunk_scan(x.float(), dt, a, b.float(), c.float(), chunk=127,
+                           d_skip=d)
+    assert ssd_chunk_scan_kernel.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_on_operands_off_a_16_byte_boundary(card, dtype):
+    """x, B and C as contiguous views one element into their storage: the
+    wrapper copies them to 16-byte aligned storage for the tensor maps."""
+    x, dt, a, b, c, d = _ssd_inputs(card, dtype, 2, 256, 8, 64, 32, 9)
+    views = []
+    for t in (x, b, c):
+        flat = torch.empty(t.numel() + 1, dtype=dtype, device=card)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        views.append(view)
+    got_y, got_s = ops.ssd_chunk_scan(views[0], dt, a, views[1], views[2],
+                                      d_skip=d)
+    want_y, want_s = ref.ssd_chunk_scan(x, dt, a, b, c, d_skip=d)
+    torch.cuda.synchronize()
+    _hold_ssd(got_y, got_s, want_y, want_s, dtype)
+
+
+def _ssd_numpy_inputs(B, S, H, P, N, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.standard_normal((B, S, H, P)).astype(np.float32) * 0.3
+    dt = np.log1p(np.exp(rs.standard_normal((B, S, H)) - 1.0)).astype(
+        np.float32)
+    a = -np.exp(rs.standard_normal(H) * 0.3).astype(np.float32)
+    b = rs.standard_normal((B, S, 1, N)).astype(np.float32) * 0.3
+    c = rs.standard_normal((B, S, 1, N)).astype(np.float32) * 0.3
+    d = rs.standard_normal(H).astype(np.float32)
+    return x, dt, a, b, c, d
+
+
+# sha256 (first 16 hex digits) of the f32 route's y and final state on
+# these seeded inputs, from the first version of csrc/ssd_scan.cu (the
+# CUDA-core body the f32 route still runs) on an H100
+_F32_DIGESTS = {
+    (2, 256, 8, 64, 32, 128, 11): ("f993fa7771c6de16", "97bbb0fe8c29e334"),
+    (2, 127, 80, 64, 128, 127, 12): ("0a1cc3a5aa21a473", "ce6e499c65c1c5e2"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_F32_DIGESTS))
+def test_ssd_f32_route_is_bit_identical_to_the_first_version(card, case):
+    """The bf16 route was redesigned; the f32 route (which the f32
+    end-to-end checks run) must give the same bits as before."""
+    import hashlib
+
+    B, S, H, P, N, chunk, seed = case
+    x, dt, a, b, c, d = (torch.from_numpy(v).to(card) for v in
+                         _ssd_numpy_inputs(B, S, H, P, N, seed))
+    y, state = ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=chunk, d_skip=d)
+    torch.cuda.synchronize()
+    got = tuple(hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+                for t in (y, state))
+    assert got == _F32_DIGESTS[case]
+
+
+@pytest.mark.parametrize("B,H,N", [(8, 80, 128), (8, 112, 64), (1, 6, 16)])
+def test_ssd_bf16_plan_is_read_from_the_built_kernel(card, B, H, N):
+    """The launch plan the library reports: a block a (head, sequence),
+    threads within what the compiled kernel takes, registers and shared
+    memory from the build; a shape the bf16 kernel refuses raises."""
+    plan = bf16_plan(B, H, 64, N, card.index or 0)
+    assert plan["blocks"] == B * H
+    assert 0 < plan["threads"] <= plan["max_threads"]
+    assert plan["stages"] >= 2
+    assert 0 < plan["registers"] <= 255
+    assert 0 < plan["smem_bytes"] <= 232448
+    assert plan["local_bytes"] >= 0
+    with pytest.raises(RuntimeError):
+        bf16_plan(B, H, 64, N + 4, card.index or 0)
 
 
 @pytest.mark.parametrize("case", ["groups", "init_state"])
