@@ -6,7 +6,7 @@
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version at the full-width
 shapes of its path, and drives four paths at published width with
-random weights from a seed:
+random weights from a seed (mixtral over 6 of its 32 layers):
 
   * qwen2-0.5b through ``Model`` and a ``ServingEngine`` that serves 8
     requests (paged decode and flash prefill kernels, global page ids),
@@ -24,7 +24,11 @@ random weights from a seed:
     Mamba2 layers on the SSD kernel and 13 applications of the shared
     attention block on the flash kernel at head dim 112, its run-time-D
     form) and 32 greedy ``Model.decode_step`` calls (per-slot paged
-    attention over the shared block's pools).
+    attention over the shared block's pools);
+  * mixtral-8x7b at full width over 6 layers through ``Model.prefill``
+    (4 prompts of 6144 tokens: the flash kernel with the 4096-key
+    sliding window, the top-2 MoE) and 32 greedy ``Model.decode_step``
+    calls on the rolling cache (the decode kernel over a wrapped ring).
 
 It checks that each path went through its kernels (launch counts, and
 the split combines beside them), and times each kernel beside its plain
@@ -35,7 +39,8 @@ print as ``nvidia-smi`` gives them; the line before the last is the
 ``{"kernels": [...]}`` table and the last line is ``{"ok": true,
 "device": {...}}``.  Any failed check exits nonzero.
 ``--profile`` adds torch.profiler windows over engine steps, and over a
-prefill and decode steps of the SSM, encoder-decoder and hybrid models.
+prefill and decode steps of the SSM, encoder-decoder, hybrid and MoE
+models.
 
 Needs a CUDA device and the repository's ``src/``; imports neither JAX
 nor the JAX package.
@@ -105,6 +110,16 @@ HY_SSD_SHAPE = dict(B=HY_BATCH, S=HY_SEQ, H=112, P=64, N=64, chunk=128)
 # full width in f32 compute, kernels vs plain and prefill+decode vs
 # prefill: held to 1e-3 of the largest magnitude through 81 layers
 HY_F32_REL_TOL = 1e-3
+# mixtral-8x7b at full width over 6 of its 32 layers (8.97 B parameters:
+# the f32 tree and its bf16 copy fit the card together, 8 layers would
+# not): 4 prompts of 6144 tokens (1.5 windows of 4096), then 32 greedy
+# steps on the ring.  The f32 checks run one prompt (36 GB of f32
+# weights beside f32 activations) and teacher forcing over 8 steps.
+MX_LAYERS, MX_BATCH, MX_SEQ, MX_STEPS = 6, 4, 6144, 32
+MX_F32_BATCH, MX_TF_STEPS = 1, 8
+# f32 compute, kernels vs plain and prefill+decode vs prefill: held to
+# 1e-3 of the largest magnitude through 6 layers
+MX_F32_REL_TOL = 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -2432,6 +2447,550 @@ def phase_hybrid_profile(torch, model, params, tokens, table,
     emit({"phase": "hybrid_profile", "ok": True, **out})
 
 
+# ---------------------------------------------------------------------------
+# the MoE path: mixtral-8x7b prefill (flash with the sliding window, the
+# top-2 MoE) and greedy decode (the decode kernel over the rolling cache)
+# ---------------------------------------------------------------------------
+def window_inputs(torch, dtype, B, S_q, S_kv, H, Hkv, D, seed=9,
+                  q_scale=PEAKED_Q):
+    """Flash operands with q scaled up (a peaked softmax) and V rows that
+    mark their position in column 0, so that the weight of a window's
+    edge key shows in the output."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S_q, H, D), generator=g, device=dev) * 0.3 * q_scale
+    k = torch.randn((B, S_kv, Hkv, D), generator=g, device=dev) * 0.3
+    v = torch.randn((B, S_kv, Hkv, D), generator=g, device=dev) * 0.3
+    v[..., 0] = (torch.arange(S_kv, device=dev) / S_kv)[None, :, None]
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def window_keys(S_q, S_kv, q_offset, window, causal=True) -> int:
+    """Keys the rows of one (sequence, head) see: the band's area."""
+    n = 0
+    for i in range(S_q):
+        p = q_offset + i
+        hi = min(S_kv, p + 1) if causal else S_kv
+        lo = max(0, p - window + 1) if window else 0
+        n += max(0, hi - lo)
+    return n
+
+
+def phase_flash_window_parity(torch):
+    """The flash kernel with a sliding window against the plain version,
+    f32 and bf16: mixtral's prefill shape (B 4, 6144 tokens, 32/8 heads
+    of 128, window 4096; two warpgroups over 128-key tiles), its last
+    chunk split across blocks (128 rows at q_offset 6016 over 6144 keys),
+    windows of 1 / 63 / 100 / 129 keys that cut tiles mid-tile on both
+    launch shapes, head dim 112 through the run-time-D form, and a window
+    of S_kv or more keys, which must equal ``window=0`` bit for bit.  q
+    is scaled up and V marks its rows' positions, so that an edge key
+    off by one shows."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
+
+    H, Hkv = 32, 8
+    cases = [dict(B=MX_BATCH, S_q=MX_SEQ, S_kv=MX_SEQ, D=128, off=0,
+                  window=4096),
+             dict(B=1, S_q=128, S_kv=MX_SEQ, D=128, off=MX_SEQ - 128,
+                  window=4096)]
+    for w in (1, 63, 100, 129):
+        cases += [dict(B=2, S_q=1024, S_kv=1024, D=128, off=0, window=w),
+                  dict(B=1, S_q=128, S_kv=1024, D=128, off=896, window=w),
+                  dict(B=2, S_q=1024, S_kv=1024, D=112, off=0, window=w)]
+    cases += [dict(B=1, S_q=128, S_kv=1024, D=112, off=896, window=100)]
+    rows, errs = [], {}
+    for sh in cases:
+        plan = flash_plan(sh["B"], sh["S_q"], H, sh["S_kv"],
+                          q_offset=sh["off"], window=sh["window"],
+                          head_dim=sh["D"])
+        for dname in ("float32", "bfloat16"):
+            q, k, v = window_inputs(torch, getattr(torch, dname), sh["B"],
+                                    sh["S_q"], sh["S_kv"], H, Hkv, sh["D"])
+            got = flash_attention_kernel(q, k, v, causal=True,
+                                         window=sh["window"],
+                                         q_offset=sh["off"])
+            want = ref.flash_attention(q, k, v, causal=True,
+                                       window=sh["window"],
+                                       q_offset=sh["off"])
+            torch.cuda.synchronize()
+            name = (" ".join(f"{n}={x}" for n, x in sh.items())
+                    + f" H={H} Hkv={Hkv} warpgroups={plan.consumers} "
+                      f"key_tile={plan.keys} splits={plan.splits}")
+            case = attention_errs(got, want, dname, f"flash window {name}")
+            rows.append({"kernel": "flash_attention (window)",
+                         "dtype": dname, "case": name, **case})
+            if sh["S_q"] == MX_SEQ:
+                errs["flash_attention_mixtral", dname] = case["max_abs_err"]
+            del q, k, v, got, want
+    # a window that cuts nothing: bit for bit the window-0 call
+    same = []
+    for sh, dname in itertools.product(
+            [dict(B=2, S_q=1024, S_kv=1024, D=128, off=0),
+             dict(B=1, S_q=128, S_kv=1024, D=128, off=896),
+             dict(B=2, S_q=1024, S_kv=1024, D=112, off=0)],
+            ("float32", "bfloat16")):
+        q, k, v = window_inputs(torch, getattr(torch, dname), sh["B"],
+                                sh["S_q"], sh["S_kv"], H, Hkv, sh["D"])
+        want = flash_attention_kernel(q, k, v, causal=True,
+                                      q_offset=sh["off"])
+        for w in (sh["S_kv"], 4096):
+            got = flash_attention_kernel(q, k, v, causal=True, window=w,
+                                         q_offset=sh["off"])
+            check(torch.equal(got, want),
+                  f"window {w} >= S_kv differs from window 0: {sh} {dname}")
+        same.append(f"{dname} " + " ".join(f"{n}={x}" for n, x in sh.items()))
+    torch.cuda.synchronize()
+    emit({"phase": "flash_window_parity", "ok": True, "cases": rows,
+          "bit_identical_to_window_0": same})
+    return errs
+
+
+def phase_ring_decode_parity(torch):
+    """The decode kernel at mixtral's ring shape (B 4, 4096 rows, 32/8
+    heads of 128) against the plain version, f32 and bf16: every row full
+    (a wrapped ring), rows part full (1, 2048, 4095), and q scaled up."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+
+    rows, errs = [], {}
+    cases = [([4096] * MX_BATCH, 1.0), ([4096, 1, 2048, 4095], 1.0),
+             ([4096] * MX_BATCH, PEAKED_Q)]
+    for (lengths, qs), dname in itertools.product(cases,
+                                                  ("float32", "bfloat16")):
+        q, k, v, lens = decode_inputs(torch, getattr(torch, dname), lengths,
+                                      S_max=4096, H=32, Hkv=8, D=128,
+                                      q_scale=qs)
+        got = decode_attention_kernel(q, k, v, lens)
+        want = ref.decode_attention(q, k, v, lens)
+        torch.cuda.synchronize()
+        case = attention_errs(got, want, dname, f"ring decode {lengths}")
+        rows.append({"kernel": "decode_attention (ring)", "dtype": dname,
+                     "case": f"B={MX_BATCH} S_max=4096 H=32 Hkv=8 D=128 "
+                             f"q_scale={qs}", "lengths": lengths, **case})
+        errs["decode_attention_ring", dname] = max(
+            case["max_abs_err"],
+            errs.get(("decode_attention_ring", dname), 0.0))
+    emit({"phase": "ring_decode_parity", "ok": True, "cases": rows})
+    return errs
+
+
+def mixtral_prompts(vocab: int, batch: int = MX_BATCH, seq: int = MX_SEQ):
+    import numpy as np
+
+    rs = np.random.RandomState(6)
+    return rs.randint(1, vocab, (batch, seq)).astype(np.int32)
+
+
+def load_ring(torch, model, pcache, max_seq):
+    """The prefill cache {"k", "v": (L, B, S, Hkv, D)} in the rolling
+    decode cache of ``max_seq`` positions: its last W positions, position
+    p in row p % W (W = min(window, max_seq))."""
+    from repro_torch.configs import ShapeConfig
+
+    B, S = pcache["k"].shape[1], pcache["k"].shape[2]
+    cache = model.init_cache(ShapeConfig("serve", "decode", max_seq, B))
+    W = cache["layers"]["k"].shape[2]
+    n = min(S, W)
+    rows = torch.arange(S - n, S, device=pcache["k"].device) % W
+    for name in ("k", "v"):
+        cache["layers"][name][:, :, rows] = pcache[name][:, :, S - n:]
+    return cache
+
+
+def _ring_batch(torch, tokens, length):
+    return {"tokens": tokens,
+            "lengths": torch.full((tokens.shape[0],), length,
+                                  dtype=torch.int32, device=tokens.device)}
+
+
+def record_routes(fn):
+    """Run ``fn`` with every MoE router call's top-k ids recorded, in
+    call order (one a layer a forward); returns (fn's result, the ids)."""
+    from repro_torch.models import layers as L
+
+    routes, route = [], L.moe_route
+
+    def recording(p, x, cfg):
+        gate_w, ids = route(p, x, cfg)
+        routes.append(ids)
+        return gate_w, ids
+
+    L.moe_route = recording
+    try:
+        return fn(), routes
+    finally:
+        L.moe_route = route
+
+
+def route_flips(a, b) -> int:
+    """Tokens whose set of top-k experts differs between two routings."""
+    return int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+
+
+def dropped_pairs(ids, cfg) -> int:
+    """(token, expert) pairs past an expert's capacity in a prefill's
+    routing ``ids`` (B, S, k), at the config's capacity factor."""
+    import torch
+
+    B, S, k = ids.shape
+    E = cfg.num_experts
+    C = min(max(int(cfg.moe_capacity_factor * S * k / E), k), S * k)
+    counts = torch.zeros((B, E), dtype=torch.long, device=ids.device)
+    counts.scatter_add_(1, ids.reshape(B, -1), torch.ones_like(
+        ids.reshape(B, -1)))
+    return int((counts - C).clamp_min(0).sum())
+
+
+def phase_moe_layers(torch, model, params, tokens):
+    """Layer by layer at full width, bf16: at every layer the windowed
+    flash kernel and the plain attention get the SAME input (the plain
+    path's hidden state), then, on the ring loaded from the plain K/V,
+    one decode step's attention through the decode kernel and the plain
+    version (both write the same new K/V row first).  Held to 4 bf16 ulps
+    of the largest magnitude and row by row.  Also counts the (token,
+    expert) pairs each layer's MoE drops at capacity factor 1.25."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    worst, drops, ks, vs = {}, [], [], []
+
+    def hold(kind, i, got, want):
+        e, scale = max_err(got, want), float(want.float().abs().max())
+        check(e <= 4 * bf16_ulp(scale), f"{kind} {i}: err {e} at {scale}")
+        r = row_rel_err(got, want)
+        check(r <= ROW_REL_TOL, f"{kind} {i}: row-relative err {r}")
+        w = worst.get(kind, (0.0, 1.0, -1))
+        if e / scale >= w[0] / w[1]:
+            worst[kind] = (e, scale, i)
+
+    h = L.embed_tokens(params["embed"], tokens, cfg)
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["layers"], i)
+        a_in = L.apply_norm(lp["norm1"], h, cfg)
+        got, _ = L.attention_full(lp["attn"], a_in, cfg, causal=True)
+        want, (k, v) = L.attention_full(lp["attn"], a_in, cfg, causal=True,
+                                        impl="plain")
+        hold("attn", i, got, want)
+        del got
+        ks.append(k)
+        vs.append(v)
+        h = h + want
+        _, ids = L.moe_route(lp["moe"], L.apply_norm(lp["norm2"], h, cfg),
+                             cfg)
+        drops.append(dropped_pairs(ids, cfg))
+        h = T._mlp_or_moe(lp, h, cfg)
+    cache = load_ring(torch, model, {"k": torch.stack(ks),
+                                     "v": torch.stack(vs)},
+                      MX_SEQ + MX_STEPS)
+    del ks, vs
+    batch = _ring_batch(torch, tokens[:, -1:], MX_SEQ)
+    h = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["layers"], i)
+        ring = T._layer(cache["layers"], i)
+        a_in = L.apply_norm(lp["norm1"], h, cfg)
+        outs = [L.attention_decode(lp["attn"], a_in, cfg, ring,
+                                   batch["lengths"], impl=impl)[0]
+                for impl in (None, "plain")]
+        hold("attn_decode_ring", i, outs[0], outs[1])
+        h = T._mlp_or_moe(lp, h + outs[1], cfg)
+    torch.cuda.synchronize()
+    emit({"phase": "moe_layers", "ok": True, "arch": cfg.name,
+          "layers": cfg.num_layers, "batch": MX_BATCH, "seq": MX_SEQ,
+          "tol": f"4 bf16 ulps of max|out|, row by row {ROW_REL_TOL}",
+          "worst": {k: {"max_abs_err": v[0], "max_abs": v[1], "layer": v[2]}
+                    for k, v in worst.items()},
+          "dropped_pairs_by_layer_cf_1.25": drops,
+          "pairs_per_layer": MX_BATCH * MX_SEQ * cfg.experts_per_token})
+
+
+def _moe_prefill_pair(torch, model, params, tokens):
+    """Prefill logits and both cache leaves, kernels vs plain, with the
+    routing flips between the two runs in each layer and the pairs the
+    kernel run's MoE dropped; also returns the plain logits."""
+    (logits_k, cache_k), routes_k = record_routes(
+        lambda: model.prefill(params, {"tokens": tokens}))
+    (logits_p, cache_p), routes_p = record_routes(
+        lambda: model.prefill(params, {"tokens": tokens}, impl="plain"))
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits_k).all()), "non-finite prefill logits")
+    caches = {k: rel_err(cache_k[k], cache_p[k]) for k in ("k", "v")}
+    flips = [route_flips(a, b) for a, b in zip(routes_k, routes_p)]
+    drops = [dropped_pairs(ids, model.cfg) for ids in routes_k]
+    return _logit_err(logits_k, logits_p), caches, flips, drops, logits_p
+
+
+def _moe_teacher_forcing(torch, model, params, tokens, n=MX_TF_STEPS):
+    """A prefill of S tokens, the ring loaded, n decode steps of the next
+    tokens, against the prefill of S + n tokens at each step's position;
+    also the routing flips between the decode steps and that prefill,
+    summed over the n tokens, in each layer."""
+    S = tokens.shape[1] - n
+    L = model.cfg.num_layers
+    _, pc = model.prefill(params, {"tokens": tokens[:, :S]})
+    cache = load_ring(torch, model, pc, S + n)
+    del pc
+    got, step_routes = [], []
+    for t in range(S, S + n):
+        (lg, cache), routes = record_routes(lambda t=t: model.decode_step(
+            params, cache, _ring_batch(torch, tokens[:, t:t + 1], t)))
+        got.append(lg)
+        step_routes.append(routes)
+    flips = [0] * L
+    wants = []
+    for t in range(S, S + n):
+        last = torch.full((tokens.shape[0],), t, dtype=torch.int32,
+                          device=tokens.device)
+        (want, _), routes = record_routes(lambda last=last: model.prefill(
+            params, {"tokens": tokens, "last_index": last}))
+        wants.append(want)
+        if t == S:  # one long prefill's routing serves every step
+            for j, steps in enumerate(step_routes):
+                for i in range(L):
+                    flips[i] += route_flips(steps[i], routes[i][:,
+                                                               S + j:S + j + 1])
+    torch.cuda.synchronize()
+    return _logit_err(torch.stack(got), torch.stack(wants)), flips
+
+
+def phase_moe_model(torch, model, params32, tokens):
+    """Full-width prefill through the kernels against the plain versions
+    (logits and both cache leaves) and teacher forcing on the ring
+    (prefill S, then 8 decode steps, against the prefill of S + 8 at
+    each step's position), one prompt of 6144 tokens, f32 compute (the
+    f32 flash body and the decode kernel in f32), held to 1e-3 of the
+    largest magnitude.  Teacher forcing runs the config at a dropless
+    capacity factor (E, as the JAX package's smoke config): a prefill at
+    1.25 drops (token, expert) pairs that the decode steps keep, so it
+    computes another function; the pairs 1.25 drops are reported.  The
+    routing flips (tokens whose top-2 experts differ) between the
+    compared runs are counted per layer.  bf16 compute is reported: the
+    bf16 weights are cast from ``params32`` after the f32 checks and
+    returned."""
+    from repro_torch.models import Model
+
+    cfg32 = model.cfg.scaled(dtype="float32")
+    model32 = Model(cfg32)
+    model32_dropless = Model(cfg32.scaled(
+        moe_capacity_factor=float(cfg32.num_experts)))
+    t32 = tokens[:MX_F32_BATCH]
+    logit32, caches32, flips32, drops32, plain32 = _moe_prefill_pair(
+        torch, model32, params32, t32)
+    check(logit32["rel"] <= MX_F32_REL_TOL, f"f32 logits {logit32}")
+    for k, e in caches32.items():
+        check(e["rel"] <= MX_F32_REL_TOL, f"f32 cache {k} {e}")
+    tf_tokens = torch.cat([t32, tokens[MX_F32_BATCH:MX_F32_BATCH + 1,
+                                       :MX_TF_STEPS]], 1)
+    tf32, tf_flips = _moe_teacher_forcing(torch, model32_dropless, params32,
+                                          tf_tokens)
+    check(tf32["rel"] <= MX_F32_REL_TOL, f"f32 teacher forcing {tf32}")
+    peak32 = torch.cuda.max_memory_allocated() / 1e9
+    params = model.compute_params(params32)
+    logit16, caches16, flips16, _, plain16 = _moe_prefill_pair(
+        torch, model, params, t32)
+    emit({"phase": "moe_model", "ok": True, "arch": model.cfg.name,
+          "layers": model.cfg.num_layers, "batch": MX_F32_BATCH,
+          "seq": MX_SEQ, "tol_rel_f32": MX_F32_REL_TOL,
+          "f32": {"prefill_logits": logit32, "caches": caches32,
+                  "route_flips_kernel_vs_plain_by_layer": flips32,
+                  "dropped_pairs_cf_1.25_by_layer": drops32,
+                  f"teacher_forcing_{MX_SEQ}_plus_{MX_TF_STEPS}_dropless":
+                      tf32,
+                  "route_flips_teacher_forcing_by_layer": tf_flips},
+          "bf16_reported": {"prefill_logits": logit16, "caches": caches16,
+                            "route_flips_kernel_vs_plain_by_layer": flips16,
+                            "plain_bf16_vs_plain_f32": _logit_err(plain16,
+                                                                  plain32)},
+          "peak_mem_gb_f32_checks": peak32,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    return params
+
+
+def phase_moe_generate(torch, model, params, tokens):
+    """The main MoE path with the launch counts set to 0: one prefill of
+    the 4 prompts (6 windowed flash calls), the ring loaded with the last
+    4096 positions, MX_STEPS greedy decode steps (6 decode calls each,
+    every one split across blocks and combined)."""
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+    from repro_torch.kernels.decode_attention import plan_splits as decode_plan
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
+
+    kernels = {"flash_attention": flash_attention_kernel,
+               "decode_attention": decode_attention_kernel,
+               "paged_attention": paged_attention_kernel,
+               "ssd_scan": ssd_chunk_scan_kernel}
+    L = model.cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in kernels.values():
+        k.launches = 0
+    for k in (flash_attention_kernel, decode_attention_kernel):
+        k.combine_launches = 0
+    t0 = time.perf_counter()
+    logits, pc = model.prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    at_prefill = {n: k.launches for n, k in kernels.items()}
+    check(at_prefill == {"flash_attention": L, "decode_attention": 0,
+                         "paged_attention": 0, "ssd_scan": 0},
+          f"prefill launches {at_prefill}: want {L} flash calls")
+    cache = load_ring(torch, model, pc, MX_SEQ + MX_STEPS)
+    check(cache["layers"]["k"].shape[2] == model.cfg.sliding_window,
+          "the decode cache is not a ring of the window")
+    del pc
+    toks, step_ms, decode_s = greedy_decode(
+        torch, model, params, logits, cache,
+        _ring_batch(torch, tokens[:, -1:], MX_SEQ), MX_STEPS)
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = dict(at_prefill, decode_attention=L * MX_STEPS)
+    check(launches == want, f"launches {launches}, want {want}")
+    combines = {"flash_attention": flash_attention_kernel.combine_launches,
+                "decode_attention": decode_attention_kernel.combine_launches}
+    # at full width the prefill's 4 x 32 x 48 blocks of 128 rows fill the
+    # card unsplit, and the ring's 4096 rows are 32 splits: every decode
+    # call combines
+    cfg = model.cfg
+    flash_split = flash_plan(
+        MX_BATCH, MX_SEQ, cfg.num_heads, MX_SEQ, window=cfg.sliding_window,
+        head_dim=cfg.resolved_head_dim).splits > 1
+    ring_split = decode_plan(MX_BATCH, cfg.num_kv_heads,
+                             cache["layers"]["k"].shape[2]).splits > 1
+    check(combines == {"flash_attention": L * flash_split,
+                       "decode_attention": L * MX_STEPS * ring_split},
+          f"combines {combines}")
+    emit({"phase": "moe_generate", "ok": True, "arch": model.cfg.name,
+          "layers": L, "batch": MX_BATCH, "prompt_tokens": MX_SEQ,
+          "window": model.cfg.sliding_window, "decode_steps": MX_STEPS,
+          "launches": launches, "combine_launches": combines,
+          "prefill_ms": prefill_ms,
+          "median_decode_step_ms": statistics.median(step_ms),
+          "decode_tokens_per_s": MX_BATCH * MX_STEPS / decode_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "first_tokens": toks[:, :4].tolist()})
+    return launches
+
+
+def moe_table_rows(torch, launches, errs):
+    """The two kernels of the MoE path at its shapes, bf16: kernel, plain
+    and library time beside the bound, device and cold-L2 times; flash
+    also with ``window=0`` at the same shape (the work the window cuts)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+    from repro_torch.kernels.decode_attention import plan_splits as decode_plan
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
+
+    saved = (flash_attention_kernel.launches,
+             decode_attention_kernel.launches)
+    bf, elt = torch.bfloat16, 2
+    B, S, H, Hkv, D, W = MX_BATCH, MX_SEQ, 32, 8, 128, 4096
+    rows = []
+
+    # the windowed causal prefill attention
+    q, k, v = flash_inputs(torch, bf, S, S_q=S, H=H, Hkv=Hkv, D=D, B=B)
+    def kfn():
+        return flash_attention_kernel(q, k, v, causal=True, window=W)
+
+    k_ms = time_ms(kfn, iters=20)
+    w0_ms = time_ms(lambda: flash_attention_kernel(q, k, v, causal=True),
+                    iters=20)
+    w0_dev = queued_ms(lambda: flash_attention_kernel(q, k, v, causal=True),
+                       10)
+    p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=True,
+                                               window=W), iters=3, warmup=1)
+    qt = q.transpose(1, 2)
+    kt, vt = (x.transpose(1, 2).repeat_interleave(H // Hkv, 1)
+              for x in (k, v))
+    pos = torch.arange(S, device=q.device)
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+    def lfn():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=band)
+
+    l_ms = time_ms(lfn, iters=10, warmup=2)
+    plan = flash_plan(B, S, H, S, causal=True, window=W, head_dim=D)
+    keys = window_keys(S, S, 0, W)
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * elt
+    flops = 4 * B * H * D * keys
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    rows.append({"name": "flash_attention_mixtral", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:85 "
+                             "(window, :62-63)",
+                 "launches": launches["flash_attention"],
+                 "max_abs_err": errs["flash_attention_mixtral", "bfloat16"],
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": l_ms,
+                 **device_timings(torch, kfn, lfn, n=10),
+                 "window0_ms": w0_ms, "window0_dev_ms": w0_dev,
+                 "keys_per_row": keys / S,
+                 "library_note": "scaled_dot_product_attention, boolean "
+                                 "band mask, K/V repeated to 32 heads "
+                                 "outside the timing (timed only)",
+                 "shape": f"B={B} S_q=S_kv={S} causal window={W} H={H} "
+                          f"Hkv={Hkv} D={D} warpgroups={plan.consumers} "
+                          f"key_tile={plan.keys} splits={plan.splits}",
+                 "flops": flops, "bytes": n_bytes})
+    del q, k, v, qt, kt, vt, band
+
+    # decode over the wrapped ring: every row's 4096 slots valid
+    lengths = [W] * B
+    q, k, v, lens = decode_inputs(torch, bf, lengths, S_max=W, H=H, Hkv=Hkv,
+                                  D=D)
+    def dfn():
+        return decode_attention_kernel(q, k, v, lens)
+
+    k_ms = time_ms(dfn)
+    p_ms = time_ms(lambda: ref.decode_attention(q, k, v, lens), iters=20)
+    qt, kt, vt = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+    def lfn():
+        return F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+
+    l_ms = time_ms(lfn)
+    plan = decode_plan(B, Hkv, W)
+    n_rows = sum(lengths)
+    n_bytes = (2 * q.numel() * elt + n_rows * Hkv * D * 2 * elt
+               + lens.numel() * 4)
+    b_ms, b_by = bound_ms(n_bytes, 4 * H * D * n_rows, "bfloat16")
+    rows.append({"name": "decode_attention_mixtral_ring", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+                 "replaces": "src/repro/kernels/paged_attention.py:74",
+                 "launches": launches["decode_attention"],
+                 "max_abs_err": errs["decode_attention_ring", "bfloat16"],
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": l_ms,
+                 **device_timings(torch, dfn, lfn),
+                 "library_note": "scaled_dot_product_attention over the "
+                                 "whole ring, enable_gqa=True (timed only)",
+                 "shape": f"B={B} S_max=W={W} valid={W} H={H} Hkv={Hkv} "
+                          f"D={D} splits={plan.splits} of "
+                          f"{plan.block * plan.tiles_per_split} rows",
+                 "bytes": n_bytes})
+    flash_attention_kernel.launches, decode_attention_kernel.launches = saved
+    return rows
+
+
+def phase_moe_profile(torch, model, params, tokens, steps: int = 8):
+    """Device time by kernel over one MoE prefill and over ``steps``
+    greedy decode steps on the ring (torch.profiler)."""
+    out = {"prefill": _profile_window(
+        torch, lambda: model.prefill(params, {"tokens": tokens}))}
+    logits, pc = model.prefill(params, {"tokens": tokens})
+    cache = load_ring(torch, model, pc, MX_SEQ + MX_STEPS)
+    del pc
+    out["decode"] = _profile_decode(
+        torch, model, params, logits, cache,
+        _ring_batch(torch, tokens[:, -1:], MX_SEQ), steps)
+    emit({"phase": "moe_profile", "ok": True, **out})
+
+
 def _profiler():
     from torch.profiler import ProfilerActivity, profile
 
@@ -2558,8 +3117,9 @@ def main() -> int:
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler windows over an engine run, "
                          "and over a prefill and decode steps of the SSM, "
-                         "encoder-decoder and hybrid models")
+                         "encoder-decoder, hybrid and MoE models")
     args = ap.parse_args()
+    t_start = time.perf_counter()
 
     import torch
 
@@ -2735,10 +3295,52 @@ def main() -> int:
             if args.profile:
                 phase = "hybrid_profile"
                 phase_hybrid_profile(torch, model, params, tokens, hy_table)
+            del model, params, tokens, hy_table
+            torch.cuda.empty_cache()
+
+            phase = "flash_window_parity"
+            errs.update(phase_flash_window_parity(torch))
+            phase = "ring_decode_parity"
+            errs.update(phase_ring_decode_parity(torch))
+            phase = "moe_init"
+            t0 = time.perf_counter()
+            cfg = ARCHS["mixtral-8x7b"].scaled(num_layers=MX_LAYERS)
+            model = Model(cfg)
+            params = model.compute_params(
+                conditioned(model, model.init_params(seed=0)))
+            tokens = torch.from_numpy(
+                mixtral_prompts(cfg.vocab_size)).to(model.device)
+            torch.cuda.synchronize()
+            emit({"phase": "moe_init", "ok": True, "arch": cfg.name,
+                  "layers": f"{MX_LAYERS} of "
+                            f"{ARCHS['mixtral-8x7b'].num_layers}",
+                  "params": model.n_params(),
+                  "seconds": time.perf_counter() - t0,
+                  "mem_gb": torch.cuda.memory_allocated() / 1e9})
+            phase = "moe_layers"
+            phase_moe_layers(torch, model, params, tokens)
+            # the f32 checks need the card: the bf16 tree is cast again
+            # from the same seed's f32 tree after them
+            del params
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            phase = "moe_model"
+            params32 = conditioned(model, model.init_params(seed=0))
+            params = phase_moe_model(torch, model, params32, tokens)
+            del params32
+            torch.cuda.empty_cache()
+            phase = "moe_generate"
+            mx_launches = phase_moe_generate(torch, model, params, tokens)
+            phase = "moe_table"
+            table += moe_table_rows(torch, mx_launches, errs)
+            if args.profile:
+                phase = "moe_profile"
+                phase_moe_profile(torch, model, params, tokens)
     except Exception as exc:  # report which phase failed, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})
         return 1
+    emit({"phase": "wall", "seconds": time.perf_counter() - t_start})
     emit({"kernels": table})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -4,12 +4,12 @@
 // Replaces the TPU kernel repro/kernels/flash_attention.py:85
 // flash_attention_pallas (body _kernel): q (B, S_q, H, D), k and v
 // (B, S_kv, Hkv, D), query head h reads kv head h / G (any group size G),
-// masks kv_pos <= q_offset + q_pos when causal and kv_pos < S_kv, keeps the
-// online softmax in f32 with NEG_INF = -1e30, rounds the weights to the
-// value dtype before P.V and divides by max(l, 1e-30) at the end.
-// q_offset is a kernel argument, so one build serves every chunk start.
-// Sliding windows are not supported (no caller on the serving path passes
-// one); the wrapper raises.
+// masks kv_pos <= q_offset + q_pos when causal, kv_pos > q_pos - window
+// when window > 0 (window keys, the row's own included) and kv_pos < S_kv,
+// keeps the online softmax in f32 with NEG_INF = -1e30, rounds the weights
+// to the value dtype before P.V and divides by max(l, 1e-30) at the end.
+// q_offset and window are kernel arguments, so one build serves every
+// chunk start and window.
 //
 // What bounds it on the H100.  Attention does 4 * D flops for each
 // (query, visible key) pair on 2 * D bytes of K and V per key: the
@@ -52,11 +52,28 @@
 //     cross the diagonal or the ragged S_kv edge take the mask
 //     arithmetic.  A warpgroup skips the compute of tiles past its own
 //     horizon.
+//   * Sliding window: key tiles before the block's first visible key,
+//     q_offset + q0 - window + 1 (first_key), are not loaded either, and
+//     a warpgroup skips the tiles before its own first key (64 keys later
+//     for the second warpgroup: at most one 128-key tile, which it waits
+//     for and releases before its first turn).  Tiles that hold a row's
+//     lower edge take the mask arithmetic.  A 64-row fragment's edges
+//     span 63 keys, so the first tile or two of a window are wholly
+//     masked for some rows: their scores are the finite NEG_INF, and the
+//     first unmasked tile's alpha = 2^(NEG_INF - m) wipes what they
+//     summed, as in the Pallas body.  A row that sees no key at all
+//     (q_pos - window + 1 >= S_kv) averages every key, as the Pallas
+//     body's does: a block holding one reads every tile, and keys past
+//     S_kv score -inf so that they weigh nothing even there.  The window
+//     is a template flag chosen at launch (window > 0), so that calls
+//     without one run no window arithmetic.
 //   * Split-KV: where the q tiles alone give fewer than 132 blocks (one
 //     qwen2 chunk is 2 x 14 tiles of 64 rows), the host splits the key
 //     range into `splits` ranges of `tiles_per_split` tiles of 64 keys,
-//     from shapes only.  Each split writes its partial (m, l, acc) in f32
-//     to a workspace and combine_splits_kernel (common.cuh) merges them.
+//     from shapes only, counted from the launch's first key tile (the
+//     window's lower edge for the chunk's first row).  Each split writes
+//     its partial (m, l, acc) in f32 to a workspace and
+//     combine_splits_kernel (common.cuh) merges them.
 // f32: the CUDA-core body of the first version (flash_fwd_kernel<float>),
 //   chosen by dtype at every call.  It is not a fallback: the f32 path
 //   serves the correctness checks held to 1e-4 (kernel) and 1e-3 (the
@@ -91,6 +108,23 @@ constexpr size_t smem_floats(int d) {
   return (kBlockQ + 2 * kBlockK) * (d + 1) + kBlockQ * (kBlockK + 1);
 }
 
+// The first key that query rows at positions [lo, hi] may see: the
+// window's lower edge for the first row, or 0 without a window.  Where
+// the last row sees no key at all (hi - window + 1 >= S_kv) it is 0 too:
+// that row averages every key, as the Pallas body's fully masked rows do.
+__device__ __forceinline__ int first_key(int lo, int hi, int window,
+                                         int S_kv) {
+  return window > 0 && hi - window + 1 < S_kv ? max(0, lo - window + 1) : 0;
+}
+
+// The score of a key past S_kv: -inf, so that it weighs 0 even in a row
+// whose every key is masked (the Pallas body has no such keys: its key
+// blocks divide S_kv).  Masked keys keep the finite NEG_INF, so that a
+// wholly masked tile's weights are later wiped by alpha, never NaN.
+__device__ __forceinline__ float pad_score() {
+  return __int_as_float(static_cast<int>(0xff800000u));
+}
+
 // the accumulator is sized for the largest head dim; dh is the real one
 constexpr int kMaxD = 128;
 
@@ -101,7 +135,7 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ v,  // (B, S_kv, Hkv, D)
                      T* __restrict__ out,      // (B, S_q, H, D)
                      int S_q, int S_kv, int H, int Hkv, int q_offset,
-                     int causal, float scale, int dh) {
+                     int causal, int window, float scale, int dh) {
   const int LD = dh + 1;
   constexpr int LP = kBlockK + 1;
   constexpr int KPT = kBlockK / 4;  // score columns per thread
@@ -145,11 +179,13 @@ __global__ void __launch_bounds__(kThreads)
   float l = 0.f;
   const int q_pos = q_offset + q0 + r;
 
+  const int q_hi = q_offset + min(q0 + kBlockQ, S_q) - 1;  // last row's
   int kv_end = S_kv;
-  if (causal) kv_end = min(S_kv, q_offset + min(q0 + kBlockQ, S_q));
+  if (causal) kv_end = min(S_kv, q_hi + 1);
   const int n_tiles = (kv_end + kBlockK - 1) / kBlockK;
+  const int t_first = first_key(q_offset + q0, q_hi, window, S_kv) / kBlockK;
 
-  for (int it = 0; it < n_tiles; ++it) {
+  for (int it = t_first; it < n_tiles; ++it) {
     const int k0 = it * kBlockK;
     __syncthreads();  // the previous tile is done with ks / vs
     for (int i = tid; i < kBlockK * dh; i += kThreads) {
@@ -173,9 +209,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll 16
       for (int d = 0; d < dh; ++d) dot = fmaf(qr[d], kr[d], dot);
       const int kv_pos = k0 + col;
-      bool ok = kv_pos < S_kv;
-      if (causal) ok = ok && kv_pos <= q_pos;
-      s[j] = ok ? dot * scale : repro::kNegInf;
+      bool ok = !causal || kv_pos <= q_pos;
+      if (window > 0) ok = ok && kv_pos > q_pos - window;
+      s[j] = kv_pos >= S_kv ? pad_score()
+                            : ok ? dot * scale : repro::kNegInf;
       mx = fmaxf(mx, s[j]);
     }
     // the four lanes of a row are adjacent lanes of one warp
@@ -223,7 +260,7 @@ __global__ void __launch_bounds__(kThreads)
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        int B, int S_q, int S_kv, int H, int Hkv, int d,
-                       int q_offset, int causal, float scale,
+                       int q_offset, int causal, int window, float scale,
                        cudaStream_t stream) {
   const size_t smem = smem_floats(d) * sizeof(float);
   cudaError_t err = repro::set_smem(flash_fwd_kernel<float>, smem);
@@ -232,7 +269,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   flash_fwd_kernel<float><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S_q, S_kv, H,
-      Hkv, q_offset, causal, scale, d);
+      Hkv, q_offset, causal, window, scale, d);
   return cudaGetLastError();
 }
 
@@ -338,28 +375,36 @@ __device__ __forceinline__ void issue_pv(float (&o)[D / 2],
 // fragment (element (r0 + 8 r, k0 + 8 n + 2 cq + e) in s[4 n + 2 r + e]),
 // in the log2 domain (scores times scale_log2): update the rows' (m, l),
 // leave the weights 2^(s - m) in s and the rescale factors of the old
-// state in alpha.  kMask: the tile crosses the diagonal or S_kv, and
-// masked scores become NEG_INF.  Maxima and sums run as four independent
+// state in alpha.  kMask: the tile crosses the diagonal, a row's window
+// edge or S_kv; scores of keys outside fragment row r0's visible range
+// [lo0, hi0] (row r0 + 8: 8 later) become NEG_INF and keys past S_kv
+// -inf; the lower bound lo0 only with kWindow.  The bounds are taken
+// relative to the thread's first column, so that each score compares its
+// compile-time column offset.  Maxima and sums run as four independent
 // chains per row, not one serial chain.
-template <int KN, bool kMask>
+template <int KN, bool kMask, bool kWindow>
 __device__ __forceinline__ void online_softmax(
     float (&s)[KN / 2], float (&m)[2], float (&l)[2], float (&alpha)[2], int k0,
-    int S_kv, int causal, int q_pos0, int cq, float scale_log2) {
+    int S_kv, int lo0, int hi0, int cq, float scale_log2) {
   // unmasked tiles scale inside the exponent's FMA; masked ones up front
   const float sc = kMask ? 1.f : scale_log2;
   if constexpr (kMask) {
+    const int base = k0 + 2 * cq;  // key of column offset 0
+    const int pad = S_kv - base;
 #pragma unroll
-    for (int n = 0; n < KN / 8; ++n)
+    for (int r = 0; r < 2; ++r) {
+      const int lo = lo0 + 8 * r - base, hi = hi0 + 8 * r - base;
 #pragma unroll
-      for (int r = 0; r < 2; ++r)
+      for (int n = 0; n < KN / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int kv_pos = k0 + 8 * n + 2 * cq + e;
-          const bool masked =
-              kv_pos >= S_kv || (causal && kv_pos > q_pos0 + 8 * r);
+          const int j = 8 * n + e;  // key k0 + 2 cq + j
           float& x = s[4 * n + 2 * r + e];
-          x = masked ? repro::kNegInf : x * scale_log2;
+          x = j >= pad                       ? pad_score()
+              : (kWindow && j < lo) || j > hi ? repro::kNegInf
+                                              : x * scale_log2;
         }
+    }
   }
   float mx[2][4];
 #pragma unroll
@@ -411,18 +456,22 @@ __device__ __forceinline__ void online_softmax(
 }
 
 // The tile's softmax, with the mask arithmetic only where the tile
-// crosses the diagonal or the ragged S_kv edge (a uniform branch).
-template <int KN>
+// crosses the ragged S_kv edge, the diagonal (a key past diag, the
+// warpgroup's first row) or some row's window edge (a key at or before
+// edge, the last key its last row's window masks): a uniform branch.
+// Without kWindow the branch and the mask are those of a causal kernel
+// with no window: no lower bound is held or compared.
+template <int KN, bool kWindow>
 __device__ __forceinline__ void tile_softmax(
     float (&s)[KN / 2], float (&m)[2], float (&l)[2], float (&alpha)[2], int k0,
-    int S_kv, int causal, int q_pos0, int qw0, int q_offset, int cq,
+    int S_kv, int lo0, int hi0, int diag, int edge, int cq,
     float scale_log2) {
-  if (k0 + KN > S_kv || (causal && k0 + KN - 1 > q_offset + qw0))
-    online_softmax<KN, true>(s, m, l, alpha, k0, S_kv, causal, q_pos0, cq,
-                             scale_log2);
+  if (k0 + KN > S_kv || k0 + KN - 1 > diag || (kWindow && k0 <= edge))
+    online_softmax<KN, true, kWindow>(s, m, l, alpha, k0, S_kv, lo0, hi0, cq,
+                                      scale_log2);
   else
-    online_softmax<KN, false>(s, m, l, alpha, k0, S_kv, causal, q_pos0, cq,
-                              scale_log2);
+    online_softmax<KN, false, kWindow>(s, m, l, alpha, k0, S_kv, lo0, hi0,
+                                       cq, scale_log2);
 }
 
 // P in bf16 as the A fragments of the KN / 16 key steps: the S
@@ -438,8 +487,10 @@ __device__ __forceinline__ void pack_weights(const float (&s)[KN / 2],
 }
 
 // D: the head dim the tiles are laid out for; with kAnyD the real one,
-// d_rt <= D, is a run-time argument (columns past it load as zeros)
-template <int D, int NC, int KN, bool kAnyD>
+// d_rt <= D, is a run-time argument (columns past it load as zeros).
+// kWindow: the launch has a window (window > 0); without it the window
+// argument is not read, so that unwindowed calls run the unwindowed code.
+template <int D, int NC, int KN, bool kAnyD, bool kWindow>
 __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -448,10 +499,12 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
                        float* __restrict__ ws_acc,  // (splits, B, S_q, H, D)
                        float* __restrict__ ws_ml,   // (splits, B, S_q, H, 2)
                        int B, int S_q, int S_kv, int H, int Hkv,
-                       int q_offset, int causal, float scale_log2,
-                       int splits, int tiles_per_split, int d_rt) {
+                       int q_offset, int causal, int window,
+                       float scale_log2, int splits, int tiles_per_split,
+                       int d_rt) {
   using L = FlashLayout<D, NC, KN>;
   const int dh = kAnyD ? d_rt : D;
+  if constexpr (!kWindow) window = 0;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (hp::smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base + L::kQ;
@@ -469,12 +522,17 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
   const int q0 = blockIdx.x * (NC * kRows);
 
   // key tiles this block loads: its split's range, cut at the causal
-  // horizon of its last row
+  // horizon of its last row and at the window's edge of its first.  The
+  // splits count whole tiles from the launch's first key tile (t_base),
+  // as the host's planner does.
+  const int q_hi = q_offset + min(q0 + NC * kRows, S_q) - 1;  // last row's
   int kv_end = S_kv;
-  if (causal) kv_end = min(S_kv, q_offset + min(q0 + NC * kRows, S_q));
+  if (causal) kv_end = min(S_kv, q_hi + 1);
   const int n_tiles = (kv_end + KN - 1) / KN;
-  const int t_begin = split * tiles_per_split;
-  const int t_end = min(n_tiles, t_begin + tiles_per_split);
+  const int t_base = first_key(q_offset, q_offset + S_q - 1, window, S_kv) / KN;
+  const int t_begin = max(first_key(q_offset + q0, q_hi, window, S_kv) / KN,
+                          t_base + split * tiles_per_split);
+  const int t_end = min(n_tiles, t_base + (split + 1) * tiles_per_split);
 
   if (tid == 0) {
     for (int i = 0; i < L::kStages; ++i) {
@@ -518,11 +576,16 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
   const int r0 = (t >> 5) * 16 + (lane >> 2);  // fragment rows r0, r0 + 8
   const int cq = lane & 3;                     // fragment column pair
   const int qw0 = q0 + c * kRows;
-  int wg_end = 0;  // tiles past this warpgroup's own horizon are skipped
+  // tiles before this warpgroup's first key or past its own horizon are
+  // skipped; its first key is the block's rule (first_key over the
+  // block's last row), so the second warpgroup starts at most one 128-key
+  // tile after the first
+  int wg_begin = 0, wg_end = 0, wq_hi = 0;
   if (qw0 < S_q) {
+    wq_hi = q_offset + min(qw0 + kRows, S_q) - 1;
     wg_end = n_tiles;
-    if (causal)
-      wg_end = (min(S_kv, q_offset + min(qw0 + kRows, S_q)) + KN - 1) / KN;
+    if (causal) wg_end = (min(S_kv, wq_hi + 1) + KN - 1) / KN;
+    wg_begin = first_key(q_offset + qw0, q_hi, window, S_kv) / KN;
   }
 
   // accumulator fragments: element (row r0 + 8 i, column 8 n + 2 cq + e)
@@ -533,10 +596,11 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
   float m[2] = {repro::kNegInf, repro::kNegInf};
   float l[2] = {0.f, 0.f};
 
-  // Tiles [t_begin, live_end) are this warpgroup's to compute; the rest
-  // of the block's tiles it only waits for and releases.  The loop keeps
-  // two wgmma groups apart: while O += P_{i-1} . V_{i-1} runs on the
+  // Tiles [live_begin, live_end) are this warpgroup's to compute; the
+  // rest of the block's tiles it only waits for and releases.  The loop
+  // keeps two wgmma groups apart: while O += P_{i-1} . V_{i-1} runs on the
   // tensor cores, the softmax of S_i = Q . K_i^T runs on the CUDA cores.
+  const int live_begin = max(t_begin, wg_begin);
   const int live_end = min(t_end, wg_end);
   const auto stage = [&](int it) { return (it - t_begin) % L::kStages; };
   const auto wait_full = [&](int it) {
@@ -549,7 +613,10 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
   // Two consumer warpgroups take turns to issue their products (named
   // barriers 1 and 2), so that one's softmax runs while the other's
   // products do.  Each takes t_end - t_begin + 1 turns, empty ones where
-  // it has no tile to compute, so that the handshakes pair up.
+  // it has no tile to compute, so that the handshakes pair up.  The
+  // tiles before live_begin (one at most, the second warpgroup's) are
+  // released before the first turn: with three stages the first
+  // warpgroup's turns never wait on them.
   const auto my_turn = [&]() {
     if constexpr (NC == 2) hp::named_bar_sync(1 + c, 256);
   };
@@ -558,8 +625,20 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
   };
   if (NC == 2 && c == 1 && t_begin < t_end) pass_turn();  // warpgroup 0 first
 
-  const int q_pos0 = q_offset + qw0 + r0;  // position of fragment row r0
-  if (t_begin < live_end) {
+  // fragment row r0's visible keys [lo0, hi0] (row r0 + 8: 8 later), and
+  // the warpgroup's mask bounds for tile_softmax; "none" lies past every
+  // key position either way
+  constexpr int kNone = 1 << 30;
+  const int q_pos0 = q_offset + qw0 + r0;
+  const int lo0 = kWindow ? q_pos0 - window + 1 : -kNone;
+  const int hi0 = causal ? q_pos0 : kNone;
+  const int diag = causal ? q_offset + qw0 : kNone;
+  const int edge = kWindow ? wq_hi - window : -kNone;
+  for (int it = t_begin; it < min(live_begin, t_end); ++it) {
+    wait_full(it);
+    release(it);
+  }
+  if (live_begin < live_end) {
     hp::mbar_wait(q_bar, 0);
     const uint32_t q_wg = q_s + c * (L::kQBytes / NC);
     float s[KN / 2];
@@ -568,20 +647,20 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
 #pragma unroll
     for (int j = 0; j < KN / 2; ++j) s[j] = 0.f;
 
-    wait_full(t_begin);
+    wait_full(live_begin);
     my_turn();
     hp::fence_regs(s);
     hp::wgmma_fence();
-    issue_s<D, KN>(s, q_wg, k_s + stage(t_begin) * L::kTileBytes);
+    issue_s<D, KN>(s, q_wg, k_s + stage(live_begin) * L::kTileBytes);
     hp::wgmma_commit();
     pass_turn();
     hp::wgmma_wait<0>();
     hp::fence_regs(s);
-    tile_softmax<KN>(s, m, l, alpha, t_begin * KN, S_kv, causal, q_pos0,
-                     qw0, q_offset, cq, scale_log2);
+    tile_softmax<KN, kWindow>(s, m, l, alpha, live_begin * KN, S_kv, lo0,
+                              hi0, diag, edge, cq, scale_log2);
     pack_weights<KN>(s, pa);
 
-    for (int it = t_begin + 1; it < live_end; ++it) {
+    for (int it = live_begin + 1; it < live_end; ++it) {
       wait_full(it);
       my_turn();
       hp::fence_regs(s);
@@ -594,8 +673,8 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
       pass_turn();
       hp::wgmma_wait<1>();  // S_i is in; P_{i-1} . V_{i-1} may still run
       hp::fence_regs(s);
-      tile_softmax<KN>(s, m, l, alpha, it * KN, S_kv, causal, q_pos0, qw0,
-                       q_offset, cq, scale_log2);
+      tile_softmax<KN, kWindow>(s, m, l, alpha, it * KN, S_kv, lo0, hi0, diag,
+                                edge, cq, scale_log2);
       // pin the softmax here, ahead of the wait: the compiler would
       // otherwise sink its register-only arithmetic past the wait below
       hp::fence_regs(s);
@@ -628,13 +707,13 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
     release(live_end - 1);
   }
   if (t_begin < t_end) {
-    const int taken = t_begin < live_end ? live_end - t_begin + 1 : 0;
+    const int taken = live_begin < live_end ? live_end - live_begin + 1 : 0;
     for (int k = taken; k < t_end - t_begin + 1; ++k) {
       my_turn();
       pass_turn();
     }
   }
-  for (int it = max(t_begin, live_end); it < t_end; ++it) {
+  for (int it = max(live_begin, live_end); it < t_end; ++it) {
     wait_full(it);
     release(it);
   }
@@ -677,8 +756,8 @@ template <int D, int NC, int KN, bool kAnyD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                         void* out, float* ws, int B, int S_q, int S_kv,
                         int H, int Hkv, int d, int q_offset, int causal,
-                        float scale, int splits, int tiles_per_split,
-                        cudaStream_t stream) {
+                        int window, float scale, int splits,
+                        int tiles_per_split, cudaStream_t stream) {
   using L = FlashLayout<D, NC, KN>;
   const CUtensorMapSwizzle swizzle = L::kSwizzle == 128
                                          ? CU_TENSOR_MAP_SWIZZLE_128B
@@ -694,17 +773,19 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                                      L::kAtom, swizzle);
   if (err != cudaSuccess) return err;
   const size_t smem = L::kBytes + 1024;  // + slack to align the base
-  err = repro::set_smem(flash_wgmma_kernel<D, NC, KN, kAnyD>, smem);
+  const auto kernel = window > 0
+                          ? flash_wgmma_kernel<D, NC, KN, kAnyD, true>
+                          : flash_wgmma_kernel<D, NC, KN, kAnyD, false>;
+  err = repro::set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int64_t rows = static_cast<int64_t>(B) * S_q * H;
   float* ws_acc = ws;
   float* ws_ml = splits > 1 ? ws + splits * rows * d : nullptr;
   const dim3 grid((S_q + NC * kRows - 1) / (NC * kRows), H, B * splits);
-  flash_wgmma_kernel<D, NC, KN, kAnyD>
-      <<<grid, L::kThreads, smem, stream>>>(
-          q_map, k_map, v_map, static_cast<bf16*>(out), ws_acc, ws_ml, B,
-          S_q, S_kv, H, Hkv, q_offset, causal, scale * kLog2e, splits,
-          tiles_per_split, d);
+  kernel<<<grid, L::kThreads, smem, stream>>>(
+      q_map, k_map, v_map, static_cast<bf16*>(out), ws_acc, ws_ml, B, S_q,
+      S_kv, H, Hkv, q_offset, causal, window, scale * kLog2e, splits,
+      tiles_per_split, d);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   return repro::launch_combine<bf16>(ws_acc, ws_ml, static_cast<bf16*>(out),
@@ -715,13 +796,15 @@ template <int D>
 cudaError_t launch_bf16_nc(int consumers, int keys, const void* q,
                            const void* k, const void* v, void* out, float* ws,
                            int B, int S_q, int S_kv, int H, int Hkv,
-                           int q_offset, int causal, float scale, int splits,
-                           int tiles_per_split, cudaStream_t stream) {
+                           int q_offset, int causal, int window, float scale,
+                           int splits, int tiles_per_split,
+                           cudaStream_t stream) {
 #define REPRO_LAUNCH(NC, KN)                                                \
   if (consumers == NC && keys == KN)                                        \
     return launch_bf16<D, NC, KN, false>(q, k, v, out, ws, B, S_q, S_kv, H, \
-                                         Hkv, D, q_offset, causal, scale,   \
-                                         splits, tiles_per_split, stream);
+                                         Hkv, D, q_offset, causal, window,  \
+                                         scale, splits, tiles_per_split,    \
+                                         stream);
   REPRO_LAUNCH(1, 64)   // split key ranges: small tiles, more blocks
   REPRO_LAUNCH(1, 128)
   REPRO_LAUNCH(2, 128)
@@ -736,12 +819,12 @@ cudaError_t launch_bf16_any_d(int consumers, int keys, const void* q,
                               const void* k, const void* v, void* out,
                               float* ws, int B, int S_q, int S_kv, int H,
                               int Hkv, int d, int q_offset, int causal,
-                              float scale, int splits, int tiles_per_split,
-                              cudaStream_t stream) {
+                              int window, float scale, int splits,
+                              int tiles_per_split, cudaStream_t stream) {
   if (consumers != 1 || keys != 64) return cudaErrorInvalidValue;
   return launch_bf16<DP, 1, 64, true>(q, k, v, out, ws, B, S_q, S_kv, H, Hkv,
-                                      d, q_offset, causal, scale, splits,
-                                      tiles_per_split, stream);
+                                      d, q_offset, causal, window, scale,
+                                      splits, tiles_per_split, stream);
 }
 
 }  // namespace
@@ -749,17 +832,18 @@ cudaError_t launch_bf16_any_d(int consumers, int keys, const void* q,
 static int flash_entry(int device, int dtype, const void* q, const void* k,
                        const void* v, void* out, int B, int S_q, int S_kv,
                        int H, int Hkv, int D, int q_offset, int causal,
-                       float scale, int consumers, int keys, int splits,
-                       int tiles_per_split, void* workspace, void* stream) {
+                       int window, float scale, int consumers, int keys,
+                       int splits, int tiles_per_split, void* workspace,
+                       void* stream) {
   cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return err;
   if (B <= 0 || S_q <= 0 || Hkv <= 0 || H % Hkv != 0 || q_offset < 0 ||
-      D <= 0 || D > 128 || D % 8 != 0)
+      window < 0 || D <= 0 || D > 128 || D % 8 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == REPRO_F32)
     return launch_f32(q, k, v, out, B, S_q, S_kv, H, Hkv, D, q_offset, causal,
-                      scale, s);
+                      window, scale, s);
   // (consumers, keys) outside the built pairs: the launchers refuse
   if (dtype != REPRO_BF16 || S_kv <= 0 || splits < 1 ||
       tiles_per_split < 1 || static_cast<int64_t>(B) * splits > 65535 ||
@@ -769,35 +853,37 @@ static int flash_entry(int device, int dtype, const void* q, const void* k,
   switch (D) {
     case 32:
       return launch_bf16_nc<32>(consumers, keys, q, k, v, out, ws, B, S_q,
-                                S_kv, H, Hkv, q_offset, causal, scale, splits,
-                                tiles_per_split, s);
+                                S_kv, H, Hkv, q_offset, causal, window, scale,
+                                splits, tiles_per_split, s);
     case 64:
       return launch_bf16_nc<64>(consumers, keys, q, k, v, out, ws, B, S_q,
-                                S_kv, H, Hkv, q_offset, causal, scale, splits,
-                                tiles_per_split, s);
+                                S_kv, H, Hkv, q_offset, causal, window, scale,
+                                splits, tiles_per_split, s);
     case 128:
       return launch_bf16_nc<128>(consumers, keys, q, k, v, out, ws, B, S_q,
-                                 S_kv, H, Hkv, q_offset, causal, scale,
-                                 splits, tiles_per_split, s);
+                                 S_kv, H, Hkv, q_offset, causal, window,
+                                 scale, splits, tiles_per_split, s);
     default:
       if (D < 64)
         return launch_bf16_any_d<64>(consumers, keys, q, k, v, out, ws, B,
                                      S_q, S_kv, H, Hkv, D, q_offset, causal,
-                                     scale, splits, tiles_per_split, s);
+                                     window, scale, splits, tiles_per_split,
+                                     s);
       return launch_bf16_any_d<128>(consumers, keys, q, k, v, out, ws, B,
                                     S_q, S_kv, H, Hkv, D, q_offset, causal,
-                                    scale, splits, tiles_per_split, s);
+                                    window, scale, splits, tiles_per_split,
+                                    s);
   }
 }
 
 // Packed arguments (common.cuh: Args), in order: device, dtype, q, k, v, out,
-// B, S_q, S_kv, H, Hkv, D, q_offset, causal, scale (double), consumers,
-// keys, splits, tiles_per_split, workspace, stream.
+// B, S_q, S_kv, H, Hkv, D, q_offset, causal, window, scale (double),
+// consumers, keys, splits, tiles_per_split, workspace, stream.
 extern "C" int repro_flash_attention(const void* packed) {
   const repro::Args a(packed);
   return flash_entry(a.i32(0), a.i32(1), a.ptr(2), a.ptr(3), a.ptr(4),
                      a.ptr(5), a.i32(6), a.i32(7), a.i32(8), a.i32(9),
-                     a.i32(10), a.i32(11), a.i32(12), a.i32(13), a.f32(14),
-                     a.i32(15), a.i32(16), a.i32(17), a.i32(18), a.ptr(19),
-                     a.ptr(20));
+                     a.i32(10), a.i32(11), a.i32(12), a.i32(13), a.i32(14),
+                     a.f32(15), a.i32(16), a.i32(17), a.i32(18), a.i32(19),
+                     a.ptr(20), a.ptr(21));
 }

@@ -3,10 +3,12 @@ plain version.
 
 Replaces the TPU kernel ``repro/kernels/flash_attention.py:
 flash_attention_pallas`` (body ``_kernel``) on the chunked-prefill path
-(``layers.attention_chunk``) and the encoder's full attention.  The TPU
-kernel binds ``q_offset`` as a Python constant; here it is a runtime
-argument of the kernel, so one build serves every chunk start and the
-host passes the start it already knows (no device read).
+(``layers.attention_chunk``), the encoder's full attention and the
+whole-sequence prefill (``layers.attention_full``), mixtral's with its
+sliding window.  The TPU kernel binds ``q_offset`` and ``window`` as
+Python constants; here they are runtime arguments of the kernel, so one
+build serves every chunk start and window and the host passes the start
+it already knows (no device read).
 
 bf16 runs ``csrc/flash_attention.cu``'s warpgroup-MMA kernel: 64-row
 query tiles per consumer warpgroup (one or two a block), K and V tiles
@@ -16,8 +18,15 @@ Where the query tiles alone would leave SMs idle, :func:`plan_splits`
 splits the key range across blocks (from shapes only) and a second
 small kernel combines the partial softmax states.  f32 runs the first
 version's CUDA-core body, kept for the correctness checks held to 1e-4
-(TF32 products would miss them).  Times are in PERF.md.  Sliding
-windows are not supported by the kernel (the plain version has them).
+(TF32 products would miss them).  Times are in PERF.md.
+
+Sliding window (``window > 0``): row ``q_pos`` keeps key ``kv_pos`` only
+if ``kv_pos > q_pos - window``, as the Pallas body does, causal or not,
+at any ``q_offset``.  Key tiles before a block's first visible key are
+not read, and :func:`plan_splits` splits only the keys the chunk can see,
+``[kv_begin, kv_end)`` (:func:`key_range`).  A row that sees no key at
+all (``q_pos - window + 1 >= S_kv``) averages every key, as the Pallas
+body's fully masked rows do.
 
 Head dims: D 32, 64 and 128 are compiled forms; any other D with
 ``D % 8 == 0`` and ``D <= 128`` (phi3's 96, zamba2's 112) runs a
@@ -50,7 +59,7 @@ SMS = 132
 #: query rows per consumer warpgroup
 ROWS = 64
 
-_launch = _build.Entry("flash_attention", "repro_flash_attention", "14qd6q")
+_launch = _build.Entry("flash_attention", "repro_flash_attention", "15qd6q")
 
 
 class FlashPlan(NamedTuple):
@@ -64,8 +73,25 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def key_range(S_q: int, S_kv: int, *, q_offset: int = 0,
+              causal: bool = True, window: int = 0) -> tuple:
+    """``(kv_begin, kv_end)``: the keys the chunk's rows can see.  The end
+    is ``min(S_kv, q_offset + S_q)`` when causal, else ``S_kv``; the begin
+    is the window's lower edge for the first row, ``q_offset - window +
+    1`` (at least 0), or 0 without a window.  Where the last row sees no
+    key at all (``q_offset + S_q - window >= S_kv``) the begin is 0: that
+    row averages every key.  The kernel computes the same from its
+    arguments (``first_key`` in ``csrc/flash_attention.cu``)."""
+    kv_end = min(S_kv, q_offset + S_q) if causal else S_kv
+    kv_begin = 0
+    if window > 0 and q_offset + S_q - window < S_kv:
+        kv_begin = max(0, q_offset - window + 1)
+    return kv_begin, kv_end
+
+
 def plan_splits(B: int, S_q: int, H: int, S_kv: int, *, q_offset: int = 0,
-                causal: bool = True, head_dim: int) -> FlashPlan:
+                causal: bool = True, window: int = 0,
+                head_dim: int) -> FlashPlan:
     """The bf16 kernel's launch shape, from shapes only.  Two consumer
     warpgroups (128-row tiles, which halve the K/V traffic) where those
     tiles alone fill the SMs and ``head_dim`` has a compiled form, else
@@ -73,11 +99,13 @@ def plan_splits(B: int, S_q: int, H: int, S_kv: int, *, q_offset: int = 0,
     tiles laid out for 128 columns, 128-key tiles would hold one block an
     SM and 64-key tiles hold two.  Where the query tiles give
     :data:`SMS` blocks or more, key tiles of 128 and no split.  Else the
-    keys the chunk can see (``min(S_kv, q_offset + S_q)`` when causal)
+    keys the chunk can see, ``[kv_begin, kv_end)`` (:func:`key_range`),
     are cut into tiles of 64 and equal ranges of whole tiles, enough to
-    reach :data:`SMS` blocks; split ``s`` covers key tiles ``[s * t, (s +
-    1) * t)`` with ``t = tiles_per_split``."""
-    kv_end = min(S_kv, q_offset + S_q) if causal else S_kv
+    reach :data:`SMS` blocks; split ``s`` covers key tiles ``[b + s * t,
+    b + (s + 1) * t)`` with ``b = kv_begin // 64`` and ``t =
+    tiles_per_split``."""
+    kv_begin, kv_end = key_range(S_q, S_kv, q_offset=q_offset, causal=causal,
+                                 window=window)
     consumers = 1
     if (head_dim in _COMPILED_HEAD_DIMS
             and B * H * _cdiv(S_q, 2 * ROWS) >= SMS):
@@ -85,8 +113,9 @@ def plan_splits(B: int, S_q: int, H: int, S_kv: int, *, q_offset: int = 0,
     blocks = B * H * _cdiv(S_q, consumers * ROWS)
     if blocks >= SMS:
         keys = 128 if head_dim in _COMPILED_HEAD_DIMS else 64
-        return FlashPlan(consumers, keys, 1, max(1, _cdiv(kv_end, keys)))
-    n_tiles = max(1, _cdiv(kv_end, 64))
+        tiles = _cdiv(kv_end, keys) - kv_begin // keys
+        return FlashPlan(consumers, keys, 1, max(1, tiles))
+    n_tiles = max(1, _cdiv(kv_end, 64) - kv_begin // 64)
     per = _cdiv(n_tiles, min(n_tiles, _cdiv(SMS, blocks)))
     return FlashPlan(1, 64, _cdiv(n_tiles, per), per)
 
@@ -108,10 +137,6 @@ def flash_attention_kernel(
     """Launch the flash kernel on ``q``'s stream; returns (B, S_q, H, D)."""
     if not q.is_cuda:
         raise ValueError("flash_attention_kernel takes CUDA tensors")
-    if window:
-        raise NotImplementedError(
-            "the flash kernel has no sliding-window mask; no caller on the "
-            "serving path passes one")
     if q.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {q.dtype}")
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -119,6 +144,9 @@ def flash_attention_kernel(
     if not isinstance(q_offset, int) or q_offset < 0:
         raise ValueError(f"q_offset must be a non-negative int, got "
                          f"{q_offset!r}")
+    if not isinstance(window, int) or window < 0:
+        raise ValueError(f"window must be a non-negative int, got "
+                         f"{window!r}")
     B, S_q, H, D = q.shape
     S_kv, Hkv = k.shape[1], k.shape[2]
     if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D:
@@ -137,13 +165,13 @@ def flash_attention_kernel(
     plan, ws = FlashPlan(1, 128, 1, 1), None
     if q.dtype == torch.bfloat16:
         plan = plan_splits(B, S_q, H, S_kv, q_offset=q_offset,
-                           causal=causal, head_dim=D)
+                           causal=causal, window=window, head_dim=D)
         if plan.splits > 1:  # partial (acc, m, l) of each split, f32
             ws = torch.empty(plan.splits * B * S_q * H * (D + 2),
                              dtype=torch.float32, device=q.device)
     _launch(device, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
             v.data_ptr(), out.data_ptr(), B, S_q, S_kv, H, Hkv, D, q_offset,
-            1 if causal else 0, 1.0 / math.sqrt(D), *plan,
+            1 if causal else 0, window, 1.0 / math.sqrt(D), *plan,
             0 if ws is None else ws.data_ptr(), stream)
     flash_attention_kernel.launches += 1
     if plan.splits > 1:
@@ -157,4 +185,4 @@ flash_attention_kernel.launches = 0
 flash_attention_kernel.combine_launches = 0
 
 __all__ = ["FlashPlan", "flash_attention_kernel", "flash_attention_plain",
-           "plan_splits"]
+           "key_range", "plan_splits"]

@@ -4,17 +4,19 @@ Plain functions over parameter dicts, as in the JAX package
 (``repro/models/layers.py``), with the same tree layout: RMS/LayerNorm,
 RoPE, the QKV projection, whole-sequence attention (the encoder, the
 decoder's self-attention and cross-attention of the encoder-decoder
-family), single-token decode attention over the paged cache (global or
-per-slot page ids) and over the fixed cross-attention cache,
-chunked-prefill attention, the SwiGLU MLP and the embedding.
+family, and the sliding window of mixtral), single-token decode
+attention over the paged cache (global or per-slot page ids), over a
+rolling (sliding-window ring) or contiguous cache and over the fixed
+cross-attention cache, chunked-prefill attention, the SwiGLU MLP, the
+top-k MoE and the embedding.
 
 Weights are used in the activation dtype; each function casts with
 ``.to(dt)``, which is free when the caller already cast the tree once
 (``Model.compute_params``) — the numbers are the same either way.
 
-KV writes update the pools IN PLACE (``index_put_`` / ``index_copy_``):
-JAX's ``.at[].set`` on donated buffers becomes a write into the one
-pool tensor, so a step never holds two copies of the cache.
+KV writes update the pools and caches IN PLACE (``index_put_`` /
+``index_copy_``): JAX's ``.at[].set`` on donated buffers becomes a write
+into the one cache tensor, so a step never holds two copies of it.
 """
 
 from __future__ import annotations
@@ -126,7 +128,8 @@ def attention_full(
     decoder's causal self-attention, and cross-attention over ``kv_x``.
     RoPE at positions 0 .. S-1 is applied to q and k unless ``kv_x`` is
     given, as in the JAX package: cross-attention keys carry no
-    positions.
+    positions.  A config with ``sliding_window > 0`` attends over the
+    last ``sliding_window`` keys of each row (the flash kernel's window).
 
     Returns ``(out (B, S, M), (k, v))`` so a prefill can fill the cache.
     """
@@ -162,7 +165,8 @@ def attention_decode(
     cross: bool = False,
     impl: Optional[str] = None,
 ):
-    """Single-token decode against the paged cache, or cross-attention.
+    """Single-token decode against the paged, rolling or contiguous cache,
+    or cross-attention.
 
     Paged (``block_table`` given): the new token's K/V land at position
     ``lengths`` of each row, then the paged kernel attends over
@@ -173,13 +177,21 @@ def attention_decode(
     nothing reads); otherwise they are page ids inside the row's own pool
     (an inactive row writes its own scratch page 0).
 
+    Rolling (no table, ``cache["k"]`` of ``cfg.sliding_window`` rows):
+    a ring ``{"k", "v"}`` of shape (B, W, Hkv, D) in which position p
+    lives in slot ``p % W``; the token's K/V overwrite slot ``lengths %
+    W`` (the position that left the window) and the decode kernel attends
+    over ``min(lengths + 1, W)`` slots.  Softmax does not care about the
+    slots' order: the positions are in the keys' RoPE.  Contiguous (no
+    table, fewer rows than the window, or no window): the token's K/V land
+    at row ``lengths`` and the kernel attends over ``lengths + 1`` rows.
+
     Cross-attention (``cross=True``): the query, without RoPE, attends
     over the fixed cache ``{"k", "v", "len"}`` of the encoder output;
     nothing is written.
 
-    Returns ``(out (B, 1, M), cache)``; the pools are updated in place.
-    The rolling and contiguous layouts of the JAX package are not ported
-    (ROADMAP.md, Queue A).
+    Returns ``(out (B, 1, M), cache)``; the pools and caches are updated
+    in place.
     """
     B = x.shape[0]
     dt = x.dtype
@@ -190,19 +202,30 @@ def attention_decode(
         out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
                                    cache["len"], impl=impl)
         return _out_proj(out, p["wo"].to(dt))[:, None], cache
-    if block_table is None:
-        raise NotImplementedError(
-            "the rolling and contiguous decode caches are not ported yet "
-            "(ROADMAP.md, Queue A)")
     q, k_new, v_new = _project_qkv(p, x, cfg)
     pos = lengths[:, None]
     q1 = apply_rope(q, pos, cfg.rope_theta)[:, 0]  # (B, H, D)
     k1 = apply_rope(k_new, pos, cfg.rope_theta)[:, 0]  # (B, Hkv, D)
     v1 = v_new[:, 0]
+    rows = torch.arange(B, device=x.device)
+
+    if block_table is None:
+        k_c, v_c = cache["k"], cache["v"]
+        W = cfg.sliding_window
+        if W and k_c.shape[1] == W:  # the ring
+            slot = (lengths % W).long()
+            valid = torch.clamp(lengths + 1, max=W)
+            q1 = q_rolling(q1, cfg)
+        else:  # contiguous
+            slot = lengths.long()
+            valid = lengths + 1
+        k_c.index_put_((rows, slot), k1.to(k_c.dtype))
+        v_c.index_put_((rows, slot), v1.to(v_c.dtype))
+        out = ops.decode_attention(q1, k_c, v_c, valid, impl=impl)
+        return _out_proj(out, p["wo"].to(dt))[:, None], cache
 
     kp, vp = cache["k_pool"], cache["v_pool"]
     n_slots, n_pool, block, Hkv, D = kp.shape
-    rows = torch.arange(B, device=x.device)
     page = block_table[rows, (lengths // block).long()].long()
     offs = (lengths % block).long()
     if global_pages:
@@ -270,6 +293,13 @@ def attention_chunk(
     return out, cache
 
 
+def q_rolling(q1: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Rolling caches lose absolute slot order; attention over a ring is
+    order-invariant under softmax (positions already baked into k via
+    RoPE), so q passes through unchanged."""
+    return q1
+
+
 # ---------------------------------------------------------------------------
 # Dense MLP (SwiGLU)
 # ---------------------------------------------------------------------------
@@ -292,6 +322,92 @@ def apply_mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     g = torch.matmul(x, p["wi_gate"].to(dt))
     u = torch.matmul(x, p["wi_up"].to(dt))
     return torch.matmul(F.silu(g) * u, p["wo"].to(dt))
+
+
+# ---------------------------------------------------------------------------
+# MoE (top-k, capacity-bounded per-row scatter dispatch)
+# ---------------------------------------------------------------------------
+def moe_specs(cfg: ModelConfig, layers: int) -> Dict[str, ParamSpec]:
+    M, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+    lead = (layers,) if layers else ()
+    la = ("layers",) if layers else ()
+    return {
+        "router": ParamSpec(lead + (M, E), la + ("embed", None),
+                            init="scaled"),
+        "wi_gate": ParamSpec(lead + (E, M, Fd),
+                             la + ("experts", "embed", "mlp"), init="scaled"),
+        "wi_up": ParamSpec(lead + (E, M, Fd),
+                           la + ("experts", "embed", "mlp"), init="scaled"),
+        "wo": ParamSpec(lead + (E, Fd, M),
+                        la + ("experts", "mlp", "embed"), init="scaled"),
+    }
+
+
+def moe_route(p, x: torch.Tensor, cfg: ModelConfig):
+    """The router: ``(gate_w, ids)``, each (B, S, k), for the top
+    ``experts_per_token`` experts of each token by the f32 softmax of its
+    router logits; ``gate_w`` renormalised to sum 1 in f32.  The order
+    is ``jax.lax.top_k``'s: descending, the lower expert index first on a
+    tie (a stable descending sort; ``torch.topk`` promises no order, and
+    bf16 logits tie often enough to matter at the k-th place)."""
+    k = cfg.experts_per_token
+    logits = torch.matmul(x, p["router"].to(x.dtype))
+    probs = torch.softmax(logits.float(), dim=-1)
+    gate_w, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate_w, ids = gate_w[..., :k], ids[..., :k]
+    return gate_w / torch.clamp(gate_w.sum(-1, keepdim=True), min=1e-9), ids
+
+
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Top-k MoE with a capacity-bounded dispatch per batch row, as the
+    JAX package's ``apply_moe``: each row's (token, expert) pairs are
+    sorted by expert (a stable sort, so tokens keep their order within an
+    expert), each expert takes the first ``C = min(max(int(cf * S * k /
+    E), k), S * k)`` of its pairs and the rest fall into an overflow slot
+    ``C`` that is dropped.  The experts' SwiGLU runs as batched products
+    of each expert over its slots; each pair's output, times its gate
+    weight (cast to the compute dtype), is added back to its token."""
+    B, S, M = x.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    C = min(max(int(cfg.moe_capacity_factor * S * k / E), k), S * k)
+    dt, dev = x.dtype, x.device
+    gate_w, ids = moe_route(p, x, cfg)
+
+    flat_ids = ids.reshape(B, S * k)
+    order = torch.argsort(flat_ids, dim=-1, stable=True)
+    sorted_ids = flat_ids.gather(-1, order)
+    sorted_tok = torch.arange(S, device=dev).repeat_interleave(k)[order]
+    sorted_w = gate_w.reshape(B, S * k).gather(-1, order)
+    counts = torch.zeros((B, E), dtype=torch.long, device=dev)
+    counts.scatter_add_(1, flat_ids, torch.ones_like(flat_ids))
+    starts = torch.cumsum(counts, -1) - counts
+    pos = (torch.arange(S * k, device=dev)[None]
+           - starts.gather(-1, sorted_ids))
+    valid = pos < C
+    pos_c = torch.where(valid, pos, torch.full_like(pos, C))  # overflow slot
+
+    # each expert's buffer holds C + 1 slots a batch row, the last the
+    # overflow slot; the products run over all of them (one batched
+    # product an expert, its weights read once) and the overflow slots'
+    # outputs are zeroed, as the JAX package pads them with zeros
+    b_ix = torch.arange(B, device=dev)[:, None]
+    slot = b_ix * (C + 1) + pos_c  # (B, S * k)
+    buf = torch.zeros((E, B * (C + 1), M), dtype=dt, device=dev)
+    buf[sorted_ids, slot] = x[b_ix, sorted_tok]
+    h = F.silu(torch.bmm(buf, p["wi_gate"].to(dt)))  # (E, B * (C+1), F)
+    h.mul_(torch.bmm(buf, p["wi_up"].to(dt)))
+    del buf
+    y = torch.bmm(h, p["wo"].to(dt))  # (E, B * (C + 1), M)
+    del h
+    y.view(E, B, C + 1, M)[:, :, C] = 0
+    contrib = y[sorted_ids, slot] * (
+        sorted_w * valid.float()).to(dt)[..., None]
+    # a token takes k contributions onto zero: with k = 2 the sum is one
+    # rounding whatever the order
+    out = torch.zeros((B * S, M), dtype=dt, device=dev)
+    out.index_add_(0, (b_ix * S + sorted_tok).reshape(-1),
+                   contrib.reshape(-1, M))
+    return out.view(B, S, M)
 
 
 # ---------------------------------------------------------------------------

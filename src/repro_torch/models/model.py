@@ -1,13 +1,13 @@
 """Model facade: one object per architecture config, bound to a device.
 
 Mirrors the JAX package's ``repro/models/model.py`` for the ported
-paths: params, the decode cache (paged for the dense family, state and
-conv tails for the SSM family, both for the hybrid — every Mamba2
-layer's state and one paged pool per application of its shared
-attention block — and paged self-attention pools and a fixed
-cross-attention cache for the encoder-decoder), the whole-prompt prefill
-(SSM, hybrid, encoder-decoder), one prefill chunk (dense) and one decode
-step.
+paths: params, the decode cache (paged for the dense family, a rolling
+sliding-window ring for mixtral's MoE, state and conv tails for the SSM
+family, both for the hybrid — every Mamba2 layer's state and one paged
+pool per application of its shared attention block — and paged
+self-attention pools and a fixed cross-attention cache for the
+encoder-decoder), the whole-prompt prefill (every ported family), one
+prefill chunk (dense) and one decode step.
 The model lives on the card unless the caller asks for the CPU.
 """
 
@@ -83,11 +83,15 @@ class Model:
         batch, n_pool, BLOCK_SIZE, Hkv, D)}; a prefill cache loads into
         it as the JAX package's ``tests/test_arch_smoke.py`` loads one
         (the Mamba2 caches cast to f32, each application's K/V paged into
-        the slot's pages)."""
+        the slot's pages).  The rolling layout's is {"layers": {"k", "v"}}
+        of shape (L, batch, min(window, seq_len), Hkv, D); a prefill's
+        last W positions load into it with position p in row p % W."""
         return init_params(self.cache_specs(shape, pool_slack), 0,
                            self.device)
 
     def uses_block_table(self) -> bool:
+        """Whether ``decode_step`` reads a block table: paged layouts,
+        not the rolling one."""
         layout = T.cache_layout(self.cfg)
         return layout in ("paged", "hybrid") or self.cfg.is_encdec
 
@@ -95,8 +99,8 @@ class Model:
     # Forward entry points
     # ------------------------------------------------------------------
     def prefill(self, params, batch, *, impl: Optional[str] = None):
-        """Whole-prompt prefill (SSM, hybrid and encoder-decoder):
-        last-position logits and the per-layer cache (see
+        """Whole-prompt prefill (every ported family): last-position
+        logits and the per-layer cache (see
         :func:`repro_torch.models.transformer.forward_prefill`).
         ``impl="plain"`` runs the plain versions in place of the kernels
         (comparison only)."""
@@ -123,7 +127,8 @@ class Model:
         global page ids (the serving engine's mode); the default is the
         JAX package's, page ids inside each row's own pool.  The SSM
         family needs only ``batch["tokens"]``; the hybrid also its
-        lengths and block table, for the shared block's pools."""
+        lengths and block table, for the shared block's pools; the
+        rolling layout its tokens and lengths (no table)."""
         return T.decode_step(params, cache, batch, self.cfg, n_kv=n_kv,
                              global_pages=global_pages, impl=impl)
 

@@ -1,14 +1,15 @@
-"""Model stacks of the ported paths: the dense model on the paged KV
-cache (the serving path), the Mamba2 SSM stack, the Zamba2-style hybrid
+"""Model stacks of the ported paths: the decoder-only stack (dense, on
+the paged KV cache of the serving path; MoE, mixtral's on a rolling
+sliding-window cache), the Mamba2 SSM stack, the Zamba2-style hybrid
 (groups of Mamba2 layers, each followed by one shared attention block),
 and the encoder-decoder (an encoder over frame embeddings, a decoder
 with self- and cross-attention).
 
 Mirrors the main-path parts of the JAX package's
 ``repro/models/transformer.py``: the param and cache spec trees, the
-whole-prompt prefill of the SSM, hybrid and encoder-decoder families,
-one chunk of a chunked prefill (dense), and the decode step (dense, SSM,
-hybrid and encoder-decoder).  Layer params and caches are stacked over a leading
+whole-prompt prefill of every ported family, one chunk of a chunked
+prefill (dense), and the decode step (dense, MoE, SSM, hybrid and
+encoder-decoder).  Layer params and caches are stacked over a leading
 ``layers`` axis, as there; JAX's ``lax.scan`` over that axis is a Python
 loop here.  The decode and chunk steps update
 the cache in place and return the same cache dict.
@@ -37,19 +38,23 @@ TP_WIDTH = 16
 # Param specs
 # ---------------------------------------------------------------------------
 def _decoder_layer_specs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
-    return {
+    specs = {
         "norm1": {"scale": ParamSpec((n, cfg.d_model), ("layers", "embed"),
                                      init="ones")},
         "attn": L.attention_specs(cfg, n),
         "norm2": {"scale": ParamSpec((n, cfg.d_model), ("layers", "embed"),
                                      init="ones")},
-        "mlp": L.mlp_specs(cfg, n),
     }
+    if cfg.family == "moe":
+        specs["moe"] = L.moe_specs(cfg, n)
+    else:
+        specs["mlp"] = L.mlp_specs(cfg, n)
+    return specs
 
 
 def build_specs(cfg: ModelConfig) -> Dict[str, Any]:
     specs: Dict[str, Any] = {"embed": L.embed_specs(cfg)}
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         specs["layers"] = _decoder_layer_specs(cfg, cfg.num_layers)
     elif cfg.family == "ssm":
         specs["layers"] = {
@@ -164,12 +169,29 @@ def _paged_cache_specs(cfg: ModelConfig, n_layers: int, batch: int,
     }
 
 
+def _kv_cache_specs(cfg: ModelConfig, n_layers: int, batch: int,
+                    rows: int):
+    Hkv = cfg.num_kv_heads or cfg.num_heads
+    shape = (n_layers, batch, rows, Hkv, cfg.resolved_head_dim)
+    axes = ("layers", "batch", "window", "kv_heads", None)
+    dtype = getattr(torch, cfg.dtype)
+    return {"k": ParamSpec(shape, axes, dtype=dtype, init="zeros"),
+            "v": ParamSpec(shape, axes, dtype=dtype, init="zeros")}
+
+
 def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
                 enc_len: int = 0, pool_slack: int = 0) -> Dict[str, Any]:
     """ParamSpec tree of the decode cache of this architecture.
 
     SSM: the f32 state ``(L, batch, H, P, N)`` and the conv tails
     ``(L, batch, W - 1, C)`` of x, B and C (``max_seq`` plays no part).
+
+    Rolling (a config with ``sliding_window > 0``): ``{"k", "v"}`` of
+    shape ``(L, batch, W, Hkv, D)`` with ``W = min(sliding_window,
+    max_seq)``, in the compute dtype.  With ``W`` the window it is a ring
+    (position p in row ``p % W``); with ``max_seq`` under the window it is
+    a contiguous cache, which the window never cuts
+    (:func:`layers.attention_decode` tells the two apart by ``W``).
 
     Paged (dense): per-slot pools ``(L, batch, n_pool, BLOCK_SIZE, Hkv,
     D)`` in the compute dtype.  ``n_pool`` is ceil(max_seq / block) + 1 +
@@ -196,9 +218,9 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
             "attn": _paged_cache_specs(cfg, n_shared_attn(cfg), batch,
                                        max_seq, pool_slack),
         }
-    if layout != "paged":
-        raise NotImplementedError(
-            f"cache layout {layout!r} is not ported yet")
+    if layout == "rolling":
+        return {"layers": _kv_cache_specs(
+            cfg, cfg.num_layers, batch, min(cfg.sliding_window, max_seq))}
     if cfg.is_encdec:
         Hkv = cfg.num_kv_heads or cfg.num_heads
         D = cfg.resolved_head_dim
@@ -241,8 +263,34 @@ def _copy_into(dst, src) -> None:
 
 
 # ---------------------------------------------------------------------------
-# SSM stack and whole-prompt prefill
+# Whole-sequence stacks
 # ---------------------------------------------------------------------------
+def _mlp_or_moe(lp, x, cfg: ModelConfig):
+    """The feed-forward half of a decoder layer, after its attention."""
+    m_in = L.apply_norm(lp["norm2"], x, cfg)
+    if cfg.family == "moe":
+        return x + L.apply_moe(lp["moe"], m_in, cfg)
+    return x + L.apply_mlp(lp["mlp"], m_in, cfg)
+
+
+def run_decoder_stack(params, x, cfg: ModelConfig, *,
+                      impl: Optional[str] = None):
+    """Full-sequence pass over the stacked decoder layers (dense or MoE):
+    causal self-attention (the flash kernel, with the config's sliding
+    window) and the MLP or the MoE.  Returns (x, (K, V) stacked
+    ``(L, B, S, Hkv, D)``)."""
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        a_in = L.apply_norm(lp["norm1"], x, cfg)
+        a, (k, v) = L.attention_full(lp["attn"], a_in, cfg, causal=True,
+                                     impl=impl)
+        x = _mlp_or_moe(lp, x + a, cfg)
+        ks.append(k)
+        vs.append(v)
+    return x, (torch.stack(ks), torch.stack(vs))
+
+
 def _mamba_layer(params, i: int, x, cfg: ModelConfig, impl):
     """Mamba2 layer ``i`` over the whole sequence: (x, its cache)."""
     lp = _layer(params["layers"], i)
@@ -354,9 +402,10 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
     {"self_k", "self_v": (L, B, S, Hkv, D), "cross_k", "cross_v": (L, B,
     S_enc, Hkv, D)}.
 
+    Decoder-only (dense, MoE): ``batch`` as SSM; the cache is {"k",
+    "v": (L, B, S, Hkv, D)}, each layer's keys (after RoPE) and values.
+
     ``impl="plain"`` runs the plain kernels' versions (comparison only).
-    Whole-prompt prefill of the dense family (the legacy serving mode) is
-    not ported (ROADMAP.md, Queue A): the dense path prefills in chunks.
     """
     if cfg.is_encdec:
         enc = batch["enc_embeds"].to(getattr(torch, cfg.dtype))
@@ -374,9 +423,9 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
                                                emit_cache=True, impl=impl)
         cache = {"mamba": mcache, "attn_k": k, "attn_v": v}
     else:
-        raise NotImplementedError(
-            f"whole-prompt prefill of family {cfg.family!r} is not ported "
-            "yet (ROADMAP.md, Queue A); the dense path prefills in chunks")
+        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        x, (k, v) = run_decoder_stack(params, x, cfg, impl=impl)
+        cache = {"k": k, "v": v}
     x = L.apply_norm(params["final_norm"], x, cfg)
     last_index = batch.get("last_index")
     if last_index is None:
@@ -410,8 +459,13 @@ def prefill_chunk(params, cache, batch, cfg: ModelConfig, *,
     the slot-flattened pool; "slot" is then not read.  ``start``,
     ``slot`` and ``last_index`` are host integers: the host chose them,
     so the chunk lane never reads the device.  Returns (logits (1, V) at
-    ``last_index``, cache), the pools updated in place.
+    ``last_index``, cache), the pools updated in place.  The dense family
+    only: the MoE branch is not ported yet (ROADMAP.md, Queue A).
     """
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"chunked prefill of family {cfg.family!r} is not ported yet "
+            "(ROADMAP.md, Queue A)")
     slot = None if global_pages else int(batch["slot"])
     tokens = batch["tokens"]
     C = tokens.shape[1]
@@ -458,12 +512,16 @@ def decode_step(params, cache, batch, cfg: ModelConfig, *,
     """One token for every sequence in the batch against the cache.
 
     ``batch``: {"tokens": (B, 1) int32, "lengths": (B,) int32,
-                "block_table": (B, MB) int32 page ids}
+                "block_table": (B, MB) int32 page ids (paged layouts)}
     ``n_kv`` bounds the paged KV sweep.  ``global_pages``: block-table
     entries are slot-flattened global page ids (the serving engine's
     mode); by default they are page ids inside each row's own pool, as in
     the JAX package.  Returns (logits (B, V), cache), the pools updated
     in place.
+
+    Rolling layout (MoE or dense with a sliding window): no block table;
+    each layer writes the token's K/V into its ring (or contiguous cache)
+    and attends over it with the decode kernel, then runs its MLP or MoE.
 
     SSM layout: ``batch`` needs only "tokens"; each layer's state and
     conv tails are replaced in place by the step's new f32 values.
@@ -486,7 +544,7 @@ def decode_step(params, cache, batch, cfg: ModelConfig, *,
         x = L.apply_norm(params["final_norm"], x, cfg)
         return L.unembed(params["embed"], x[:, 0], cfg), cache
     lengths = batch["lengths"]
-    block_table = batch["block_table"]
+    block_table = batch.get("block_table")
     paged = dict(block_table=block_table, n_kv=n_kv,
                  global_pages=global_pages, impl=impl)
     if layout == "hybrid":
@@ -522,8 +580,6 @@ def decode_step(params, cache, batch, cfg: ModelConfig, *,
             a_in = L.apply_norm(lp["norm1"], x, cfg)
             a, _ = L.attention_decode(lp["attn"], a_in, cfg, cl, lengths,
                                       **paged)
-            x = x + a
-            m_in = L.apply_norm(lp["norm2"], x, cfg)
-            x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
+            x = _mlp_or_moe(lp, x + a, cfg)
     x = L.apply_norm(params["final_norm"], x, cfg)
     return L.unembed(params["embed"], x[:, 0], cfg), cache

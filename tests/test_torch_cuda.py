@@ -9,7 +9,12 @@ for bit against the first version's digest), and
 a full-width seamless-m4t-medium decoder layer through the flash, paged
 (per-slot) and contiguous decode kernels against the plain versions, a
 full-width zamba2-7b Mamba2 layer and shared-attention application (the
-SSD kernel, flash at head dim 112, per-slot paged) against them, the
+SSD kernel, flash at head dim 112, per-slot paged) against them, the flash
+kernel with a sliding window (small windows that cut tiles mid-tile,
+mixtral's 4096, a window past the keys bit for bit against none), a
+full-width mixtral-8x7b layer's attention (windowed flash, one decode
+step on a wrapped ring through the decode kernel) against the plain
+path, the
 block-gather kernel against ``pool[idx]`` (bit-exact), the sampling
 uniforms on the card against their numpy twin (bit-exact), and a sampled
 fork engine on the card against the same engine on the CPU.
@@ -327,6 +332,108 @@ def test_flash_kernel_any_head_dim_peaked_softmax(card, dtype, D, B, S_q,
                                                   q_offset):
     _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal, q_offset,
                 q_scale=PEAKED_Q)
+
+
+def _window_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal, q_offset,
+                 window):
+    """The kernel with a sliding window against the plain version, on q
+    scaled up (a peaked softmax) and V rows that mark their position in
+    column 0, so that the weight of a window's edge key shows; the plan
+    is returned."""
+    g = torch.Generator(device=card).manual_seed(S_q + S_kv + D + window)
+    q = torch.randn((B, S_q, H, D), generator=g, device=card) * 3.0
+    k = torch.randn((B, S_kv, Hkv, D), generator=g, device=card)
+    v = torch.randn((B, S_kv, Hkv, D), generator=g, device=card)
+    v[..., 0] = (torch.arange(S_kv, device=card) / S_kv)[None, :, None]
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = flash_attention_kernel.launches
+    got = ops.flash_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention_kernel.launches == before + 1
+    want = ref.flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
+    _close_rows(got, want, dtype)
+    return plan_splits(B, S_q, H, S_kv, q_offset=q_offset, causal=causal,
+                       window=window, head_dim=D)
+
+
+# (B, S_q, S_kv, H, Hkv, D, causal, q_offset, plan kind): plan kinds are
+# "split" (64-key tiles across blocks), "one" (one warpgroup, unsplit)
+# and "two" (two warpgroups over 128-key tiles)
+WINDOW_SHAPES = [
+    (1, 128, 512, 4, 2, 32, True, 384, "split"),     # a chunk, D 32
+    (1, 128, 6144, 32, 8, 128, True, 6016, "split"),  # mixtral's last chunk
+    (8, 1024, 1024, 32, 8, 128, True, 0, "two"),     # D 128, unsplit
+    (1, 1024, 1024, 16, 16, 64, True, 0, "one"),
+    (2, 200, 1000, 14, 2, 64, True, 800, "split"),   # ragged S_q, S_kv
+    (2, 128, 1024, 16, 16, 64, False, 0, "split"),   # without causal mask
+    (2, 96, 100, 4, 2, 64, True, 40, "split"),       # rows that see no key
+    (4, 1024, 1024, 32, 8, 128, True, 100, "two"),   # the same, unsplit
+    (1, 128, 1024, 14, 2, 112, True, 768, "split"),  # run-time D
+    (2, 1024, 1024, 16, 16, 112, True, 0, "one"),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [1, 40, 63, 100, 129])
+@pytest.mark.parametrize("B,S_q,S_kv,H,Hkv,D,causal,q_offset,kind",
+                         WINDOW_SHAPES)
+def test_flash_kernel_window_matches_plain(card, dtype, window, B, S_q, S_kv,
+                                           H, Hkv, D, causal, q_offset,
+                                           kind):
+    """Windows that cut key tiles mid-tile (1, 63, 100, 129 keys; 40 moves
+    the second warpgroup's first tile one past the first's), in every
+    form: f32, bf16 compiled (D 32/64/128) and run-time D (112), split and
+    unsplit, one and two warpgroups, with and without the causal mask,
+    and rows past S_kv + window - 1, which see no key and average every
+    key, as the Pallas body's do."""
+    plan = _window_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal,
+                        q_offset, window)
+    got = {(1, False): "one", (2, False): "two"}.get(
+        (plan.consumers, plan.splits > 1), "split")
+    assert got == kind
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S_q,S_kv,H,Hkv,D,causal,q_offset,kind",
+                         WINDOW_SHAPES[1:3])
+def test_flash_kernel_mixtral_window_matches_plain(card, dtype, B, S_q, S_kv,
+                                                   H, Hkv, D, causal,
+                                                   q_offset, kind):
+    """mixtral's window (4096) at its chunk shape and at 1024 tokens (the
+    window does not cut: every row sees all its keys)."""
+    _window_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal, q_offset,
+                 4096)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S_q,S_kv,H,Hkv,D,causal,q_offset",
+                         [(1, 128, 1024, 14, 2, 64, True, 768),
+                          (8, 1024, 1024, 32, 8, 128, True, 0),
+                          (2, 1024, 1024, 16, 16, 112, True, 0),
+                          (2, 128, 1024, 16, 16, 64, False, 0)])
+def test_flash_window_past_the_keys_is_bit_identical(card, dtype, B, S_q,
+                                                     S_kv, H, Hkv, D, causal,
+                                                     q_offset):
+    """A window of S_kv or more keys cuts nothing: the output equals the
+    window-0 call bit for bit (the same plan, tiles and mask paths)."""
+    g = torch.Generator(device=card).manual_seed(S_q + D)
+    q, k, v = (torch.randn((B, n, h, D), generator=g, device=card).to(dtype)
+               for n, h in ((S_q, H), (S_kv, Hkv), (S_kv, Hkv)))
+    want = flash_attention_kernel(q, k, v, causal=causal, q_offset=q_offset)
+    for window in (S_kv, S_kv + 1000):
+        got = flash_attention_kernel(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+        assert torch.equal(got, want)
+
+
+def test_flash_kernel_refuses_a_negative_window(card):
+    q = torch.zeros((1, 64, 2, 64), dtype=torch.bfloat16, device=card)
+    before = flash_attention_kernel.launches
+    with pytest.raises(ValueError, match="window"):
+        flash_attention_kernel(q, q, q, causal=True, window=-1)
+    assert flash_attention_kernel.launches == before
 
 
 @pytest.mark.parametrize("D", [100, 136, 4])
@@ -920,3 +1027,56 @@ def test_full_width_zamba2_layers_kernels_match_plain(card):
         assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
         if i >= 2:  # the attention outputs, row by row
             _close_rows(got, want, torch.bfloat16)
+
+
+def test_full_width_mixtral_layer_kernels_match_plain(card):
+    """One mixtral-8x7b layer's attention at full width (d_model 4096,
+    32/8 heads of 128, window 4096), bf16, on 2 x 4608 tokens (the window
+    cuts the last 512 rows): the windowed flash prefill, then one decode
+    step on the ring loaded from the prefill's last 4096 positions
+    (wrapped: position p in slot p % 4096) through the decode kernel,
+    each against the plain path on the same input, within 2e-2 of the
+    largest magnitude and row by row."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = ARCHS["mixtral-8x7b"].scaled(num_layers=1)
+    model = Model(cfg, device=card)
+    params = model.init_params(0)
+    M, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    attn = params["layers"]["attn"]
+    attn["wq"] = attn["wq"] * (H / M) ** 0.5
+    for name in ("wk", "wv"):
+        attn[name] = attn[name] * (Hkv / M) ** 0.5
+    attn["wo"] = attn["wo"] / H ** 0.5
+    params = model.compute_params(params)
+    lp = T._layer(params["layers"], 0)
+    S, W = 4608, cfg.sliding_window
+    g = torch.Generator(device=card).manual_seed(8)
+    xin = torch.randn((2, S, M), generator=g, device=card).to(torch.bfloat16)
+    counts = (flash_attention_kernel.launches,
+              decode_attention_kernel.launches)
+    outs = {}
+    for impl in (None, "plain"):
+        a, (k, v) = L.attention_full(lp["attn"], xin, cfg, causal=True,
+                                     impl=impl)
+        ring = {n: torch.zeros((2, W, Hkv, 128), dtype=torch.bfloat16,
+                               device=card) for n in ("k", "v")}
+        pos = torch.arange(S - W, S, device=card)
+        ring["k"][:, pos % W], ring["v"][:, pos % W] = k[:, S - W:], v[:,
+                                                                     S - W:]
+        lengths = torch.full((2,), S, dtype=torch.int32, device=card)
+        d, _ = L.attention_decode(lp["attn"], xin[:, -1:], cfg, ring,
+                                  lengths, impl=impl)
+        outs[impl] = (a, d)
+    torch.cuda.synchronize()
+    assert (flash_attention_kernel.launches,
+            decode_attention_kernel.launches) == (counts[0] + 1,
+                                                  counts[1] + 1)
+    for got, want in zip(outs[None], outs["plain"]):
+        assert got.dtype == want.dtype and got.shape == want.shape
+        scale = float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
+        _close_rows(got, want, torch.bfloat16)

@@ -163,16 +163,57 @@ def split_paged(q, k_pool, v_pool, table, lengths, plan, *, n_kv,
     return out
 
 
-def split_flash(q, k, v, plan, *, causal, q_offset, pdtype=torch.float32):
+def _first_key(lo, hi, window, S_kv):
+    """The kernel's ``first_key``: the window's lower edge for the row at
+    position ``lo``, or 0 without a window or where the row at ``hi``
+    sees no key at all."""
+    if window > 0 and hi - window + 1 < S_kv:
+        return max(0, lo - window + 1)
+    return 0
+
+
+def flash_split_ranges(plan, S_q, S_kv, *, causal, q_offset, window=0):
+    """The key tiles the bf16 flash kernel computes, as it picks them:
+    ``{(q0, s): (t0, t1)}`` for the warpgroup of ``fmod.ROWS`` query rows
+    at ``q0`` in split ``s``.  Splits count ``tiles_per_split`` tiles from
+    the launch's first key tile; a block of ``consumers`` warpgroups
+    starts at its first row's window edge, each warpgroup at its own
+    (both 0 where the block's last row sees no key), and each ends at its
+    causal horizon."""
+    KN, tps, R = plan.keys, plan.tiles_per_split, fmod.ROWS
+    t_base = _first_key(q_offset, q_offset + S_q - 1, window, S_kv) // KN
+    ranges = {}
+    for q0 in range(0, S_q, R * plan.consumers):
+        q_hi = q_offset + min(q0 + R * plan.consumers, S_q) - 1
+        n_tiles = -(-(min(S_kv, q_hi + 1) if causal else S_kv) // KN)
+        blk_first = _first_key(q_offset + q0, q_hi, window, S_kv) // KN
+        for qw0 in range(q0, min(q0 + R * plan.consumers, S_q), R):
+            wq_hi = q_offset + min(qw0 + R, S_q) - 1
+            wg_end = (-(-min(S_kv, wq_hi + 1) // KN) if causal
+                      else n_tiles)
+            wg_begin = _first_key(q_offset + qw0, q_hi, window, S_kv) // KN
+            for s in range(plan.splits):
+                t_begin = max(blk_first, t_base + s * tps)
+                t_end = min(n_tiles, t_base + (s + 1) * tps)
+                ranges[qw0, s] = (max(t_begin, wg_begin), min(t_end, wg_end))
+    return ranges
+
+
+def split_flash(q, k, v, plan, *, causal, q_offset, window=0,
+                pdtype=torch.float32, ranges=None):
     """The bf16 flash kernel's arithmetic: q (B, S_q, H, D), k and v (B,
     S_kv, Hkv, D); ``plan`` from ``fmod.plan_splits``.  Per warpgroup of
-    ``fmod.ROWS`` query rows, the key tiles of each split up to the
-    warpgroup's causal horizon, with the kernel's masks."""
+    ``fmod.ROWS`` query rows, the key tiles of each split that
+    :func:`flash_split_ranges` gives it (or ``ranges``), with the
+    kernel's masks: keys past S_kv are not in a tile (the kernel scores
+    them -inf)."""
     B, S_q, H, D = q.shape
     S_kv, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
-    KN, tps = plan.keys, plan.tiles_per_split
-    R = fmod.ROWS
+    KN, R = plan.keys, fmod.ROWS
+    if ranges is None:
+        ranges = flash_split_ranges(plan, S_q, S_kv, causal=causal,
+                                    q_offset=q_offset, window=window)
     out = torch.zeros(B, S_q, H, D)
     for b in range(B):
         for h in range(H):
@@ -180,13 +221,9 @@ def split_flash(q, k, v, plan, *, causal, q_offset, pdtype=torch.float32):
             for q0 in range(0, S_q, R):
                 rows = torch.arange(q0, min(q0 + R, S_q))
                 q_pos = q_offset + rows
-                end = S_kv
-                if causal:
-                    end = min(S_kv, q_offset + min(q0 + R, S_q))
-                wg_tiles = -(-end // KN)
                 states = []
                 for s in range(plan.splits):
-                    t0, t1 = s * tps, min(wg_tiles, (s + 1) * tps)
+                    t0, t1 = ranges[q0, s]
                     tiles = []
                     for t in range(t0, t1):
                         pos = torch.arange(t * KN, min((t + 1) * KN, S_kv))
@@ -194,6 +231,9 @@ def split_flash(q, k, v, plan, *, causal, q_offset, pdtype=torch.float32):
                                           dtype=torch.bool)
                         if causal:
                             mask = pos[None, :] <= q_pos[:, None]
+                        if window:
+                            mask = mask & (pos[None, :]
+                                           > q_pos[:, None] - window)
                         tiles.append((k[b, pos, hk], v[b, pos, hk], mask))
                     states.append(_split_state(q[b, rows, h], tiles, pdtype))
                 out[b, rows, h] = _combine(states)
@@ -399,6 +439,147 @@ def test_split_flash_ragged_matches_jax_ref(S_q, S_kv, q_offset, causal):
 
 
 # ---------------------------------------------------------------------------
+# flash with a sliding window
+# ---------------------------------------------------------------------------
+def _window_inputs(seed, B, S_q, S_kv, H, Hkv, D):
+    """q scaled up (a peaked softmax) and V rows that mark their position
+    in column 0, so that the weight of a window's edge key shows."""
+    rs = np.random.RandomState(seed)
+    q = _rand(rs, (B, S_q, H, D), 3.0)
+    k = _rand(rs, (B, S_kv, Hkv, D), 1.0)
+    v = _rand(rs, (B, S_kv, Hkv, D), 1.0)
+    v[..., 0] = np.arange(S_kv)[None, :, None] / S_kv
+    return q, k, v
+
+
+def _assert_splits_inside(plan, S_q, S_kv, q_offset, causal, window):
+    """Every split of the launch holds a key tile inside the keys the
+    chunk sees, ``[kv_begin, kv_end)``."""
+    kv_begin, kv_end = fmod.key_range(S_q, S_kv, q_offset=q_offset,
+                                      causal=causal, window=window)
+    lo, hi = kv_begin // plan.keys, -(-kv_end // plan.keys)
+    for s in range(plan.splits):
+        t0 = lo + s * plan.tiles_per_split
+        assert lo <= t0 < hi, (s, t0, lo, hi)
+
+
+# (S_q, S_kv, q_offset, window): a causal chunk of 128 rows over 512 keys
+# at windows that cut 64-key tiles mid-tile (1, 63, 100, 129) or hold the
+# whole chunk (1000), split across blocks; multiples of 128 for the Pallas
+# body's blocks
+WINDOW_CHUNKS = [(128, 512, 384, 1), (128, 512, 384, 63),
+                 (128, 512, 384, 100), (128, 512, 384, 129),
+                 (128, 512, 384, 1000), (128, 512, 0, 100),
+                 (256, 256, 0, 129)]
+
+
+WINDOW_SHAPE = dict(B=1, H=4, Hkv=2, D=32)
+
+
+@functools.lru_cache(maxsize=None)
+def _window_chunk(S_q, S_kv, q_offset, window):
+    """A WINDOW_CHUNKS case's inputs, its plan and the Pallas body's
+    output on them (interpret mode), computed once for the parity test
+    and the planted-fault test."""
+    B, H, Hkv, D = (WINDOW_SHAPE[n] for n in ("B", "H", "Hkv", "D"))
+    q, k, v = _window_inputs(window, B, S_q, S_kv, H, Hkv, D)
+    plan = fmod.plan_splits(B, S_q, H, S_kv, q_offset=q_offset, causal=True,
+                            window=window, head_dim=D)
+    want = np.array(flash_attention_pallas(
+        *map(jnp.asarray, (q, k, v)), causal=True, window=window,
+        q_offset=q_offset, interpret=True))
+    return (q, k, v), plan, want
+
+
+@pytest.mark.parametrize("S_q,S_kv,q_offset,window", WINDOW_CHUNKS)
+def test_split_flash_window_matches_pallas(S_q, S_kv, q_offset, window):
+    qkv, plan, want = _window_chunk(S_q, S_kv, q_offset, window)
+    assert plan.splits > 1
+    _assert_splits_inside(plan, S_q, S_kv, q_offset, True, window)
+    got = split_flash(*map(torch.from_numpy, qkv), plan, causal=True,
+                      q_offset=q_offset, window=window)
+    np.testing.assert_allclose(got.numpy(), want, **F32_TOL)
+
+
+@pytest.mark.parametrize(
+    "B,S_q,S_kv,H,q_offset,window,causal",
+    [(1, 4224, 4224, 4, 0, 40, True),    # two warpgroups, 128-key tiles
+     (1, 4224, 4224, 4, 0, 129, True),
+     (1, 128, 6144, 32, 6016, 4096, True),  # mixtral's last chunk
+     (2, 200, 1000, 4, 800, 77, True),   # ragged S_q / S_kv
+     (2, 96, 300, 4, 0, 50, False),      # a window without the causal mask
+     (2, 96, 100, 4, 40, 16, True)],     # rows that see no key: every key
+)
+def test_split_flash_window_matches_jax_ref(B, S_q, S_kv, H, q_offset,
+                                           window, causal):
+    """Windowed plans the Pallas body's block sizes do not reach, against
+    the JAX oracle: two consumer warpgroups whose first key tiles differ,
+    mixtral's split chunk, ragged sizes, a window without the causal
+    mask, and rows past S_kv + window - 1, which see no key and average
+    every key (so those blocks read every tile)."""
+    Hkv, D = 2, 32
+    q, k, v = _window_inputs(S_q + window, B, S_q, S_kv, H, Hkv, D)
+    plan = fmod.plan_splits(B, S_q, H, S_kv, q_offset=q_offset,
+                            causal=causal, window=window, head_dim=D)
+    _assert_splits_inside(plan, S_q, S_kv, q_offset, causal, window)
+    if S_q == 4224:
+        assert plan.consumers == 2 and plan.splits == 1
+        ranges = flash_split_ranges(plan, S_q, S_kv, causal=causal,
+                                    q_offset=q_offset, window=window)
+        # at window 40 the second warpgroup of every block but the first
+        # starts a tile after the first warpgroup (at 129, on the same one)
+        shifted = sum(ranges[q0 + 64, 0][0] == ranges[q0, 0][0] + 1
+                      for q0 in range(0, S_q, 128))
+        assert shifted == (S_q // 128 - 1 if window == 40 else 0)
+    if S_kv == 6144:  # only the window's keys are split: 66 tiles, 3 ways
+        assert (plan.splits, plan.tiles_per_split) == (3, 22)
+    got = split_flash(*map(torch.from_numpy, (q, k, v)), plan,
+                      causal=causal, q_offset=q_offset, window=window)
+    want = jref.flash_attention(*map(jnp.asarray, (q, k, v)), causal=causal,
+                                window=window, q_offset=q_offset)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32_TOL)
+
+
+def _planted(fault, plan, S_q, S_kv, q_offset, window):
+    """The kernel's split ranges and window with one fault planted: the
+    edge kept with ``>=`` (window + 1 keys), the last split dropped, or
+    each block's first key tile one tile late."""
+    ranges = flash_split_ranges(plan, S_q, S_kv, causal=True,
+                                q_offset=q_offset, window=window)
+    if fault == "edge":
+        return ranges, window + 1
+    if fault == "split":
+        last = plan.splits - 1
+        return {key: ((0, 0) if key[1] == last else r)
+                for key, r in ranges.items()}, window
+    first = {}
+    for (q0, s), (t0, t1) in ranges.items():
+        first[q0] = min(first.get(q0, t0), t0)
+    return {(q0, s): (max(t0, first[q0] + 1), t1)
+            for (q0, s), (t0, t1) in ranges.items()}, window
+
+
+@pytest.mark.parametrize("fault", ["edge", "split", "kv_begin"])
+def test_window_parity_catches_planted_faults(fault):
+    """The window cases of the card tests and the smoke (small windows
+    that cut tiles mid-tile, peaked q, position-marking V) have power: the
+    kernel's arithmetic with a fault planted misses the Pallas body by
+    far more than the f32 tolerance, and in bf16 terms by more than the
+    row-relative 2e-2, in at least one case."""
+    worst = 0.0
+    for S_q, S_kv, q_offset, window in WINDOW_CHUNKS[:4]:
+        qkv, plan, want = _window_chunk(S_q, S_kv, q_offset, window)
+        ranges, w = _planted(fault, plan, S_q, S_kv, q_offset, window)
+        got = split_flash(*map(torch.from_numpy, qkv), plan, causal=True,
+                          q_offset=q_offset, window=w, ranges=ranges)
+        want = torch.from_numpy(want)
+        rel = ((got - want).abs().amax(-1)
+               / want.abs().amax(-1).clamp_min(1e-30)).max().item()
+        worst = max(worst, rel)
+    assert worst > 10 * 2e-2
+
+
+# ---------------------------------------------------------------------------
 # the planners
 # ---------------------------------------------------------------------------
 def _flash_live_blocks(B, S_q, H, S_kv, q_offset, causal, head_dim=64):
@@ -457,6 +638,33 @@ def test_flash_planner_runtime_d_form_at_zamba2_prefill(D):
     assert (plan.consumers, plan.keys, plan.splits) == (1, 64, 1)
     assert live >= fmod.SMS
     assert fmod.plan_splits(8, 1024, 32, 1024, head_dim=128).consumers == 2
+
+
+@pytest.mark.parametrize(
+    "B,S_q,H,S_kv,q_offset,window",
+    [(4, 6144, 32, 6144, 0, 4096), (1, 128, 32, 6144, 6016, 4096),
+     (1, 128, 4, 512, 384, 1), (1, 128, 4, 512, 384, 129),
+     (2, 200, 14, 1000, 800, 77), (1, 64, 2, 4096, 4032, 4096),
+     (2, 96, 4, 100, 40, 16)],
+)
+def test_flash_planner_covers_the_window_once(B, S_q, H, S_kv, q_offset,
+                                              window):
+    """With a window the splits cover the key tiles of ``[kv_begin,
+    kv_end)`` exactly once, counted from ``kv_begin``'s tile; at
+    mixtral's prefill (B 4, 6144 tokens, 32 heads) two warpgroups over
+    128-key tiles, one range of all 48 tiles."""
+    plan = fmod.plan_splits(B, S_q, H, S_kv, q_offset=q_offset, causal=True,
+                            window=window, head_dim=64)
+    kv_begin, kv_end = fmod.key_range(S_q, S_kv, q_offset=q_offset,
+                                      window=window)
+    lo, hi = kv_begin // plan.keys, -(-kv_end // plan.keys)
+    covered = [t for s in range(plan.splits)
+               for t in range(lo + s * plan.tiles_per_split,
+                              min(hi, lo + (s + 1) * plan.tiles_per_split))]
+    assert covered == list(range(lo, hi))
+    assert (plan.splits - 1) * plan.tiles_per_split < hi - lo
+    if S_q == 6144:
+        assert plan == fmod.FlashPlan(2, 128, 1, 48)
 
 
 def test_flash_planner_reaches_every_kernel_shape():
