@@ -12,7 +12,11 @@ random weights from a seed (mixtral over 6 of its 32 layers):
     requests (paged decode and flash prefill kernels, global page ids),
     then a sampled ``ServingEngine`` (temperature 0.8, top_p 0.9) with
     two best-of-4 fork groups, ``select_winner`` and a prefix-cache
-    replay, every page copy through the block-gather kernel;
+    replay, every page copy through the block-gather kernel; then the
+    same 8 requests by whole-prompt prefill (``chunk_tokens=0``), with
+    the speculative lane (``speculate_k=4``, a 12-layer draft), greedy
+    best-of-4 with the lane under stamp-it and lfrc, and under each of
+    the 13 reclamation policies;
   * mamba2-2.7b through ``Model.prefill`` (8 prompts of 1024 tokens, the
     SSD scan kernel) and 32 greedy ``Model.decode_step`` calls;
   * seamless-m4t-medium through ``Model.prefill`` (an encoder over 8 x
@@ -640,13 +644,18 @@ def prompts():
     return out
 
 
-def run_engine(torch, model, params, impl=None):
+def run_engine(torch, model, params, impl=None, max_new=32, unreclaimed=None,
+               **kw):
+    """The 8 requests through a ``ServingEngine`` (stamp-it, chunks of 128
+    unless ``kw`` says otherwise); ``unreclaimed`` collects the pool's
+    unreclaimed pages after every step."""
     from repro_torch.serving import ServingEngine
 
-    eng = ServingEngine(model, max_slots=8, max_seq=1024, policy="stamp-it",
+    kw = {"policy": "stamp-it", **kw}
+    eng = ServingEngine(model, max_slots=8, max_seq=1024,
                         prefix_cache_entries=16, params=params, impl=impl,
-                        device=model.device)
-    reqs = [eng.submit(p, max_new_tokens=32) for p in prompts()]
+                        device=model.device, **kw)
+    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts()]
     events = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -657,6 +666,8 @@ def run_engine(torch, model, params, impl=None):
         eng.step()
         e.record()
         events.append((s, e))
+        if unreclaimed is not None:
+            unreclaimed.append(eng.pool.unreclaimed())
         check(eng.steps < 2000, "engine did not converge")
     eng.drain()
     torch.cuda.synchronize()
@@ -665,15 +676,39 @@ def run_engine(torch, model, params, impl=None):
     return eng, reqs, wall, step_ms
 
 
+def _agreement(reqs, other) -> float:
+    """Share of generated tokens equal position by position."""
+    agree = sum(a == b for r, o in zip(reqs, other)
+                for a, b in zip(r.generated, o.generated))
+    return agree / sum(len(r.generated) for r in reqs)
+
+
+def _first_diffs(reqs, other) -> dict:
+    """Request index -> the first generated position where two runs
+    differ (requests that agree throughout are left out)."""
+    out = {}
+    for i, (r, o) in enumerate(zip(reqs, other)):
+        diff = [j for j, (a, b) in enumerate(zip(r.generated, o.generated))
+                if a != b]
+        if diff:
+            out[i] = diff[0]
+    return out
+
+
+def _reset(kernels):
+    for k in kernels:
+        k.launches = 0
+        if hasattr(k, "combine_launches"):
+            k.combine_launches = 0
+
+
 def phase_engine(torch, model, params):
     from repro_torch.kernels.flash_attention import flash_attention_kernel
     from repro_torch.kernels.paged_attention import paged_attention_kernel
 
     # warm-up pass (allocator, cuBLAS handles, kernel loads), not counted
     run_engine(torch, model, params)
-    for k in (paged_attention_kernel, flash_attention_kernel):
-        k.launches = 0
-        k.combine_launches = 0
+    _reset((paged_attention_kernel, flash_attention_kernel))
     eng, reqs, wall, step_ms = run_engine(torch, model, params)
     launches = {"paged_attention": paged_attention_kernel.launches,
                 "flash_attention": flash_attention_kernel.launches}
@@ -700,8 +735,6 @@ def phase_engine(torch, model, params):
     # the same requests through the plain attention: how many of the
     # greedy tokens agree (bf16 rounding may flip near-ties; reported)
     _, preqs, pwall, _ = run_engine(torch, model, params, impl="plain")
-    agree = sum(a == b for r, p in zip(reqs, preqs)
-                for a, b in zip(r.generated, p.generated))
     first_agree = sum(r.generated[0] == p.generated[0]
                       for r, p in zip(reqs, preqs))
     emit({"phase": "engine", "ok": True, "requests": len(reqs),
@@ -717,9 +750,12 @@ def phase_engine(torch, model, params):
                                       "pool_freed", "scan_steps",
                                       "prefix_hits", "prefix_misses")},
           "plain_wall_s": pwall, "plain_token_agreement":
-              agree / (32 * len(reqs)),
+              _agreement(reqs, preqs),
           "plain_first_token_agreement": first_agree / len(reqs)})
-    return launches, wall
+    base = {"reqs": reqs, "plain": preqs, "wall_s": wall,
+            "median_step_ms": statistics.median(step_ms),
+            "tokens_per_s": st["tokens_emitted"] / wall}
+    return launches, wall, base
 
 
 def phase_small_reference(torch):
@@ -1045,8 +1081,7 @@ def phase_fork_engine(torch, model, params):
     _, first, _, _ = run_fork_engine(torch, model, params)
     kernels = (block_gather_kernel, paged_attention_kernel,
                flash_attention_kernel)
-    for k in kernels:
-        k.launches = 0
+    _reset(kernels)
     sampler = []
     eng, groups, wall, step_ms = run_fork_engine(torch, model, params,
                                                  sampler_events=sampler)
@@ -1182,6 +1217,313 @@ def block_gather_table_rows(torch, launches, errs):
 # ---------------------------------------------------------------------------
 # the SSM path: mamba2-2.7b prefill (SSD scan kernel) and greedy decode
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# whole-prompt prefill, the speculative lane and the policy plane (qwen2)
+# ---------------------------------------------------------------------------
+#: whole-prompt prefill pads a prompt to a power of two of pages: at
+#: max_seq 1024 these are the buckets the engine can run
+PREFILL_BUCKETS = (128, 256, 512, 1024)
+#: speculative lane: k draft tokens a step, drafted by the first half of
+#: qwen2's layers
+SPEC_K, SPEC_DRAFT = 4, N_LAYERS // 2
+#: paged launches per speculative dispatch: k draft steps over the draft
+#: layers, k + 1 verify steps over every layer
+SPEC_PAGED_PER_DISPATCH = SPEC_K * SPEC_DRAFT + (SPEC_K + 1) * N_LAYERS
+#: the exact speculative check runs qwen2-0.5b at full width in f32 over
+#: this many layers
+SPEC_F32_LAYERS = 4
+#: the policy sweep's requests generate this many tokens each
+SWEEP_NEW = 16
+#: reclaim() calls a policy needs after drain() before it holds no page:
+#: epoch frees a page two epoch advances after its retire; every other
+#: policy holds none once drain() returns
+GRACE_RECLAIMS = {"epoch": 2}
+
+
+def phase_flash_prefill_parity(torch):
+    """The flash kernel at the whole-prompt shapes (B 1, S_q = S_kv = a
+    bucket, q_offset 0, causal, H 14/2, D 64) against its plain version."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
+
+    errs, rows = {}, []
+    for dname, S, qs in itertools.product(
+            ("float32", "bfloat16"), PREFILL_BUCKETS, (1.0, PEAKED_Q)):
+        if qs != 1.0 and S != PREFILL_BUCKETS[-1]:
+            continue
+        q, k, v = flash_inputs(torch, getattr(torch, dname), S, S_q=S,
+                               q_scale=qs)
+        got = flash_attention_kernel(q, k, v, causal=True, q_offset=0)
+        want = ref.flash_attention(q, k, v, causal=True, q_offset=0)
+        torch.cuda.synchronize()
+        case = attention_errs(got, want, dname, f"whole-prompt flash {S}")
+        plan = flash_plan(1, S, 14, S, q_offset=0, causal=True, head_dim=64)
+        rows.append({"dtype": dname, "case": f"S_q=S_kv={S} q_offset=0 "
+                     f"H=14 Hkv=2 D=64 q_scale={qs}",
+                     "plan": {"warpgroups": plan.consumers,
+                              "key_tile": plan.keys, "splits": plan.splits},
+                     **case})
+        key = ("flash_attention_whole_prompt", dname)
+        errs[key] = max(case["max_abs_err"], errs.get(key, 0.0))
+    emit({"phase": "flash_prefill_parity", "ok": True, "cases": rows})
+    return errs
+
+
+def phase_unchunked_engine(torch, model, params, base):
+    """The engine phase's requests admitted by whole-prompt prefill
+    (``chunk_tokens=0``): one flash launch a layer per admission."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    run_engine(torch, model, params, chunk_tokens=0)  # warm-up
+    _reset((paged_attention_kernel, flash_attention_kernel))
+    eng, reqs, wall, step_ms = run_engine(torch, model, params,
+                                          chunk_tokens=0)
+    launches = {"paged_attention": paged_attention_kernel.launches,
+                "flash_attention": flash_attention_kernel.launches}
+    st = eng.stats()
+    check(all(r.done and len(r.generated) == 32 for r in reqs),
+          "not every request finished with 32 tokens")
+    check(st["dispatches_per_step"] == 1, f"dispatches/step {st}")
+    check(st["prefill_chunks"] == 0 and st["prefix_hits"] == 0,
+          f"chunks {st['prefill_chunks']}, hits {st['prefix_hits']}")
+    check(launches["flash_attention"] == N_LAYERS * st["admissions"]
+          == N_LAYERS * st["admission_dispatches"] > 0,
+          f"flash launches {launches} vs {st['admissions']} admissions, "
+          f"{st['admission_dispatches']} admission dispatches")
+    check(launches["paged_attention"] == N_LAYERS * st["decode_dispatches"],
+          f"paged launches {launches} vs {st['decode_dispatches']}")
+    check(set(st["prefill_jit_shapes"]) <= set(PREFILL_BUCKETS),
+          f"prefill shapes {st['prefill_jit_shapes']}")
+    check(st["pool_unreclaimed"] == 0, "pages left unreclaimed")
+    _, preqs, pwall, _ = run_engine(torch, model, params, impl="plain",
+                                    chunk_tokens=0)
+    exact = _f32_exact(torch, "whole-prompt", chunk_tokens=0)
+    first = sum(r.generated[0] == b.generated[0]
+                for r, b in zip(reqs, base["reqs"])) / len(reqs)
+    emit({"phase": "unchunked_engine", "ok": True, "chunk_tokens": 0,
+          "wall_s": wall, "decode_tokens_per_s": st["tokens_emitted"] / wall,
+          "median_step_ms": statistics.median(step_ms),
+          "chunked_wall_s": base["wall_s"],
+          "chunked_median_step_ms": base["median_step_ms"],
+          "steps": st["steps"], "decode_dispatches": st["decode_dispatches"],
+          "admissions": st["admissions"],
+          "admission_dispatches": st["admission_dispatches"],
+          "prefill_jit_shapes": st["prefill_jit_shapes"],
+          "launches": launches,
+          "chunked_token_agreement": _agreement(reqs, base["reqs"]),
+          "chunked_first_token_agreement": first,
+          "chunked_first_diffs": _first_diffs(reqs, base["reqs"]),
+          "plain_token_agreement": _agreement(reqs, preqs),
+          "f32_exact": exact,
+          "plain_wall_s": pwall,
+          "pool": {k: st[k] for k in ("free_pages", "pool_unreclaimed",
+                                      "pool_freed", "scan_steps")}})
+    return launches, st["admissions"]
+
+
+def _f32_exact(torch, what, **kw):
+    """qwen2-0.5b at full width in f32 over SPEC_F32_LAYERS layers: the
+    engine with ``kw`` against the chunked, non-speculative engine, token
+    for token (bf16 at full depth flips near-ties between any two
+    computations; f32 holds them)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import Model
+
+    model = Model(ARCHS["qwen2-0.5b"].scaled(num_layers=SPEC_F32_LAYERS,
+                                             dtype="float32"))
+    params = conditioned(model, model.init_params(seed=0))
+    toks = {}
+    for name, args in (("base", {}), ("mode", kw)):
+        eng, reqs, _, _ = run_engine(torch, model, params, **args)
+        toks[name] = [r.generated for r in reqs]
+    check(toks["mode"] == toks["base"],
+          f"f32 {what} tokens differ from the chunked engine's")
+    out = {"layers": SPEC_F32_LAYERS, "tokens": sum(map(len, toks["base"])),
+           "identical": True}
+    if kw.get("speculate_k"):
+        out.update(draft_layers=eng.draft_layers,
+                   spec_acceptance=eng.stats()["spec_acceptance"])
+    del model, params, eng
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_spec_engine(torch, model, params, base):
+    """The engine phase's requests with the speculative lane (k 4, draft
+    over the first 12 layers) in the same fused step."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    run_engine(torch, model, params, speculate_k=SPEC_K)  # warm-up
+    _reset((paged_attention_kernel, flash_attention_kernel))
+    eng, reqs, wall, step_ms = run_engine(torch, model, params,
+                                          speculate_k=SPEC_K)
+    launches = {"paged_attention": paged_attention_kernel.launches,
+                "flash_attention": flash_attention_kernel.launches}
+    st = eng.stats()
+    check(eng.draft_layers == SPEC_DRAFT, f"draft layers {eng.draft_layers}")
+    check(all(r.done and len(r.generated) == 32 for r in reqs),
+          "not every request finished with 32 tokens")
+    check(st["dispatches_per_step"] == 1, f"dispatches/step {st}")
+    check(launches["paged_attention"]
+          == SPEC_PAGED_PER_DISPATCH * st["decode_dispatches"],
+          f"paged launches {launches} vs {SPEC_PAGED_PER_DISPATCH} x "
+          f"{st['decode_dispatches']}")
+    check(launches["flash_attention"] == N_LAYERS * st["prefill_chunks"],
+          f"flash launches {launches} vs {st['prefill_chunks']}")
+    check(st["spec_drafted"] > 0, "no draft token was offered")
+    check(st["pool_unreclaimed"] == 0, "pages left unreclaimed")
+    exact = _f32_exact(torch, "speculative", speculate_k=SPEC_K)
+    emit({"phase": "spec_engine", "ok": True, "speculate_k": SPEC_K,
+          "draft_layers": SPEC_DRAFT,
+          "spec_acceptance": st["spec_acceptance"],
+          "spec_drafted": st["spec_drafted"],
+          "spec_accepted": st["spec_accepted"],
+          "tokens_per_dispatch": st["tokens_per_dispatch"],
+          "wall_s": wall, "decode_tokens_per_s": st["tokens_emitted"] / wall,
+          "median_step_ms": statistics.median(step_ms),
+          "engine_wall_s": base["wall_s"],
+          "engine_decode_tokens_per_s": base["tokens_per_s"],
+          "engine_median_step_ms": base["median_step_ms"],
+          "steps": st["steps"], "decode_dispatches": st["decode_dispatches"],
+          "launches": launches,
+          "paged_launches_per_dispatch": SPEC_PAGED_PER_DISPATCH,
+          "engine_token_agreement_bf16": _agreement(reqs, base["reqs"]),
+          "engine_first_diffs_bf16": _first_diffs(reqs, base["reqs"]),
+          "f32_exact": exact})
+
+
+def phase_spec_fork_engine(torch, model, params):
+    """Greedy best-of-4 over the 900- and 333-token prompts with the
+    speculative lane, under the serving bench's CoW policies."""
+    from repro_torch.kernels.block_gather import block_gather_kernel
+    from repro_torch.serving import ServingEngine
+
+    p900, p333, _ = fork_prompts()
+    out, tokens = {}, {}
+    for policy in ("stamp-it", "lfrc"):
+        _reset((block_gather_kernel,))
+        eng = ServingEngine(model, max_slots=8, max_seq=1024, policy=policy,
+                            prefix_cache_entries=16, params=params,
+                            device=model.device, speculate_k=SPEC_K)
+        groups = [eng.fork_submit(p, 4, max_new_tokens=32)
+                  for p in (p900, p333)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.run_until_done()
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = eng.stats()
+        gathers = block_gather_kernel.launches
+        toks = [[r.generated for r in g.branches] for g in groups]
+        check(all(len(t) == 32 for g in toks for t in g),
+              f"{policy}: a branch did not end with 32 tokens")
+        check(all(g[0] == t for g in toks for t in g),
+              f"{policy}: greedy branches of one prompt differ")
+        check(gathers > 0 and st["cow_copies"] == 6
+              and st["fork_admissions"] == 6,
+              f"{policy}: gathers {gathers}, {st['cow_copies']} copies, "
+              f"{st['fork_admissions']} fork admissions")
+        check(st["forks_taken"] == st["forks_released"] > 0,
+              f"{policy}: forks {st['forks_taken']} taken, "
+              f"{st['forks_released']} released")
+        check(eng.pool.unreclaimed() == 0,
+              f"{policy}: {eng.pool.unreclaimed()} pages unreclaimed")
+        check(st["dispatches_per_step"] == 1, f"dispatches/step {st}")
+        tokens[policy] = toks
+        out[policy] = {"wall_s": wall, "steps": st["steps"],
+                       "block_gather_launches": gathers,
+                       "spec_acceptance": st["spec_acceptance"],
+                       **{k: st[k] for k in (
+                           "cow_copies", "fork_admissions", "forks_taken",
+                           "forks_released", "pool_freed",
+                           "pool_unreclaimed", "scan_steps")}}
+    check(tokens["stamp-it"] == tokens["lfrc"],
+          "the policy changed the tokens")
+    emit({"phase": "spec_fork_engine", "ok": True, "speculate_k": SPEC_K,
+          "best_of_4_prompt_lens": list(FORK_PROMPTS), "policies": out})
+
+
+def phase_policy_sweep(torch, model, params):
+    """The engine phase's requests under each of the 13 policies: the
+    tokens do not depend on the policy, and every page comes back."""
+    from repro_torch.memory import POLICIES
+
+    t_sweep = time.perf_counter()
+    rows, tokens = {}, {}
+    for policy in POLICIES:
+        seen = []
+        eng, reqs, wall, step_ms = run_engine(
+            torch, model, params, max_new=SWEEP_NEW, policy=policy,
+            unreclaimed=seen)
+        st = eng.stats()
+        for _ in range(GRACE_RECLAIMS.get(policy, 0)):
+            eng.pool.reclaim()
+        left = eng.pool.unreclaimed()
+        check(all(r.done and len(r.generated) == SWEEP_NEW for r in reqs),
+              f"{policy}: a request did not finish")
+        check(left == 0, f"{policy}: {left} pages unreclaimed after grace")
+        tokens[policy] = [r.generated for r in reqs]
+        rows[policy] = {"wall_s": wall, "steps": st["steps"],
+                        "median_step_ms": statistics.median(step_ms),
+                        "pool_freed": st["pool_freed"],
+                        "scan_steps": st["scan_steps"],
+                        "unreclaimed_after_drain": st["pool_unreclaimed"],
+                        "peak_unreclaimed": max(seen)}
+    first = tokens["stamp-it"]
+    differ = [p for p, t in tokens.items() if t != first]
+    check(not differ, f"tokens differ from stamp-it's under {differ}")
+    emit({"phase": "policy_sweep", "ok": True, "max_new_tokens": SWEEP_NEW,
+          "policies": rows, "seconds": time.perf_counter() - t_sweep})
+
+
+def whole_prompt_flash_row(torch, launches, admissions, errs):
+    """The flash kernel at the whole-prompt bucket S 1024 (B 1, causal,
+    q_offset 0), bf16: kernel, plain and SDPA beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
+
+    saved = flash_attention_kernel.launches
+    bf, elt, H, Hkv, D = torch.bfloat16, 2, 14, 2, 64
+    S = PREFILL_BUCKETS[-1]
+    q, k, v = flash_inputs(torch, bf, S, S_q=S)
+    kfn = (lambda: flash_attention_kernel(q, k, v, causal=True, q_offset=0))
+    k_ms = time_ms(kfn)
+    p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=True,
+                                               q_offset=0), iters=10)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lfn = (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True))
+    l_ms = time_ms(lfn)
+    keys = S * (S + 1) // 2
+    n_bytes = 2 * q.numel() * elt + 2 * k.numel() * elt
+    flops = 4 * H * D * keys
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    plan = flash_plan(1, S, H, S, q_offset=0, causal=True, head_dim=D)
+    row = {"name": "flash_attention_whole_prompt", "route": "cuda",
+           "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "replaces": "src/repro/kernels/flash_attention.py:85",
+           "launches": launches["flash_attention"],
+           "launches_per_admission":
+               launches["flash_attention"] // admissions,
+           "max_abs_err": errs["flash_attention_whole_prompt", "bfloat16"],
+           "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": l_ms, **device_timings(torch, kfn, lfn),
+           "library_note": "scaled_dot_product_attention, is_causal=True, "
+                           "enable_gqa=True (timed only)",
+           "shape": f"B=1 S_q=S_kv={S} q_offset=0 H={H} Hkv={Hkv} D={D} "
+                    f"warpgroups={plan.consumers} key_tile={plan.keys} "
+                    f"splits={plan.splits}"}
+    flash_attention_kernel.launches = saved
+    return row
+
+
 def ssd_inputs(torch, dtype, B, S, H, P, N, seed=2, steep=False):
     """Scan operands as ``mamba_full`` makes them: x, B and C in the
     activation dtype, dt = softplus(...) and a = -exp(...) in f32.
@@ -1427,8 +1769,7 @@ def phase_ssm_generate(torch, model, params, tokens):
                "decode_attention": decode_attention_kernel}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
+    _reset(kernels.values())
     t0 = time.perf_counter()
     logits, pc = model.prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
@@ -1833,11 +2174,7 @@ def phase_encdec_generate(torch, model, params, enc, toks, table):
     L = model.cfg.num_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
-    for k in (flash_attention_kernel, decode_attention_kernel,
-              paged_attention_kernel):
-        k.combine_launches = 0
+    _reset(kernels.values())
     t0 = time.perf_counter()
     logits, pc = model.prefill(params, {"enc_embeds": enc, "tokens": toks})
     torch.cuda.synchronize()
@@ -2295,10 +2632,7 @@ def phase_hybrid_generate(torch, model, params, tokens, table):
     n_attn = model.cfg.num_layers // model.cfg.attn_period
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
-    for k in (flash_attention_kernel, paged_attention_kernel):
-        k.combine_launches = 0
+    _reset(kernels.values())
     t0 = time.perf_counter()
     logits, pc = model.prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
@@ -2828,10 +3162,7 @@ def phase_moe_generate(torch, model, params, tokens):
     L = model.cfg.num_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for k in kernels.values():
-        k.launches = 0
-    for k in (flash_attention_kernel, decode_attention_kernel):
-        k.combine_launches = 0
+    _reset(kernels.values())
     t0 = time.perf_counter()
     logits, pc = model.prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
@@ -3169,13 +3500,27 @@ def main() -> int:
             phase_model(torch, model, params, p_own)
             del p_own
             phase = "engine"
-            launches, wall = phase_engine(torch, model, params)
+            launches, wall, base = phase_engine(torch, model, params)
             phase = "kernel_table"
             table = phase_kernel_table(torch, launches, errs)
             phase = "fork_engine"
             fork_launches = phase_fork_engine(torch, model, params)
             phase = "block_gather_table"
             table += block_gather_table_rows(torch, fork_launches, errs)
+            phase = "flash_prefill_parity"
+            errs.update(phase_flash_prefill_parity(torch))
+            phase = "unchunked_engine"
+            whole_launches, admissions = phase_unchunked_engine(
+                torch, model, params, base)
+            phase = "whole_prompt_flash_table"
+            table.append(whole_prompt_flash_row(torch, whole_launches,
+                                                admissions, errs))
+            phase = "spec_engine"
+            phase_spec_engine(torch, model, params, base)
+            phase = "spec_fork_engine"
+            phase_spec_fork_engine(torch, model, params)
+            phase = "policy_sweep"
+            phase_policy_sweep(torch, model, params)
             if args.profile:
                 phase = "profile"
                 phase_profile(torch, model, params, wall)

@@ -8,7 +8,9 @@ WHEN is entirely the policy's business — the pool only owns the free
 lists and exposes the step/retire lifecycle, exactly as the paper's data
 structures are written once against the Robison interface and
 parameterized by the reclaimer (see :mod:`repro_torch.memory.policy`
-for the registry: stamp-it and epoch).
+for the full registry: stamp-it, epoch, new-epoch, hazard, interval, qsr,
+debra, lfrc, the robust hyaline/crystalline pair, plus the native
+scan/refcount analogues).
 """
 
 from __future__ import annotations

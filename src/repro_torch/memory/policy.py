@@ -5,24 +5,43 @@ competitors behind one Robison-style interface so data structures are
 written once and parameterized by the reclaimer.  This module gives the
 serving plane the same property: :class:`ReclamationPolicy` is the
 interface the BlockPool (and therefore the ServingEngine and PrefixCache)
-are written against, and each scheme is a concrete policy.
+are written against, and every scheme from the paper's comparison is a
+concrete policy:
 
-This package carries two of them, tuned to the single-issuer dispatch
-loop: ``stamp-it`` (StampLedger) and ``epoch`` (ER-analogue).  Every
-in-flight asynchronous device step is a *thread in a critical region*:
-``begin_step`` enters, ``complete_step`` leaves, and a retired page
-returns to the pool free list only once no step that could read it is
-still in flight.
+  * native device-plane policies, tuned to the single-issuer dispatch
+    loop — ``stamp-it`` (StampLedger), ``epoch`` (ER-analogue), ``scan``
+    (HP-analogue), ``refcount`` (LFRC-analogue);
+  * native ROBUST policies — ``hyaline`` (per-batch distributed
+    reference counts, arXiv:1905.07903) and ``crystalline`` (wait-free
+    slot-local limbo lists, arXiv:2108.02763) — whose memory stays
+    bounded even when a hold is parked forever (a stalled or dead
+    actor), the metric the JAX package's robustness bench measures;
+  * :class:`CoreSchemeAdapter`, which wraps ANY
+    :class:`repro_torch.core.interface.Reclaimer` — the paper's actual scheme
+    implementations — so ``new-epoch``, ``hazard``, ``interval``, ``qsr``,
+    ``debra`` and ``lfrc`` (and ``stamp-it-core``) drive the serving
+    workload through the exact host-plane code the §4 benchmarks measure.
 
-Invariant (asserted in tests/test_torch_engine.py): a policy changes
-POOL PRESSURE, never model outputs.
+The adapter's mapping is the one the StampLedger docstring argues for:
+every in-flight asynchronous device step is a *thread in a critical
+region*.  ``begin_step`` attaches a fresh thread record and enters a
+region on it (plus one guard per referenced page for the pointer-based
+schemes); ``complete_step`` leaves the region and detaches.  Retired
+pages become :class:`ReclaimableNode`s whose ``finalizer`` returns the
+page to the pool free list when the scheme physically frees them.
+
+Invariant (asserted across all policies in tests/test_torch_engine.py): a
+policy changes POOL PRESSURE, never model outputs.
 """
 
 from __future__ import annotations
 
+import bisect
 import threading
 from typing import Callable, Dict, List, Optional, Sequence, Set, Tuple
 
+from ..core.atomics import AtomicMarkedRef
+from ..core.interface import Guard, ReclaimableNode, Reclaimer
 from .stamp_ledger import StampLedger
 
 PageRef = Tuple[int, int]  # (slot, page)
@@ -590,17 +609,813 @@ class EpochPolicy(ReclamationPolicy):
         return self._scans
 
 
+class ScanPolicy(ReclamationPolicy):
+    """HP-analogue: reclaim scans every in-flight step's page-reference
+    set; a page is reusable iff no step references it (O(P x refs))."""
+
+    name = "scan"
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._lock = threading.Lock()
+        self._next = 1
+        self._inflight: Dict[int, Set[PageRef]] = {}
+        self._pending: List[PageRef] = []
+        self._scans = 0
+
+    def begin_step(self, page_refs: Sequence[PageRef]) -> int:
+        with self._lock:
+            h = self._next
+            self._next += 1
+            self._inflight[h] = set(page_refs)
+            return h
+
+    def complete_step(self, handle: int) -> None:
+        with self._lock:
+            self._inflight.pop(handle, None)
+        self._scan_reclaim()
+
+    def _retire(self, slot: int, pages: Sequence[int]) -> None:
+        with self._lock:
+            self._pending.extend((slot, p) for p in pages)
+        self._scan_reclaim()
+
+    def _scan_reclaim(self) -> None:
+        with self._lock:
+            if not self._pending:
+                return
+            referenced: Set[PageRef] = set()
+            for refs in self._inflight.values():
+                self._scans += len(refs)
+                referenced |= refs
+            keep, free = [], []
+            for ref in self._pending:
+                (keep if ref in referenced else free).append(ref)
+            self._pending = keep
+        for slot, p in free:
+            self.release(slot, p)
+
+    def reclaim(self) -> None:
+        self._scan_reclaim()
+
+    def _abandon_steps(self) -> int:
+        with self._lock:
+            n = len(self._inflight)
+            self._inflight.clear()
+        self._scan_reclaim()
+        return n
+
+    def _unreclaimed(self) -> int:
+        return len(self._pending)
+
+    @property
+    def scan_steps(self) -> int:
+        return self._scans
+
+
+class RefcountPolicy(ReclamationPolicy):
+    """LFRC-analogue: per-page counters maintained on every dispatch and
+    completion (immediate reuse, per-step counter overhead)."""
+
+    name = "refcount"
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._lock = threading.Lock()
+        self._next = 1
+        self._inflight: Dict[int, Set[PageRef]] = {}
+        self._rc: Dict[PageRef, int] = {}
+        self._fork_rc: Dict[PageRef, int] = {}  # fork share of _rc
+        self._pending: Set[PageRef] = set()
+
+    def begin_step(self, page_refs: Sequence[PageRef]) -> int:
+        with self._lock:
+            h = self._next
+            self._next += 1
+            refs = set(page_refs)
+            self._inflight[h] = refs
+            for ref in refs:
+                self._rc[ref] = self._rc.get(ref, 0) + 1
+            return h
+
+    def complete_step(self, handle: int) -> None:
+        free = []
+        with self._lock:
+            for ref in self._inflight.pop(handle, set()):
+                self._rc[ref] -= 1
+                if self._rc[ref] == 0:
+                    del self._rc[ref]
+                    if ref in self._pending:
+                        self._pending.discard(ref)
+                        free.append(ref)
+        for slot, p in free:
+            self.release(slot, p)
+
+    def _retire(self, slot: int, pages: Sequence[int]) -> None:
+        free = []
+        with self._lock:
+            for p in pages:
+                ref = (slot, p)
+                if self._rc.get(ref, 0) == 0:
+                    free.append(ref)
+                else:
+                    self._pending.add(ref)
+        for slot, p in free:
+            self.release(slot, p)
+
+    # -- native fork path: a fork IS a refcount here ----------------------
+    # (base `_fork` stays empty, so the generic retire interception is a
+    # no-op and forked retires park in `_pending` like any pinned page)
+    def fork_refs(self, refs: Sequence[PageRef]) -> None:
+        refs = list(refs)
+        with self._lock:
+            for ref in refs:
+                self._rc[ref] = self._rc.get(ref, 0) + 1
+                self._fork_rc[ref] = self._fork_rc.get(ref, 0) + 1
+        self.forks_taken += len(refs)
+
+    def release_fork(self, refs: Sequence[PageRef]) -> None:
+        free = []
+        refs = list(refs)
+        with self._lock:
+            for ref in refs:
+                assert self._fork_rc.get(ref, 0) > 0, (
+                    f"release_fork without matching fork_refs: {ref}"
+                )
+                self._fork_rc[ref] -= 1
+                if self._fork_rc[ref] == 0:
+                    del self._fork_rc[ref]
+                self._rc[ref] -= 1
+                if self._rc[ref] == 0:
+                    del self._rc[ref]
+                    if ref in self._pending:
+                        self._pending.discard(ref)
+                        free.append(ref)
+        self.forks_released += len(refs)
+        for slot, p in free:
+            self.release(slot, p)
+
+    def fork_count(self, ref: PageRef) -> int:
+        with self._lock:
+            return self._fork_rc.get(ref, 0)
+
+    def _clear_forks(self) -> List[PageRef]:
+        free = []
+        with self._lock:
+            for ref, n in self._fork_rc.items():
+                c = self._rc.get(ref, 0) - n
+                if c <= 0:
+                    self._rc.pop(ref, None)
+                    if ref in self._pending:
+                        self._pending.discard(ref)
+                        free.append(ref)
+                else:
+                    self._rc[ref] = c
+            self._fork_rc.clear()
+        for slot, p in free:
+            self.release(slot, p)
+        return []
+
+    def _abandon_steps(self) -> int:
+        # reap dead steps through the normal completion path: their
+        # counters decrement and zero-count pending pages free
+        with self._lock:
+            handles = list(self._inflight)
+        for h in handles:
+            self.complete_step(h)
+        return len(handles)
+
+    def _unreclaimed(self) -> int:
+        return len(self._pending)
+
+
+# ---------------------------------------------------------------------------
+# Robust native policies: bounded memory under stalled actors
+# ---------------------------------------------------------------------------
+# Shared machinery: a global ERA advanced once per retire batch, a birth
+# era stamped on every page at allocation (``note_alloc``), and an
+# active-entry set (in-flight steps + open holds) whose members carry
+# the era current when they were created.  Protection predicate: an
+# entry with reservation era E protects a retired batch iff
+# ``min_birth(batch) <= E`` — the entry could have observed those pages.
+# Pages born after E (post-stall recycles: a freed page re-allocated
+# gets a FRESH birth era) are invisible to it and flow freely, so a
+# hold that is never released pins at most the pool's footprint at
+# stall time — O(slots x pages_per_slot) — instead of every future
+# retire.  That is the stalled-thread memory bound Hyaline and
+# Crystalline are built around, and what ``robustness_bench.py`` gates.
+
+
+class _RobustHold(PolicyHold):
+    """Native hold for the robust policies: one entry in the active-era
+    set, reservation era fixed at open time."""
+
+    __slots__ = ("handle",)
+
+    def __init__(self, policy, tag: str) -> None:
+        super().__init__(policy, tag)
+        with policy._lock:
+            self.handle = policy._register_entry()
+
+    def _do_release(self) -> None:
+        self._policy._drop_entry(self.handle)
+
+
+class _HyBatch:
+    """One retired batch with its distributed reference count."""
+
+    __slots__ = ("refs", "nrefs")
+
+    def __init__(self, refs: List[PageRef], nrefs: int) -> None:
+        self.refs = refs
+        self.nrefs = nrefs
+
+
+class HyalinePolicy(ReclamationPolicy):
+    """Hyaline-analogue (arXiv:1905.07903): snapshot-free reclamation by
+    per-batch DISTRIBUTED reference counts.
+
+    At retire time the whole batch takes one reference per covering
+    active entry (in-flight step or open hold whose reservation era is
+    >= the batch's oldest birth) and is appended to each such entry's
+    decrement list; with no coverer it frees immediately.  When an entry
+    retires — step completes, hold releases cooperatively or by force —
+    it walks its decrement list; a count hitting zero frees the whole
+    batch.  No scanning and no global snapshot: reclamation work is one
+    decrement per (entry, batch) pair, counted in ``scan_steps``."""
+
+    name = "hyaline"
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._lock = threading.Lock()
+        self._era = 0
+        self._birth: Dict[PageRef, int] = {}
+        self._entry_era: Dict[int, int] = {}
+        self._entry_batches: Dict[int, List[_HyBatch]] = {}
+        self._step_handles: Set[int] = set()
+        self._next = 1
+        self._limbo_pages = 0
+        self._scans = 0
+
+    def note_alloc(self, slot: int, pages: Sequence[int]) -> None:
+        with self._lock:
+            era = self._era
+            for p in pages:
+                self._birth[(slot, p)] = era
+
+    def _register_entry(self) -> int:  # caller holds self._lock
+        h = self._next
+        self._next += 1
+        self._entry_era[h] = self._era
+        self._entry_batches[h] = []
+        return h
+
+    def begin_step(self, page_refs: Sequence[PageRef]) -> int:
+        with self._lock:
+            h = self._register_entry()
+            self._step_handles.add(h)
+            return h
+
+    def complete_step(self, handle: int) -> None:
+        self._drop_entry(handle)
+
+    def _drop_entry(self, handle: int) -> None:
+        free: List[PageRef] = []
+        with self._lock:
+            self._entry_era.pop(handle, None)
+            self._step_handles.discard(handle)
+            batches = self._entry_batches.pop(handle, [])
+            self._scans += len(batches)
+            for b in batches:
+                b.nrefs -= 1
+                if b.nrefs == 0:
+                    free.extend(b.refs)
+                    self._limbo_pages -= len(b.refs)
+        for slot, p in free:
+            self.release(slot, p)
+
+    def _retire(self, slot: int, pages: Sequence[int]) -> None:
+        self._retire_refs([(slot, p) for p in pages])
+
+    def _retire_refs(self, refs: Sequence[PageRef]) -> None:
+        refs = list(refs)
+        if not refs:
+            return
+        with self._lock:
+            min_birth = min(
+                (self._birth.pop(ref, 0) for ref in refs), default=0)
+            covering = [h for h, e in self._entry_era.items()
+                        if min_birth <= e]
+            self._era += 1
+            if covering:
+                batch = _HyBatch(refs, len(covering))
+                for h in covering:
+                    self._entry_batches[h].append(batch)
+                self._limbo_pages += len(refs)
+                refs = []
+        for slot, p in refs:
+            self.release(slot, p)
+
+    def hold(self, tag: str = "hold") -> PolicyHold:
+        h = _RobustHold(self, tag)
+        self.holds_issued += 1
+        self.holds_open += 1
+        return h
+
+    def _force_release_impl(self, hold: PolicyHold) -> None:
+        self._drop_entry(hold.handle)
+
+    def _abandon_steps(self) -> int:
+        with self._lock:
+            handles = list(self._step_handles)
+        for h in handles:
+            self._drop_entry(h)
+        return len(handles)
+
+    def _unreclaimed(self) -> int:
+        with self._lock:
+            return self._limbo_pages
+
+    @property
+    def scan_steps(self) -> int:
+        return self._scans
+
+
+class _CrBatch:
+    """One limbo batch: coverage interval [min_birth, retire_era]."""
+
+    __slots__ = ("min_birth", "retire_era", "refs")
+
+    def __init__(self, min_birth: int, retire_era: int,
+                 refs: List[PageRef]) -> None:
+        self.min_birth = min_birth
+        self.retire_era = retire_era
+        self.refs = refs
+
+
+class CrystallinePolicy(ReclamationPolicy):
+    """Crystalline-analogue (arXiv:2108.02763): wait-free bounded-memory
+    reclamation via slot-local limbo lists and lazy interval checks.
+
+    Retired batches park on the RETIRING slot's limbo list tagged with
+    the interval ``[min_birth, retire_era]``; an active entry with
+    reservation era E covers a batch iff ``min_birth <= E <=
+    retire_era`` — the batch's pages already existed when the entry was
+    created AND the entry was already active when they retired (entries
+    created later can never resurrect an old batch).  Probes — on step
+    completion, hold release and ``reclaim()`` — sweep the limbo lists
+    against the sorted active era set and free every uncovered batch;
+    sweep work is counted in ``scan_steps``."""
+
+    name = "crystalline"
+
+    def __init__(self) -> None:
+        super().__init__()
+        self._lock = threading.Lock()
+        self._era = 0
+        self._birth: Dict[PageRef, int] = {}
+        self._entry_era: Dict[int, int] = {}
+        self._step_handles: Set[int] = set()
+        self._next = 1
+        self._limbo: Dict[int, List[_CrBatch]] = {}
+        self._limbo_pages = 0
+        self._scans = 0
+
+    def note_alloc(self, slot: int, pages: Sequence[int]) -> None:
+        with self._lock:
+            era = self._era
+            for p in pages:
+                self._birth[(slot, p)] = era
+
+    def _register_entry(self) -> int:  # caller holds self._lock
+        h = self._next
+        self._next += 1
+        self._entry_era[h] = self._era
+        return h
+
+    def begin_step(self, page_refs: Sequence[PageRef]) -> int:
+        with self._lock:
+            h = self._register_entry()
+            self._step_handles.add(h)
+            return h
+
+    def complete_step(self, handle: int) -> None:
+        self._drop_entry(handle)
+
+    def _drop_entry(self, handle: int) -> None:
+        with self._lock:
+            self._entry_era.pop(handle, None)
+            self._step_handles.discard(handle)
+        self._probe()
+
+    def _park(self, slot: int, refs: List[PageRef]) -> None:
+        # caller holds self._lock; one era bump per parked batch keeps
+        # post-stall allocations strictly younger than the stall
+        b = _CrBatch(
+            min((self._birth.pop(r, 0) for r in refs), default=0),
+            self._era, refs)
+        self._era += 1
+        self._limbo.setdefault(slot, []).append(b)
+        self._limbo_pages += len(refs)
+
+    def _retire(self, slot: int, pages: Sequence[int]) -> None:
+        with self._lock:
+            self._park(slot, [(slot, p) for p in pages])
+        self._probe()
+
+    def _retire_refs(self, refs: Sequence[PageRef]) -> None:
+        refs = list(refs)
+        if not refs:
+            return
+        with self._lock:
+            for slot, pages in _group_by_slot(refs):
+                self._park(slot, [(slot, p) for p in pages])
+        self._probe()
+
+    def _probe(self) -> None:
+        free: List[PageRef] = []
+        with self._lock:
+            if self._limbo_pages:
+                eras = sorted(self._entry_era.values())
+                for slot in list(self._limbo):
+                    keep = []
+                    for b in self._limbo[slot]:
+                        self._scans += 1
+                        i = bisect.bisect_left(eras, b.min_birth)
+                        if i < len(eras) and eras[i] <= b.retire_era:
+                            keep.append(b)  # some active entry covers it
+                        else:
+                            free.extend(b.refs)
+                            self._limbo_pages -= len(b.refs)
+                    if keep:
+                        self._limbo[slot] = keep
+                    else:
+                        del self._limbo[slot]
+        for slot, p in free:
+            self.release(slot, p)
+
+    def reclaim(self) -> None:
+        self._probe()
+
+    def hold(self, tag: str = "hold") -> PolicyHold:
+        h = _RobustHold(self, tag)
+        self.holds_issued += 1
+        self.holds_open += 1
+        return h
+
+    def _force_release_impl(self, hold: PolicyHold) -> None:
+        self._drop_entry(hold.handle)
+
+    def _abandon_steps(self) -> int:
+        with self._lock:
+            handles = list(self._step_handles)
+            self._step_handles.clear()
+            for h in handles:
+                self._entry_era.pop(h, None)
+        self._probe()
+        return len(handles)
+
+    def _unreclaimed(self) -> int:
+        with self._lock:
+            return self._limbo_pages
+
+    @property
+    def scan_steps(self) -> int:
+        return self._scans
+
+
+# ---------------------------------------------------------------------------
+# Adapter over the paper's host-plane schemes
+# ---------------------------------------------------------------------------
+class _PageNode(ReclaimableNode):
+    """A ReclaimableNode standing for one (slot, page) of HBM."""
+
+    __slots__ = ("ref",)
+
+    def __init__(self, ref: PageRef) -> None:
+        super().__init__()
+        self.ref = ref
+
+
+class _RegionHold(PolicyHold):
+    """Native adapter hold: a paper thread parked inside a critical
+    region, blocking the scheme's grace periods until released."""
+
+    __slots__ = ("_rec",)
+
+    def __init__(self, policy: "CoreSchemeAdapter", tag: str, rec) -> None:
+        super().__init__(policy, tag)
+        self._rec = rec
+
+    def _do_release(self) -> None:
+        self._policy._close_region_hold(self._rec)
+
+
+class CoreSchemeAdapter(ReclamationPolicy):
+    """Run the serving workload through any ``core.schemes`` Reclaimer.
+
+    Mapping (see module docstring): each in-flight engine step is a paper
+    *thread* inside a critical region.  ``begin_step`` attaches a fresh
+    ThreadRecord and enters a region on it; for pointer-based schemes
+    (``protect_implies_safe == False``: hazard pointers, LFRC) it
+    additionally acquires one guard per referenced page, because a region
+    alone protects nothing under those schemes.  Pages are intrusive
+    :class:`ReclaimableNode`s living behind per-page ``AtomicMarkedRef``
+    cells; retiring a page unlinks its cell and retires the node from the
+    engine thread's own record, and the node's ``finalizer`` returns the
+    page to the pool when the scheme frees it.
+
+    ``complete_step`` is the single-issuer quiescent point: the step's
+    guards reset, its record leaves the region and detaches, and the
+    engine record runs the scheme's own maintenance (``flush``) — the
+    scheme's scan/advance cost is therefore ITS cost, measured by its own
+    ``scan_steps`` counter, exactly as in the §4 benchmarks.
+    """
+
+    def __init__(self, reclaimer: Reclaimer) -> None:
+        super().__init__()
+        self.reclaimer = reclaimer
+        self.name = getattr(reclaimer, "name", "core")
+        # RLock: host actors (prefix-cache drain, checkpoint DMA) may
+        # retire concurrently with the engine thread's step lifecycle,
+        # and a reclaim inside the lock runs finalizers that touch
+        # released_pages re-entrantly.
+        self._lock = threading.RLock()
+        self._nodes: Dict[PageRef, Tuple[_PageNode, AtomicMarkedRef]] = {}
+        self._steps: Dict[int, Tuple[object, list]] = {}
+        self._next = 1
+        self._use_guards = not reclaimer.protect_implies_safe
+        self.retired_pages = 0
+        self.released_pages = 0
+        # LFRC-native CoW forks: one long-lived paper-thread whose guards
+        # ARE the fork references (each guard acquisition is a Valois
+        # rc increment on the page node; the last reset drops rc to 0 and
+        # the scheme frees through the node finalizer).  Other guarded
+        # schemes (hazard) cannot hold per-branch long-lived protections
+        # without pinning a slot per page forever, and region schemes
+        # would pin EVERY page retired meanwhile — both use the generic
+        # fork park-table instead.
+        self._fork_guards: Dict[PageRef, List[Guard]] = {}
+        self._fork_rec = None
+
+    # -- page cells -----------------------------------------------------
+    def _cell_for(self, ref: PageRef) -> Tuple[_PageNode, AtomicMarkedRef]:
+        entry = self._nodes.get(ref)
+        if entry is None:
+            node = _PageNode(ref)
+            node.finalizer = self._make_finalizer(ref)
+            self.reclaimer.on_allocate(node)  # birth era for IBR
+            entry = (node, AtomicMarkedRef(node))
+            self._nodes[ref] = entry
+        return entry
+
+    def _make_finalizer(self, ref: PageRef) -> Callable[[], None]:
+        def _release() -> None:
+            with self._lock:
+                self.released_pages += 1
+            self.release(ref[0], ref[1])
+
+        return _release
+
+    # -- step lifecycle -------------------------------------------------
+    def begin_step(self, page_refs: Sequence[PageRef]) -> int:
+        r = self.reclaimer
+        with self._lock:
+            rec = r._acquire_record()  # a fresh paper-thread per step
+            rec.region_depth = 1
+            r._enter_region(rec)
+            guards = []
+            if self._use_guards:
+                for ref in page_refs:
+                    _, cell = self._cell_for(ref)
+                    g = Guard(r, rec)
+                    g.acquire(cell)
+                    guards.append(g)
+            h = self._next
+            self._next += 1
+            self._steps[h] = (rec, guards)
+            return h
+
+    def complete_step(self, handle: int) -> None:
+        with self._lock:
+            rec, guards = self._steps.pop(handle)
+            for g in guards:
+                g.reset()
+            rec.region_depth = 0
+            self.reclaimer._leave_region(rec)
+            self.reclaimer._on_thread_detach(rec)
+            rec.in_use.store(0)
+            # single-issuer maintenance point: the scheme reclaims what
+            # its own rules now allow (epoch advance, hazard scan, ...)
+            self.reclaimer.flush()
+
+    # -- copy-on-write forks --------------------------------------------
+    @property
+    def _native_fork(self) -> bool:
+        return getattr(self.reclaimer, "name", "") == "lfrc"
+
+    def fork_refs(self, refs: Sequence[PageRef]) -> None:
+        if not self._native_fork:
+            return super().fork_refs(refs)
+        refs = list(refs)
+        if not refs:
+            return
+        with self._lock:
+            if self._fork_rec is None:
+                rec = self.reclaimer._acquire_record()
+                rec.region_depth = 1
+                self.reclaimer._enter_region(rec)
+                self._fork_rec = rec
+            for ref in refs:
+                _, cell = self._cell_for(ref)
+                g = Guard(self.reclaimer, self._fork_rec)
+                g.acquire(cell)  # LFRC: Valois safe-read, rc += 1
+                assert g.get() is not None, (
+                    f"fork_refs on a retired page: {ref}"
+                )
+                self._fork_guards.setdefault(ref, []).append(g)
+        self.forks_taken += len(refs)
+
+    def release_fork(self, refs: Sequence[PageRef]) -> None:
+        if not self._native_fork:
+            return super().release_fork(refs)
+        refs = list(refs)
+        if not refs:
+            return
+        with self._lock:
+            for ref in refs:
+                guards = self._fork_guards.get(ref)
+                assert guards, (
+                    f"release_fork without matching fork_refs: {ref}"
+                )
+                guards.pop().reset()  # rc -= 1; frees at 0 if retired
+                if not guards:
+                    del self._fork_guards[ref]
+            if not self._fork_guards and self._fork_rec is not None:
+                rec, self._fork_rec = self._fork_rec, None
+                rec.region_depth = 0
+                self.reclaimer._leave_region(rec)
+                self.reclaimer._on_thread_detach(rec)
+                rec.in_use.store(0)
+            self.reclaimer.flush()
+        self.forks_released += len(refs)
+
+    def fork_count(self, ref: PageRef) -> int:
+        if not self._native_fork:
+            return super().fork_count(ref)
+        with self._lock:
+            return len(self._fork_guards.get(ref, ()))
+
+    def _clear_forks(self) -> List[PageRef]:
+        if not self._native_fork:
+            return super()._clear_forks()
+        with self._lock:
+            for guards in self._fork_guards.values():
+                for g in guards:
+                    g.reset()
+            self._fork_guards.clear()
+            if self._fork_rec is not None:
+                rec, self._fork_rec = self._fork_rec, None
+                rec.region_depth = 0
+                self.reclaimer._leave_region(rec)
+                self.reclaimer._on_thread_detach(rec)
+                rec.in_use.store(0)
+            self.reclaimer.flush()
+        return []
+
+    # -- allocation births ----------------------------------------------
+    def note_alloc(self, slot: int, pages: Sequence[int]) -> None:
+        """IBR is the one core scheme whose safety predicate reads a
+        birth era; stamp it at true allocation time (not lazily when the
+        cell first materialises at retire) so a region hold opened after
+        the allocation covers the page's whole lifetime interval.  The
+        other core schemes ignore births — skip the eager cell creation
+        on their alloc hot path."""
+        if getattr(self.reclaimer, "name", "") != "ibr":
+            return
+        with self._lock:
+            for p in pages:
+                self._cell_for((slot, p))
+
+    # -- retire / reclaim ----------------------------------------------
+    def _retire(self, slot: int, pages: Sequence[int]) -> None:
+        with self._lock:
+            for p in pages:
+                ref = (slot, p)
+                node, cell = self._cell_for(ref)
+                del self._nodes[ref]  # re-allocation gets a fresh node
+                cell.store(None)  # unlink: no new protector finds it
+                self.retired_pages += 1
+                self.reclaimer.retire(node)
+
+    def reclaim(self) -> None:
+        with self._lock:
+            self.reclaimer.flush()
+
+    # -- host-actor holds ----------------------------------------------
+    def hold(self, tag: str = "hold") -> PolicyHold:
+        """Region-based schemes (``protect_implies_safe``: epochs, QSR,
+        DEBRA, IBR, stamp-it-core) pin natively — a fresh paper-thread
+        enters a critical region and simply never quiesces until release,
+        which blocks grace periods for every page retired meanwhile.
+        Pointer-based schemes (hazard, LFRC) CANNOT name pages retired in
+        the future, so they fall back to the generic buffered hold — the
+        exact asymmetry the paper's long-lived-region scenario probes."""
+        if not self.reclaimer.protect_implies_safe:
+            return super().hold(tag)
+        with self._lock:
+            rec = self.reclaimer._acquire_record()
+            rec.region_depth = 1
+            self.reclaimer._enter_region(rec)
+        h = _RegionHold(self, tag, rec)
+        self.holds_issued += 1
+        self.holds_open += 1
+        return h
+
+    def _close_region_hold(self, rec) -> None:
+        with self._lock:
+            rec.region_depth = 0
+            self.reclaimer._leave_region(rec)
+            self.reclaimer._on_thread_detach(rec)
+            rec.in_use.store(0)
+            self.reclaimer.flush()
+
+    def _force_release_impl(self, hold: PolicyHold) -> None:
+        if isinstance(hold, _RegionHold):
+            # region force-exit: the parked paper-thread is reaped by a
+            # third party — its record leaves the region and detaches,
+            # un-blocking the scheme's grace periods
+            self._close_region_hold(hold._rec)
+        else:  # pointer-based schemes hold via the buffered fallback
+            super()._force_release_impl(hold)
+
+    def _abandon_steps(self) -> int:
+        # reap each dead step's paper-thread: guards reset, record
+        # leaves its region and detaches — the reclaimer then advances
+        # under its own rules as if the thread had exited cleanly
+        with self._lock:
+            handles = list(self._steps)
+        for h in handles:
+            self.complete_step(h)
+        return len(handles)
+
+    def _unreclaimed(self) -> int:
+        with self._lock:
+            return self.retired_pages - self.released_pages
+
+    @property
+    def scan_steps(self) -> int:
+        counter = getattr(self.reclaimer, "scan_steps", None)
+        return counter.load() if counter is not None else 0
+
+
 # ---------------------------------------------------------------------------
 # Registry
 # ---------------------------------------------------------------------------
-#: serving-plane policy registry of the PyTorch package: the paper's
-#: scheme and the epoch baseline.  The other schemes of the JAX package
-#: (and the adapter over its core Reclaimer implementations) are not
-#: ported yet.
+def _core(scheme_name: str) -> Callable[[], ReclamationPolicy]:
+    def factory() -> ReclamationPolicy:
+        from ..core import make_reclaimer
+
+        # 64 records bound the O(max_threads) record-acquisition scan;
+        # pipeline_depth + the engine thread is all we ever attach.
+        return CoreSchemeAdapter(make_reclaimer(scheme_name, max_threads=64))
+
+    return factory
+
+
+#: serving-plane policy registry — the paper's seven schemes, the native
+#: single-issuer analogues, and the two robust bounded-memory schemes
+#: from PAPERS.md (hyaline, crystalline)
 POLICIES: Dict[str, Callable[[], ReclamationPolicy]] = {
     "stamp-it": StampItPolicy,
     "epoch": EpochPolicy,
+    "scan": ScanPolicy,
+    "refcount": RefcountPolicy,
+    "hyaline": HyalinePolicy,
+    "crystalline": CrystallinePolicy,
+    "stamp-it-core": _core("stamp-it"),
+    "new-epoch": _core("ner"),
+    "hazard": _core("hpr"),
+    "interval": _core("ibr"),
+    "qsr": _core("qsr"),
+    "debra": _core("debra"),
+    "lfrc": _core("lfrc"),
 }
+
+#: the cross-policy comparison set at serving scale: the paper's
+#: seven-scheme set plus the two robust schemes — TEN policies, every
+#: serving/cluster/fault/disagg matrix runs across all of them
+PAPER_POLICIES = (
+    "stamp-it", "epoch", "new-epoch", "hazard", "interval", "qsr",
+    "debra", "lfrc", "hyaline", "crystalline",
+)
+
+#: schemes whose unreclaimed memory stays bounded by the pool footprint
+#: AT STALL TIME under a hold that is never released — the other
+#: schemes pin every subsequent retire until the pool itself runs dry
+#: (the JAX package's docs/reclamation_policies.md)
+ROBUST_POLICIES = ("hyaline", "crystalline")
 
 
 def make_policy(policy, ledger: Optional[StampLedger] = None):

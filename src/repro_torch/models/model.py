@@ -13,6 +13,7 @@ The model lives on the card unless the caller asks for the CPU.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -38,6 +39,12 @@ class Model:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.param_specs = T.build_specs(cfg)
+
+    def with_layers(self, num_layers: int) -> "Model":
+        """The same architecture cut to its first ``num_layers`` layers,
+        on the same device (the speculative lane's draft model)."""
+        return Model(dataclasses.replace(self.cfg, num_layers=num_layers),
+                     device=self.device)
 
     # ------------------------------------------------------------------
     # Params

@@ -32,7 +32,25 @@ step's tokens (``_complete_oldest``).  Differences from the JAX step:
   * the chunk lane samples only on a prompt's final chunk (JAX samples
     every chunk and keeps the final one's), and that token's uniform
     comes from the numpy twin on the host, since its inputs are host
-    scalars.
+    scalars;
+  * the speculative lane's draft writes its KV into the REAL pools of
+    its layers, in place (JAX wrote into a sliced copy it discarded):
+    every position a draft step writes, lengths .. lengths + k - 1, is
+    written again by a verify step before any step reads it, so the
+    pools after the step equal JAX's.
+
+Whole-prompt prefill (``chunk_tokens=0``, :meth:`DeviceState.prefill`)
+is one admission dispatch per request: the forward pass over the prompt
+padded to a power-of-two bucket (the flash kernel), the first token
+sampled on the card into ``first_buf``, and the K/V scattered into the
+slot's pages, the bucket's spare blocks onto the scratch page 0.
+
+The speculative lane (``speculate_k = k > 0``, greedy only) folds
+draft-and-verify into the same step: k draft steps over the first
+``draft_layers`` layers, then k + 1 verify steps of the whole model
+teacher-forcing ``[t0, d1 .. dk]``; a slot advances by the accepted
+prefix plus the verifier's own token (``counts``), which the host reads
+back.
 
 Sampling runs on the card inside the same step: temperature/top-p by
 sorted inverse CDF (:func:`sample_tokens`), greedy argmax when
@@ -105,22 +123,38 @@ class DeviceState:
         max_slots: int,
         mb: int,
         block: int,
-        chunk_tokens: int,
+        chunk_tokens: int = 0,
         temperature: float = 0.0,
         top_p: float = 1.0,
+        speculate_k: int = 0,
+        draft_layers: int = 0,
         impl: Optional[str] = None,
     ) -> None:
-        if chunk_tokens <= 0 or chunk_tokens % block:
+        if chunk_tokens < 0 or chunk_tokens % block:
             raise ValueError(
-                f"chunk_tokens must be a positive multiple of {block}")
+                f"chunk_tokens must be 0 or a positive multiple of {block}")
+        if not 0 <= speculate_k < block:
+            # device growth stays at most one page per slot per step
+            raise ValueError(f"speculate_k must lie in [0, {block})")
+        if speculate_k and not 0 < draft_layers <= model.cfg.num_layers:
+            raise ValueError("draft_layers must lie in [1, num_layers]")
         self.model = model
         self.params = params
         self.cache = cache
         self.max_slots = max_slots
         self.mb = mb
         self.block = block
+        # chunked-prefill lane width (0: lane off, whole-prompt prefill)
         self.chunk_tokens = int(chunk_tokens)
         self.chunk_shapes: set = set()
+        # whole-prompt prefill: the bucketed prompt lengths seen
+        self.prefill_shapes: set = set()
+        # speculative lane: the draft is the first `draft_layers` layers
+        # of the target model (a config cut to that depth)
+        self.speculate_k = int(speculate_k)
+        self.draft_layers = int(draft_layers)
+        self._draft = (model.with_layers(self.draft_layers)
+                       if self.speculate_k else None)
         self.temperature = float(temperature)
         self.top_p = float(top_p)
         # None: the tensors' device picks kernel or plain; "plain" runs
@@ -174,6 +208,12 @@ class DeviceState:
         engine must dispatch even with no active decode slots)."""
         return self._pending_chunk is not None
 
+    def prefill_jit_shapes(self) -> list:
+        """The bucketed prompt lengths whole-prompt prefill has run at
+        (powers of two times the page size); empty for chunked
+        engines."""
+        return sorted(self.prefill_shapes)
+
     def stage_chunk(self, slot: int, tokens: np.ndarray, start: int,
                     row: np.ndarray, pages: np.ndarray, is_last: bool,
                     last_index: int, seed: int = 0) -> None:
@@ -194,6 +234,48 @@ class DeviceState:
     # ------------------------------------------------------------------
     # out-of-step device work
     # ------------------------------------------------------------------
+    def prefill(self, tokens_np: np.ndarray, last_index: int, slot: int,
+                nb: int, pages, seed: int = 0) -> torch.Tensor:
+        """Whole-prompt prefill of one admission, ONE dispatch: forward
+        pass over ``tokens_np`` (1, S), S a power-of-two bucket of pages,
+        the first token sampled on the card into ``first_buf[slot]``, and
+        each layer's K/V written into the slot's ``nb`` pages ``pages``;
+        the bucket's spare blocks go to the scratch page 0, as in the JAX
+        package.  Returns the first token, a 0-d tensor on the card."""
+        S = tokens_np.shape[1]
+        if S % self.block:
+            raise ValueError(f"prompt bucket {S} is not whole pages")
+        self.prefill_shapes.add(S)
+        toks = self._upload(np.asarray(tokens_np, np.int32))
+        logits, kv = self.model.prefill(
+            self.params,
+            {"tokens": toks,
+             "last_index": self._upload(np.array([last_index], np.int32))},
+            impl=self.impl)
+        if self.temperature > 0.0:
+            # token 1's sequence index is last_index + 1, the prompt
+            # length; its uniform is a function of host scalars
+            u = self._upload(counter_uniform_np([seed], [last_index + 1]))
+            first = sample_tokens(logits, u, self.temperature,
+                                  self.top_p)[0]
+        else:
+            first = torch.argmax(logits, dim=-1).to(torch.int32)[0]
+        layers = self.cache["layers"]
+        L, B, N = layers["k_pool"].shape[:3]
+        nbk = S // self.block
+        dst = torch.from_numpy(np.asarray(
+            list(pages) + [0] * (nbk - nb), np.int64) + slot * N).to(
+                self.device)
+        for name, t in (("k_pool", kv["k"]), ("v_pool", kv["v"])):
+            pool = layers[name]
+            blocks = t[:, 0].reshape(L, nbk, self.block, *t.shape[3:])
+            pool.view(L, B * N, *pool.shape[3:]).index_copy_(
+                1, dst, blocks.to(pool.dtype))
+        self.first_buf = self.first_buf.clone()
+        self.first_buf[slot] = first
+        self.admission_dispatches += 1
+        return first
+
     def copy_pages(self, src_slots, src_pages, dst_slot: int,
                    dst_pages) -> None:
         """Copy pages (every layer) into ``dst_slot``'s pages, in place:
@@ -236,10 +318,12 @@ class DeviceState:
 
     def dispatch(self, tf: Dict[int, int], grow: Dict[int, int],
                  n_kv: int):
-        """Run ONE fused engine step; returns ``(tokens, chunk_first)`` —
-        the new token chain (B, 1) and the chunk lane's first-token
+        """Run ONE fused engine step; returns ``(tokens, chunk_first,
+        spec)`` — the new token chain (B, 1), the chunk lane's first-token
         scalar (None unless a chunk rode this step; meaningful only when
-        it was a prompt's last).
+        it was a prompt's last) and, with the speculative lane, ``(v,
+        counts)``: the verifier's tokens (B, k + 1) and each slot's
+        advance (B,), 0 for inactive slots (else None).
 
         ``tf``   — slot -> teacher-forced token for this step.
         ``grow`` — slot -> candidate page id (consumed iff the device need
@@ -296,13 +380,13 @@ class DeviceState:
                      c_last_index, c_u)
         self.stage_ns += time.perf_counter_ns() - t0
 
-        tokens, chunk_first = self._step(reset_m, admit, tf_ops, cand_d,
-                                         chunk, n_kv)
+        tokens, chunk_first, spec = self._step(reset_m, admit, tf_ops,
+                                               cand_d, chunk, n_kv)
         self._pending_resets.clear()
         self._pending_admits.clear()
         self._pending_chunk = None
         self.decode_dispatches += 1
-        return tokens, chunk_first
+        return tokens, chunk_first, spec
 
     def _step(self, reset_m, admit, tf_ops, cand, chunk, n_kv: int):
         lengths, table, mask = self.lengths, self.table, self.mask
@@ -361,14 +445,28 @@ class DeviceState:
                                  tokens)
 
         # 4. device-side page growth: the need mask comes from the DEVICE
-        # lengths; the host only supplied per-slot candidates
-        need = ((mask == 1) & ((lengths // self.block + 1) > pages)
+        # lengths; the host only supplied per-slot candidates.  The
+        # speculative lane writes up to k positions past `lengths` this
+        # step, so the horizon extends by k — still at most one page per
+        # slot per step because k < block.
+        look = self.speculate_k
+        need = ((mask == 1) & (((lengths + look) // self.block + 1) > pages)
                 & (pages < self.mb))
         pos = torch.clamp(pages, 0, self.mb - 1).long()
         cur = table[self._rows, pos]
         table = table.clone()
         table[self._rows, pos] = torch.where(need, cand, cur)
         pages = pages + need.to(torch.int32)
+        self.table, self.mask, self.pages = table, mask, pages
+        self.first_buf, self.seeds = first_buf, seeds
+
+        if self.speculate_k:
+            tf_m = tf_ops[0] if tf_ops is not None else None
+            tokens, counts, v = self._speculate(tokens, lengths, table,
+                                                mask, tf_m, n_kv)
+            self.tokens = tokens
+            self.lengths = lengths + counts
+            return tokens, chunk_first, (v, counts)
 
         # 5. decode
         logits, self.cache = self.model.decode_step(
@@ -381,9 +479,58 @@ class DeviceState:
         new_tokens = self._sample(logits, seeds, lengths)[:, None]
         self.tokens = new_tokens
         self.lengths = lengths + mask
-        self.table, self.mask, self.pages = table, mask, pages
-        self.first_buf, self.seeds = first_buf, seeds
-        return new_tokens, chunk_first
+        return new_tokens, chunk_first, None
+
+    def _speculate(self, tokens, lengths, table, mask, tf_m, n_kv: int):
+        """5s. Draft-and-verify (greedy), inside the step.  Draft: k
+        steps over the first ``draft_layers`` layers (views of the
+        params and of the pools: its K/V writes land in the real pools
+        and the verify pass writes the same positions again before any
+        read).  Verify: k + 1 steps of the whole model teacher-forcing
+        ``[t0, d1 .. dk]``; v_i is the target's token for position
+        lengths + i + 1, the token non-speculative greedy decode gives
+        there.  Returns (next tokens (B, 1), counts (B,) — accepted + 1
+        for active slots, 0 for inactive ones —, v (B, k + 1))."""
+        k, dl = self.speculate_k, self.draft_layers
+        paged = dict(n_kv=n_kv, global_pages=True, impl=self.impl)
+
+        def cut(tree):
+            return {n: cut(a) if isinstance(a, dict) else a[:dl]
+                    for n, a in tree.items()}
+
+        dparams = dict(self.params, layers=cut(self.params["layers"]))
+        dcache = dict(self.cache, layers=cut(self.cache["layers"]))
+        d_tok, d_len, drafts = tokens, lengths, []
+        for _ in range(k):
+            d_logits, _ = self._draft.decode_step(
+                dparams, dcache,
+                {"tokens": d_tok, "lengths": d_len, "block_table": table},
+                **paged)
+            nxt = torch.argmax(d_logits, dim=-1).to(torch.int32)
+            drafts.append(nxt)
+            d_tok, d_len = nxt[:, None], d_len + 1
+        v_tok, v_len, v_list = tokens, lengths, []
+        for i in range(k + 1):
+            logits, self.cache = self.model.decode_step(
+                self.params, self.cache,
+                {"tokens": v_tok, "lengths": v_len, "block_table": table},
+                **paged)
+            v_list.append(torch.argmax(logits, dim=-1).to(torch.int32))
+            if i < k:
+                v_tok, v_len = drafts[i][:, None], v_len + 1
+        v = torch.stack(v_list, dim=1)
+        d = torch.stack(drafts, dim=1)
+        # the longest prefix of drafts the target agrees with, plus the
+        # verifier's own token; slots mid teacher-forcing advance 1 as in
+        # a plain step (the forced token overrides their drafts)
+        acc = torch.cumprod((d == v[:, :k]).to(torch.int32), dim=1)
+        spec_m = mask == 1
+        if tf_m is not None:
+            spec_m = spec_m & (tf_m == 0)
+        counts = torch.where(spec_m, acc.sum(dim=1).to(torch.int32) + 1,
+                             torch.ones_like(mask))
+        new_tokens = torch.gather(v, 1, (counts - 1)[:, None].long())
+        return new_tokens, counts * mask, v
 
     def _sample(self, logits: torch.Tensor, seeds: torch.Tensor,
                 lengths: torch.Tensor) -> torch.Tensor:

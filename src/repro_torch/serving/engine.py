@@ -1,11 +1,14 @@
 """Continuous-batching serving engine: a thin composition root over the
-three serving planes (the JAX package's ``repro/serving/engine.py``,
-chunked-prefill path, greedy or sampled, with copy-on-write forks).
+three serving planes (the JAX package's ``repro/serving/engine.py``:
+chunked or whole-prompt prefill, greedy or sampled, copy-on-write forks
+and the speculative lane).
 
   * **Policy plane** (:mod:`repro_torch.memory.policy`) — the BlockPool is
-    written once against :class:`ReclamationPolicy`; ``stamp-it`` and
-    ``epoch`` are selectable via ``ServingEngine(policy=...)``.  The policy
-    must never change MODEL OUTPUTS — only pool pressure.
+    written once against :class:`ReclamationPolicy`; every scheme of the
+    JAX package's registry (stamp-it, epoch, new-epoch, hazard, interval,
+    qsr, debra, lfrc, hyaline, crystalline, scan, refcount,
+    stamp-it-core) is selectable via ``ServingEngine(policy=...)``.  The
+    policy must never change MODEL OUTPUTS — only pool pressure.
   * **Device plane** (:mod:`repro_torch.serving.device_state`) — all
     decode state lives on the card; one engine step is exactly ONE fused
     step (reset + prefill chunk + admit + teacher-force + device-decided
@@ -31,8 +34,14 @@ references; each secondary branch copies only the partial last prompt
 page (``DeviceState.copy_pages``, the block-gather kernel) and
 ``select_winner`` retires the losers.
 
-Not ported yet (ROADMAP.md, Queue A): the speculative lane, whole-prompt
-prefill (``chunk_tokens=0``), the tier handoff and the cluster plane.
+``chunk_tokens=0`` admits each prompt by one whole-prompt prefill
+dispatch (bucketed to a power of two of pages).  ``speculate_k = k > 0``
+(greedy only) drafts k tokens with the first ``draft_layers`` layers and
+verifies them with the whole model inside the same fused step; the host
+reads each slot's accepted count back before the next step.
+
+Not ported yet (ROADMAP.md, Queue A): the tier handoff and the cluster
+plane.
 """
 
 from __future__ import annotations
@@ -78,6 +87,7 @@ class ServingEngine:
         params: Any = None,
         cow: bool = True,
         speculate_k: int = 0,
+        draft_layers: Optional[int] = None,
         registry: Optional[Registry] = None,
         spans: Optional[SpanRecorder] = None,
         device: DeviceLike = "cuda",
@@ -90,17 +100,20 @@ class ServingEngine:
         if dev != model.device:
             raise ValueError(f"engine device {dev} != model device "
                              f"{model.device}")
-        if speculate_k:
-            raise NotImplementedError(
-                "the speculative lane is not ported yet (ROADMAP.md)")
-        if chunk_tokens == 0:
-            raise NotImplementedError(
-                "whole-prompt prefill (chunk_tokens=0) is not ported yet "
-                "(ROADMAP.md); chunked prefill is the default")
+        # chunked prefill (the default): prompts are admitted one fixed
+        # `chunk_tokens` slice per fused step.  0 selects whole-prompt
+        # prefill: its own dispatch per admission, bucketed to a power of
+        # two of pages.
         if chunk_tokens < 0 or chunk_tokens % BLOCK_SIZE:
             raise ValueError(
-                "chunk_tokens must be a positive multiple of BLOCK_SIZE "
-                f"({BLOCK_SIZE})")
+                "chunk_tokens must be 0 (whole-prompt prefill) or a "
+                f"positive multiple of BLOCK_SIZE ({BLOCK_SIZE})")
+        # speculative lane: greedy only — acceptance compares argmaxes,
+        # and the verifier's argmax chain is the non-speculative chain
+        if speculate_k and temperature != 0.0:
+            raise ValueError("the speculative lane verifies greedy argmax "
+                             "chains; sampling would need rejection "
+                             "resampling")
         self.model = model
         self.cfg = cfg
         self.device = dev
@@ -121,6 +134,9 @@ class ServingEngine:
         # copy-on-write fork plane: cow=False is the equality baseline
         # (fork branches re-prefill the whole prompt independently)
         self.cow = cow
+        self.speculate_k = speculate_k
+        self.draft_layers = (draft_layers if draft_layers is not None
+                             else max(cfg.num_layers // 2, 1))
 
         shape = ShapeConfig("engine", "decode", max_seq, max_slots)
         if params is None:
@@ -151,7 +167,8 @@ class ServingEngine:
         self.dev = DeviceState(
             model, params, cache, max_slots=max_slots, mb=self.mb,
             block=self.block, chunk_tokens=chunk_tokens,
-            temperature=temperature, top_p=top_p, impl=impl,
+            temperature=temperature, top_p=top_p, speculate_k=speculate_k,
+            draft_layers=self.draft_layers, impl=impl,
         )
 
         # page-ref cache: rebuilt only when the active page set changes
@@ -170,11 +187,13 @@ class ServingEngine:
         self._chunk_rr = 0  # round-robin pointer over admitting slots
         self._chunk_need_pages = 0  # staged chunk's KV-sweep page bound
         self._chunk_finalizing: Optional[Request] = None
-        # CoW fork counters
+        # CoW fork + speculative-lane counters
         self._next_group_id = 0
         self.cow_copies = 0  # partial prompt pages CoW-copied
         self.fork_admissions = 0  # branches admitted by page sharing
         self.tokens_emitted = 0  # host-observed generated tokens
+        self.spec_drafted = 0  # draft tokens offered to the verifier
+        self.spec_accepted = 0  # ... accepted (bonus tokens beyond 1)
 
     # ------------------------------------------------------------------
     # public API
@@ -374,17 +393,45 @@ class ServingEngine:
             return True
         self.prefix_cache.unpin(hits)
 
-        # chunked admission: occupy the slot now; pages are allocated
-        # incrementally and the prompt rides the fused step one chunk per
-        # step (_advance_chunk).  The chunk hold is the paper's long-lived
-        # critical region at admission granularity: pages retired anywhere
-        # in the domain while this prefill is mid-flight stay unreclaimed
-        # until it completes.
-        self.sched.bind_admitting(req, slot)
-        req._chunk_hold = self.pool.hold(  # type: ignore[attr-defined]
-            "chunk-prefill")
-        req._first_dev = None  # type: ignore[attr-defined]
+        if self.chunk_tokens:
+            # chunked admission: occupy the slot now; pages are allocated
+            # incrementally and the prompt rides the fused step one chunk
+            # per step (_advance_chunk).  The chunk hold is the paper's
+            # long-lived critical region at admission granularity: pages
+            # retired anywhere in the domain while this prefill is
+            # mid-flight stay unreclaimed until it completes.
+            self.sched.bind_admitting(req, slot)
+            req._chunk_hold = self.pool.hold(  # type: ignore[attr-defined]
+                "chunk-prefill")
+            req._first_dev = None  # type: ignore[attr-defined]
+            req._tf_suffix = []  # type: ignore[attr-defined]
+            self.admissions += 1
+            self._span_admit(req)
+            return True
+
+        # whole-prompt prefill, bucketed to a power-of-two block count so
+        # the prompt shapes stay O(log(max_seq / block)).  Forward pass,
+        # first-token sample and the K/V scatter into this slot's pages
+        # are ONE (extra) dispatch per admission.
+        try:
+            pages = self.pool.alloc(slot, n_blocks)
+        except PoolExhausted:
+            return False
+        self._refs_dirty = True
+        S = _pow2_bucket(n_blocks) * self.block
+        toks = np.asarray(prompt + [0] * (S - len(prompt)), np.int32)[None]
+        # token 1 stays on the card (in first_buf, which the fused step
+        # reads); the host reads it at the request's first pipeline-lagged
+        # completion
+        req._first_dev = self.dev.prefill(  # type: ignore[attr-defined]
+            toks, len(prompt) - 1, slot, n_blocks, pages,
+            seed=int(req.sample_key or 0))
+        self.sched.bind_slot(req, slot, pages, len(prompt))
         req._tf_suffix = []  # type: ignore[attr-defined]
+        self.dev.stage_admit(slot, len(prompt),
+                             self.sched.block_table[slot], n_blocks,
+                             token_from_buf=True, set_token=True,
+                             seed=int(req.sample_key or 0))
         self.admissions += 1
         self._span_admit(req)
         return True
@@ -597,7 +644,11 @@ class ServingEngine:
         # snapshot: the back-pressure force-sync below may _finish (and
         # remove from active) any request, including this one
         for slot, req in list(sched.active.items()):
-            need = min(int(sched.lengths[slot]) // self.block + 1, self.mb)
+            # the speculative lane writes K/V up to k positions past the
+            # current length inside ONE step, so the page horizon extends
+            # by k (still at most one new page: counts <= k + 1 <= block)
+            need = min((int(sched.lengths[slot]) + self.speculate_k)
+                       // self.block + 1, self.mb)
             if req.done or req.n_pages >= need:
                 continue
             if need - req.n_pages != 1:
@@ -635,12 +686,13 @@ class ServingEngine:
         # bucketed bound on the KV sweep: pages any active sequence — or
         # the staged prefill chunk's gather — can touch this step (the
         # power-of-two bucket keeps the chunk gather's shapes few)
-        n_need = max(sched.max_need_pages(), self._chunk_need_pages, 1)
+        n_need = max(sched.max_need_pages(self.speculate_k),
+                     self._chunk_need_pages, 1)
         n_kv = min(max(_pow2_bucket(n_need), 1), self.mb)
         self.host_ns += time.perf_counter_ns() - t0
 
         stamp = self.pool.begin_step(self._page_refs)
-        tokens, chunk_first = self.dev.dispatch(tf, grow, n_kv)
+        tokens, chunk_first, spec = self.dev.dispatch(tf, grow, n_kv)
         if self._chunk_finalizing is not None:
             # the final chunk's on-device first token; the host reads it
             # at this request's first pipeline-lagged completion
@@ -658,9 +710,15 @@ class ServingEngine:
                     and int(sched.lengths[slot]) >= g.prefix_len):
                 self._record_fork_parent(req, g)
         sched.inflight.append(
-            (stamp, tokens, dict(sched.active), sched.lengths.copy(), None)
+            (stamp, tokens, dict(sched.active), sched.lengths.copy(), spec)
         )
-        sched.advance_lengths()
+        if spec is not None:
+            # the speculative lane advances each slot by a data-dependent
+            # accepted count; the mirror needs it before the NEXT step, so
+            # completion is immediate (pipeline depth 1)
+            self._complete_oldest()
+        else:
+            sched.advance_lengths()
 
     # ------------------------------------------------------------------
     # completion (the pipeline-lagged sync point)
@@ -668,11 +726,22 @@ class ServingEngine:
     def _complete_oldest(self) -> None:
         if not self.sched.inflight:
             return
-        stamp, tokens_dev, active, lengths_snap, _ = (
+        stamp, tokens_dev, active, lengths_snap, spec = (
             self.sched.inflight.popleft()
         )
         tokens = tokens_dev.cpu().numpy()  # sync point
+        if spec is not None:
+            v = spec[0].cpu().numpy()  # the verifier's chain
+            counts = spec[1].cpu().numpy()  # accepted + 1
         self.pool.complete_step(stamp)
+        if spec is not None:
+            # the card advanced each slot by its accepted count; the
+            # mirror follows the observed counts (the ONE place the lane
+            # syncs host bookkeeping from device data)
+            for slot, req in active.items():
+                if self.sched.active.get(slot) is req:
+                    self.sched.lengths[slot] = (int(lengths_snap[slot])
+                                                + int(counts[slot]))
         for slot, req in active.items():
             if req.done:
                 continue
@@ -687,6 +756,21 @@ class ServingEngine:
             pos = int(lengths_snap[slot])
             if pos + 1 < len(req.prompt):
                 continue  # teacher-forcing internal step
+            if spec is not None:
+                # the verifier's argmax chain IS the greedy chain: emit the
+                # accepted run (+1, the verifier's own token)
+                c = int(counts[slot])
+                self.spec_drafted += self.speculate_k
+                self.spec_accepted += c - 1
+                for j in range(c):
+                    tok = int(v[slot, j])
+                    self._emit(req, tok)
+                    if (len(req.generated) >= req.max_new_tokens
+                            or (req.eos_id is not None
+                                and tok == req.eos_id)):
+                        self._finish(slot, req)
+                        break
+                continue
             tok = int(tokens[slot, 0])
             self._emit(req, tok)
             hit_eos = req.eos_id is not None and tok == req.eos_id
@@ -784,6 +868,8 @@ class ServingEngine:
         g("prefix_misses", **lab).set(self.prefix_cache.misses)
         g("cow_copies", **lab).set(self.cow_copies)
         g("fork_admissions", **lab).set(self.fork_admissions)
+        g("spec_drafted", **lab).set(self.spec_drafted)
+        g("spec_accepted", **lab).set(self.spec_accepted)
 
     def stats(self) -> Dict[str, Any]:
         return apply_aliases({
@@ -810,6 +896,7 @@ class ServingEngine:
             "prefill_chunks": self.prefill_chunks,
             "chunk_backpressure": self.chunk_backpressure,
             "chunk_shapes": sorted(self.dev.chunk_shapes),
+            "prefill_jit_shapes": self.dev.prefill_jit_shapes(),
             "backpressure_syncs": self.backpressure_syncs,
             "pool_unreclaimed": self.pool.unreclaimed(),
             "pool_freed": self.pool.freed_total,
@@ -827,6 +914,13 @@ class ServingEngine:
             "forks_released": self.pool.forks_released,
             "cow_copies": self.cow_copies,
             "fork_admissions": self.fork_admissions,
+            # speculative-decode lane
+            "speculate_k": self.speculate_k,
+            "spec_drafted": self.spec_drafted,
+            "spec_accepted": self.spec_accepted,
+            "spec_acceptance": (
+                self.spec_accepted / max(self.spec_drafted, 1)
+            ),
             "tokens_emitted": self.tokens_emitted,
             "tokens_per_dispatch": (
                 self.tokens_emitted / max(self.dev.decode_dispatches, 1)

@@ -1,5 +1,6 @@
 """The PyTorch package stands alone: importing it, running an engine
-step, a sampled engine with a copy-on-write fork, and an SSM, an
+step, a sampled engine with a copy-on-write fork, a whole-prompt
+speculative engine under a core scheme, and an SSM, an
 encoder-decoder and a hybrid prefill and decode pulls in neither JAX nor
 the JAX package, and its entry points run on the card unless told
 otherwise."""
@@ -42,6 +43,15 @@ assert eng.cow_copies == 1
 import repro_torch.kernels.block_gather
 import repro_torch.serving.rng
 import repro_torch.serving.sampling
+
+# whole-prompt prefill with the speculative lane under a core scheme
+eng = ServingEngine(Model(smoke_config(ARCHS["qwen2-0.5b"]), device="cpu"),
+                    max_slots=2, max_seq=256, device="cpu", chunk_tokens=0,
+                    speculate_k=2, policy="hazard")
+eng.submit(list(np.arange(1, 40)), max_new_tokens=3)
+eng.run_until_done()
+import repro_torch.core
+import repro_torch.memory.stall
 
 import torch
 from repro_torch.configs import ShapeConfig
