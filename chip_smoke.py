@@ -16,7 +16,15 @@ random weights from a seed (mixtral over 6 of its 32 layers):
     same 8 requests by whole-prompt prefill (``chunk_tokens=0``), with
     the speculative lane (``speculate_k=4``, a 12-layer draft), greedy
     best-of-4 with the lane under stamp-it and lfrc, and under each of
-    the 13 reclamation policies;
+    the 13 reclamation policies; then the cluster plane: a
+    ``ReplicaGroup`` of 2 replicas over one weight tree (a checkpoint, a
+    cross-replica hold, a prefix migration through the block-gather
+    kernel), 1 prefill and 2 decode replicas with the mid-request K/V
+    handoff (each payload held bit for bit against the source's and the
+    destination's pages), and 3 replicas under the lifecycle plane with one killed
+    mid-run (its hold force-expired, its requests replayed, its pools
+    given back) and a wedged hold the watchdog expires — each also in f32
+    over 4 layers against one engine, token for token;
   * mamba2-2.7b through ``Model.prefill`` (8 prompts of 1024 tokens, the
     SSD scan kernel) and 32 greedy ``Model.decode_step`` calls;
   * seamless-m4t-medium through ``Model.prefill`` (an encoder over 8 x
@@ -36,8 +44,10 @@ random weights from a seed (mixtral over 6 of its 32 layers):
 
 It checks that each path went through its kernels (launch counts, and
 the split combines beside them), and times each kernel beside its plain
-version, its bound and a library call.  The page gather is held bit for bit, and the sampling uniforms
-and the sampler against their host versions.  Every phase prints one
+version, its bound and a library call.  The page gather is held bit
+for bit, at every handoff read's shape too (a replica's pool, a
+host-built index), and the sampling uniforms and the sampler against
+their host versions.  Every phase prints one
 JSON line; the card's name and power limit
 print as ``nvidia-smi`` gives them; the line before the last is the
 ``{"kernels": [...]}`` table and the last line is ``{"ok": true,
@@ -877,8 +887,13 @@ def phase_kernel_table(torch, launches, errs):
 # qwen2's engine pool, both layers' K (or V) viewed as one page array:
 # L 24 x B 8 x N_pool 16 pages of (128, 2, 64) bf16 (32 KiB each)
 QWEN_POOL_PAGES, QWEN_PAGE = 24 * 8 * 16, (128, 2, 64)
-# one CoW copy gathers 1 page x 24 layers; the fork_engine replay 6 x 24
-GATHER_M = (24, 144)
+# one CoW copy (or a prefix migration's page read) gathers 1 page x 24
+# layers; the fork_engine replay 6 x 24; the disagg_engine handoff of the
+# 900-token prompt 8 x 24 (its 8 pages, a bucket of 8)
+GATHER_M = (24, 144, 192)
+# a handoff read's page counts: the 8 prompts hold 1 to 8 pages, padded to
+# buckets of 1, 2, 4 and 8 (M 24, 48, 96, 192); 3 and 5 carry pad lanes
+HANDOFF_PAGES = (1, 2, 3, 5, 8)
 SAMPLE_PAIRS = ((0.7, 0.9), (1.0, 1.0), (1.3, 0.5), (0.4, 0.95))
 # the sampler check skips a u this close to a kcum boundary: the host and
 # the card sum the softmax in different orders (float associativity)
@@ -898,32 +913,73 @@ def gather_inputs(torch, dtype, n_pool, page, m, seed=0):
     return pool, idx
 
 
+def replica_pool(torch, dtype, seed=0):
+    """A cluster replica's K (or V) pool viewed as ``read_pages`` views
+    it: L 24 x B CLUSTER_SLOTS x N_pool 16 pages of qwen2's (128, 2, 64)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.randn((N_LAYERS * CLUSTER_SLOTS * 16, *QWEN_PAGE),
+                       generator=g, device="cuda").to(dtype)
+
+
+def handoff_index(torch, n, slot=1, seed=0):
+    """The host-built int32 index ``DeviceState.read_pages`` hands the
+    gather for ``n`` of one slot's pages in a replica's pool: layer-major,
+    each layer's pages padded to a power-of-two bucket with the slot's
+    scratch page 0."""
+    import numpy as np
+
+    L, B, N = N_LAYERS, CLUSTER_SLOTS, 16
+    rng = np.random.default_rng(seed + n)
+    pages = rng.choice(np.arange(1, N), n, replace=False)
+    nb = 1 << (n - 1).bit_length()
+    pages = np.concatenate([pages, np.zeros(nb - n, np.int64)])
+    idx = (np.arange(L)[:, None] * (B * N) + slot * N + pages[None, :])
+    return torch.from_numpy(idx.reshape(-1).astype(np.int32))
+
+
 def phase_block_gather_parity(torch):
     """The gather kernel against ``pool[idx]``: a copy, so bit-exact.
     qwen2's and seamless's pages and a 30-byte bf16 page (the kernel's
-    narrow-word path)."""
+    narrow-word path); then every handoff read's shape (M 24 to 192) over
+    a cluster replica's pool with a host-built index, as ``read_pages``
+    passes it."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.block_gather import block_gather_kernel
 
     saved = block_gather_kernel.launches
     rows = []
+    errs = {}
+
+    def hold(dname, page, m, pool, idx, **extra):
+        got = block_gather_kernel(pool, idx)
+        want = ref.block_gather(pool, idx.to(pool.device))
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        same = bool(torch.equal(got, want))
+        rows.append({"dtype": dname, "page": list(page), "M": m,
+                     "page_bytes": pool[0].numel() * pool.element_size(),
+                     "max_abs_err": err, "bit_exact": same, **extra})
+        check(same, f"block_gather {dname} {page} M={m} {extra} differs")
+        key = ("block_gather", dname)
+        errs[key] = max(errs.get(key, 0.0), err)
+
     cases = [(d, p, m) for d in ("float32", "bfloat16")
              for p in (QWEN_PAGE, (128, 16, 64)) for m in (1, 24, 144)]
     cases.append(("bfloat16", (3, 1, 5), 24))
     for dname, page, m in cases:
         pool, idx = gather_inputs(torch, getattr(torch, dname), 512, page, m)
-        got = block_gather_kernel(pool, idx)
-        want = ref.block_gather(pool, idx)
-        torch.cuda.synchronize()
-        same = bool(torch.equal(got, want))
-        rows.append({"dtype": dname, "page": list(page), "M": m,
-                     "page_bytes": pool[0].numel() * pool.element_size(),
-                     "bit_exact": same})
-        check(same, f"block_gather {dname} {page} M={m} differs")
+        hold(dname, page, m, pool, idx)
+    for dname in ("float32", "bfloat16"):
+        pool = replica_pool(torch, getattr(torch, dname))
+        for n in HANDOFF_PAGES:
+            idx = handoff_index(torch, n)
+            hold(dname, QWEN_PAGE, idx.numel(), pool, idx,
+                 pool_pages=pool.shape[0], pages=n, index="host int32")
+        del pool
     block_gather_kernel.launches = saved
     emit({"phase": "block_gather_parity", "ok": True, "tol": 0,
           "cases": rows})
-    return {("block_gather", "bfloat16"): 0.0}
+    return errs
 
 
 def phase_sampler_parity(torch):
@@ -1163,19 +1219,37 @@ def phase_fork_engine(torch, model, params):
     return launches
 
 
-def block_gather_table_rows(torch, launches, errs):
-    """The gather at the fork run's two sizes over qwen2's pool, bf16:
-    kernel, ``pool[idx]`` and ``index_select`` time beside the bound (each
-    gathered byte read once and written once, plus the index)."""
+def block_gather_table_rows(torch, launches):
+    """The gather at the fork and handoff runs' sizes, bf16: kernel,
+    ``pool[idx]`` and ``index_select`` time (queued back to back, and
+    each call on a cold L2) beside the bound (each gathered byte read
+    once and written once, plus the index), and each row's error on its
+    own inputs.  M 24 and 144 gather from the engine's pool; M 192 from
+    a cluster replica's pool with the index ``read_pages`` builds for a
+    handoff of 8 pages (the kernel is timed on its uploaded copy)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.block_gather import block_gather_kernel
 
     saved = block_gather_kernel.launches
     rows = []
-    for m, what in zip(GATHER_M, ("one CoW copy (1 page x 24 layers)",
-                                  "the replay (6 pages x 24 layers)")):
-        pool, idx = gather_inputs(torch, torch.bfloat16, QWEN_POOL_PAGES,
-                                  QWEN_PAGE, m, seed=5)
+    for m, what in zip(GATHER_M, ("one CoW copy or migrated page (1 page "
+                                  "x 24 layers)",
+                                  "the replay (6 pages x 24 layers)",
+                                  "a handoff read of the 900-token prompt "
+                                  "(8 pages x 24 layers)")):
+        if m == GATHER_M[-1]:
+            pool = replica_pool(torch, torch.bfloat16, seed=5)
+            host_idx = handoff_index(torch, m // N_LAYERS)
+            idx = host_idx.to("cuda")
+        else:
+            pool, idx = gather_inputs(torch, torch.bfloat16, QWEN_POOL_PAGES,
+                                      QWEN_PAGE, m, seed=5)
+            host_idx = idx
+        got = block_gather_kernel(pool, host_idx)
+        want = ref.block_gather(pool, idx)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(torch.equal(got, want), f"block_gather row M={m} differs")
         fns = {"kernel": lambda: block_gather_kernel(pool, idx),
                "plain": lambda: ref.block_gather(pool, idx),
                "library": lambda: torch.index_select(pool, 0, idx)}
@@ -1186,6 +1260,9 @@ def block_gather_table_rows(torch, launches, errs):
         dev_ms = {k: _profile_window(torch, lambda f=f: [
             f() for _ in range(20)])["device_busy_s"] * 1e3 / 20
             for k, f in fns.items()}
+        # 20 queued calls re-read pages that stay in the 50 MB L2; a
+        # handoff read runs once on pages written long before
+        cold = {k: cold_ms(f) for k, f in fns.items()}
         # the host's enqueue alone: 1,000 calls with no synchronise, kernel
         # and index_select in turns, 7 rounds, the median of each
         rounds = {"kernel": [], "library": []}
@@ -1200,16 +1277,19 @@ def block_gather_table_rows(torch, launches, errs):
                      "source": "src/repro_torch/kernels/csrc/block_gather.cu",
                      "replaces": "src/repro/kernels/block_gather.py:21",
                      "launches": launches["block_gather"],
-                     "max_abs_err": errs["block_gather", "bfloat16"],
+                     "max_abs_err": err,
                      "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": l_ms,
                      "host_us": host["kernel"],
                      "library_host_us": host["library"],
                      "library_note": "torch.index_select on the same "
                                      "flattened pool (timed only)",
-                     "shape": f"pool ({QWEN_POOL_PAGES}, 128, 2, 64) M={m}: "
+                     "shape": f"pool ({pool.shape[0]}, 128, 2, 64) M={m}: "
                               f"{what}",
-                     "bytes": n_bytes, "device_ms": dev_ms})
+                     "bytes": n_bytes, "device_ms": dev_ms,
+                     "cold_ms": cold,
+                     "cold_bound_share": b_ms / cold["kernel"]})
+        del pool
     block_gather_kernel.launches = saved
     return rows
 
@@ -1478,6 +1558,514 @@ def phase_policy_sweep(torch, model, params):
     check(not differ, f"tokens differ from stamp-it's under {differ}")
     emit({"phase": "policy_sweep", "ok": True, "max_new_tokens": SWEEP_NEW,
           "policies": rows, "seconds": time.perf_counter() - t_sweep})
+
+
+# ---------------------------------------------------------------------------
+# the cluster plane (qwen2): replica groups, disaggregated prefill/decode
+# with the mid-request K/V handoff, and the lifecycle plane
+# ---------------------------------------------------------------------------
+#: each replica's engine: 4 slots over max_seq 1024, chunks of 128
+CLUSTER_SLOTS = 4
+#: the exact checks run the three groups at full width in f32 over this
+#: many layers, against one ServingEngine on the same requests
+CLUSTER_F32_LAYERS = 4
+#: the cross-replica hold stays open this many cluster steps
+CLUSTER_HOLD_STEPS = 4
+#: the lifecycle phase kills replica 1 at this cluster step
+KILL_STEP = 8
+
+
+def shared_model(model, params):
+    """A ``Model`` like ``model`` whose ``init_params`` returns
+    ``params``: a ``ReplicaGroup`` builds its replicas' one weight tree
+    from it (``ReplicaGroup`` takes no params), here the conditioned
+    tree the other qwen2 phases serve.  A tree already in the compute
+    dtype comes back from ``compute_params`` as the same tensors."""
+    from repro_torch.models import Model
+
+    m = Model(model.cfg, device=model.device)
+    m.init_params = lambda seed=0: params
+    return m
+
+
+def pool_bytes(eng) -> int:
+    layers = eng.dev.cache["layers"]
+    return sum(layers[k].numel() * layers[k].element_size()
+               for k in ("k_pool", "v_pool"))
+
+
+def _leaf_ptrs(params):
+    from repro_torch.cluster.group import _leaves
+
+    return [t.data_ptr() for t in _leaves(params)]
+
+
+def _group_engines_stats(group):
+    per = group.stats()["per_replica"]
+    return {k: [s[k] for s in per] for k in (
+        "steps", "decode_dispatches", "prefill_chunks", "tokens_emitted",
+        "handoffs_out", "handoffs_in", "pool_freed", "pool_unreclaimed",
+        "scan_steps", "prefix_hits")}
+
+
+def _group_kernels() -> dict:
+    """The three kernels a replica group's path runs, by name."""
+    from repro_torch.kernels.block_gather import block_gather_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    return {"paged_attention": paged_attention_kernel,
+            "flash_attention": flash_attention_kernel,
+            "block_gather": block_gather_kernel}
+
+
+def _launches(kernels) -> dict:
+    return {name: k.launches for name, k in kernels.items()}
+
+
+def _check_group_launches(group, launches):
+    """Every decode dispatch ran 24 paged launches and every prefill
+    chunk 24 flash launches, summed over the live and dead replicas."""
+    per = group.stats()["per_replica"]
+    dispatches = sum(s["decode_dispatches"] for s in per)
+    chunks = sum(s["prefill_chunks"] for s in per)
+    check(launches["paged_attention"] == N_LAYERS * dispatches,
+          f"paged launches {launches} vs {dispatches} dispatches")
+    check(launches["flash_attention"] == N_LAYERS * chunks,
+          f"flash launches {launches} vs {chunks} chunks")
+    check(all(s["dispatches_per_step"] <= 1 for s in per),
+          "a replica ran more than one dispatch a step")
+
+
+def cluster_run(torch, model, params, max_new=32):
+    """The 8 requests through ``ReplicaGroup(n_replicas=2,
+    router="least-loaded")``: a checkpoint mid-run, a cross-replica hold
+    open for CLUSTER_HOLD_STEPS cluster steps (opened once a request is
+    two tokens from its end, so retires land under it), then
+    ``migrate_prefix`` of the shared 128-token prefix to the replica
+    that does not hold it: the pages before and after, the page reads
+    and the gather launches of the move."""
+    from repro_torch.cluster import ReplicaGroup, migrate_prefix
+    from repro_torch.kernels.block_gather import block_gather_kernel
+    from repro_torch.memory.prefix_cache import block_key
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    group = ReplicaGroup(shared_model(model, params), n_replicas=2,
+                         router="least-loaded", max_slots=CLUSTER_SLOTS,
+                         max_seq=1024, prefix_cache_entries=16)
+    torch.cuda.synchronize()
+    out = {"memory_growth_bytes": torch.cuda.memory_allocated() - mem0,
+           "replica_pool_bytes": [pool_bytes(e) for e in group.engines]}
+    # every replica reads the caller's tensors: no cast, no copy
+    ptrs = [_leaf_ptrs(e.dev.params) for e in group.engines]
+    out["shared_weights"] = ptrs[0] == ptrs[1] == _leaf_ptrs(params)
+    reqs = [group.submit(p, max_new_tokens=max_new) for p in prompts()]
+    held, hold, hold_steps = [], None, 0
+    t0 = time.perf_counter()
+    while group.has_work():
+        group.step()
+        if group.steps == 3:
+            out["checkpoint_leaves"] = group.checkpoint()
+        if hold is None and not held and any(
+                not r.done and len(r.generated or ()) >= max_new - 2
+                for r in reqs):
+            hold = group.hold("smoke-hold")
+        elif hold is not None:
+            hold_steps += 1
+            group.reclaim()
+            held.append([e.pool.unreclaimed() for e in group.engines])
+            if hold_steps == CLUSTER_HOLD_STEPS:
+                hold.release()
+                hold = None
+        check(group.steps < 3000, "cluster did not converge")
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    group.reclaim()
+    out["held_unreclaimed"] = held
+    out["released_unreclaimed"] = group.shards.unreclaimed()
+    # the shared 128-token prefix: from a replica that caches it to one
+    # that does not (evicted there first when both prefilled it)
+    shared = prompts()[0][:128]
+    key = block_key(shared)
+    have = [e.prefix_cache.get(key) is not None for e in group.engines]
+    check(any(have), "no replica cached the shared prefix")
+    src = have.index(True)
+    dst = 1 - src
+    if have[dst]:
+        group.engines[dst].evict_prefix([key])
+        group.reclaim()
+    e = group.engines[src].prefix_cache.get(key)
+    before = [group.engines[src].dev.cache["layers"][n][:, e.slot, e.page]
+              .clone() for n in ("k_pool", "v_pool")]
+    reads0 = group.engines[src].dev.migration_dispatches
+    gathers0 = block_gather_kernel.launches
+    report = migrate_prefix(group, shared, src, dst)
+    out["migration"] = dict(report, src=src, dst=dst,
+                            evicted_at_dst_first=have[dst])
+    out["migration_reads"] = (group.engines[src].dev.migration_dispatches
+                              - reads0)
+    out["migration_gathers"] = block_gather_kernel.launches - gathers0
+    e = group.engines[dst].prefix_cache.get(key)
+    check(e is not None, "the migrated prefix is not cached at dst")
+    after = [group.engines[dst].dev.cache["layers"][n][:, e.slot, e.page]
+             for n in ("k_pool", "v_pool")]
+    out["bit_identical"] = all(torch.equal(a, b)
+                               for a, b in zip(before, after))
+    group.drain()
+    out["unreclaimed_after_drain"] = [en.pool.unreclaimed()
+                                      for en in group.engines]
+    out["reqs"] = reqs
+    out["tokens"] = [list(r.generated) for r in reqs]
+    out["done"] = all(r.done for r in reqs)
+    return group, out
+
+
+def phase_cluster_engine(torch, model, params, base, f32):
+    """Two replicas on the card over one shared weight tree: tokens,
+    launches, holds, a checkpoint and a prefix migration."""
+    from repro_torch.cluster.group import _leaves
+
+    t_phase = time.perf_counter()
+    kernels = _group_kernels()
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    _reset(kernels.values())
+    group, out = cluster_run(torch, model, params)
+    launches = _launches(kernels)
+    _check_group_launches(group, launches)
+    check(out["done"] and all(len(t) == 32 for t in out["tokens"]),
+          "not every request finished with 32 tokens")
+    check(out["shared_weights"], "the replicas hold separate weights")
+    grow, pools = out["memory_growth_bytes"], sum(out["replica_pool_bytes"])
+    # a replica's pools (plus its step state, a few MB), never a second
+    # weight tree
+    check(pools <= grow <= pools + (64 << 20) and grow < weight_bytes / 2,
+          f"group memory grew by {grow} bytes: pools {pools}, weights "
+          f"{weight_bytes}")
+    check(out["held_unreclaimed"]
+          and max(sum(u) for u in out["held_unreclaimed"]) > 0,
+          f"nothing pinned under the hold: {out['held_unreclaimed']}")
+    check(out["released_unreclaimed"] == 0,
+          f"{out['released_unreclaimed']} pages after the hold released")
+    rep = out["migration"]
+    check(rep["exported"] == rep["imported"] == rep["evicted"] == 1,
+          f"migration report {rep}")
+    check(rep["src_unreclaimed_during_hold"] >= 1,
+          "the evicted source page was not held during the migration")
+    check(out["bit_identical"], "migrated pages differ from the source's")
+    check(out["migration_gathers"] == 2 * out["migration_reads"] > 0,
+          f"{out['migration_gathers']} gathers for "
+          f"{out['migration_reads']} page reads")
+    check(out["unreclaimed_after_drain"] == [0, 0],
+          f"unreclaimed after drain {out['unreclaimed_after_drain']}")
+    st = group.stats()
+    exact = _cluster_f32_exact(f32, "cluster", lambda m, p: cluster_run(
+        torch, m, p)[1]["tokens"])
+    emit({"phase": "cluster_engine", "ok": True, "replicas": 2,
+          "router": "least-loaded", "max_slots": CLUSTER_SLOTS,
+          "wall_s": out["wall_s"],
+          "decode_tokens_per_s": sum(map(len, out["tokens"]))
+          / out["wall_s"],
+          "cluster_steps": st["cluster_steps"],
+          "engine_steps": st["engine_steps"],
+          "scan_steps_per_step": st["scan_steps_per_step"],
+          "launches": launches,
+          "memory_growth_bytes": grow, "replica_pool_bytes":
+              out["replica_pool_bytes"], "weight_bytes": weight_bytes,
+          "checkpoint_leaves": out["checkpoint_leaves"],
+          "held_unreclaimed": out["held_unreclaimed"],
+          "migration": rep, "migration_reads": out["migration_reads"],
+          "migration_gathers": out["migration_gathers"],
+          "per_replica": _group_engines_stats(group),
+          "engine_token_agreement_bf16": _agreement(out["reqs"],
+                                                    base["reqs"]),
+          "f32_exact": exact,
+          "seconds": time.perf_counter() - t_phase})
+    return launches["block_gather"]
+
+
+def cluster_f32_baseline(torch) -> dict:
+    """qwen2-0.5b at full width in f32 over CLUSTER_F32_LAYERS layers and
+    one ServingEngine's greedy tokens on the 8 requests: what the three
+    cluster phases' f32 runs are held to."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import Model
+
+    model = Model(ARCHS["qwen2-0.5b"].scaled(num_layers=CLUSTER_F32_LAYERS,
+                                             dtype="float32"))
+    params = conditioned(model, model.init_params(seed=0))
+    _, reqs, _, _ = run_engine(torch, model, params)
+    return {"model": model, "params": params,
+            "tokens": [r.generated for r in reqs]}
+
+
+def _cluster_f32_exact(f32, what, run):
+    """``run(model, params)``'s tokens on the f32 baseline's model against
+    its one engine's, token for token."""
+    got = run(f32["model"], f32["params"])
+    check(got == f32["tokens"], f"f32 {what} tokens differ from one "
+                                "engine's")
+    return {"layers": CLUSTER_F32_LAYERS,
+            "tokens": sum(map(len, f32["tokens"])), "identical": True}
+
+
+def watch_page_moves(torch, group, moved):
+    """Hold every page move of ``group``'s replicas against their pools,
+    bit for bit, by plain indexing: a read's payload against ``pool[:,
+    slot, pages]`` before the export frees the pages, and after a write
+    the destination's pages against the payload.  ``moved`` counts the
+    reads and writes checked."""
+    def watch(dev):
+        read, write = dev.read_pages, dev.write_pages
+
+        def held(slot, pages, k, v, what):
+            for name, host in (("k_pool", k), ("v_pool", v)):
+                pool = dev.cache["layers"][name][:, slot, list(pages)]
+                check(torch.equal(pool, host.to(pool.device)),
+                      f"{what} of slot {slot} pages {list(pages)}: "
+                      f"{name} differs")
+            moved[what] += 1
+
+        def read_pages(slot, pages):
+            k, v = read(slot, pages)
+            held(slot, pages, k, v, "reads")
+            return k, v
+
+        def write_pages(slot, pages, k, v):
+            write(slot, pages, k, v)
+            held(slot, pages, k, v, "writes")
+
+        dev.read_pages, dev.write_pages = read_pages, write_pages
+
+    for e in group.engines:
+        watch(e.dev)
+
+
+def disagg_run(torch, model, params, max_new=32):
+    """The 8 requests through one prefill and two decode replicas
+    (``disagg_bench.py``'s shape) with ``handoff_import_delay=2``; per
+    cluster step with a packet in flight, the source's unreclaimed pages
+    (after a reclaim) beside the pages of its packets not yet
+    committed; every handoff's payload is held against the source's and
+    the destination's pages (``watch_page_moves``)."""
+    from repro_torch.cluster import ReplicaGroup
+
+    group = ReplicaGroup(shared_model(model, params), prefill_replicas=1,
+                         decode_replicas=2, router="least-loaded",
+                         max_slots=CLUSTER_SLOTS, max_seq=1024,
+                         handoff_import_delay=2)
+    moved = {"reads": 0, "writes": 0}
+    watch_page_moves(torch, group, moved)
+    src = group.tiers.prefill_ids[0]
+    reqs = [group.submit(p, max_new_tokens=max_new) for p in prompts()]
+    window = []
+    t0 = time.perf_counter()
+    while group.has_work():
+        group.step()
+        if group.tiers.pending():
+            group.engines[src].pool.reclaim()
+            window.append((group.engines[src].pool.unreclaimed(),
+                           sum(p.data["n_pages"]
+                               for p in group.tiers.packets)))
+        check(group.steps < 3000, "tiered group did not converge")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    group.engines[src].pool.reclaim()
+    after_commit = group.engines[src].pool.unreclaimed()
+    group.drain()
+    return group, reqs, {"wall_s": wall, "window": window,
+                         "after_commit": after_commit, "moved": moved,
+                         "reqs": reqs,
+                         "tokens": [list(r.generated) for r in reqs]}
+
+
+def phase_disagg_engine(torch, model, params, base, f32):
+    """Disaggregated prefill/decode on the card: every request hands its
+    whole-prompt K/V from the prefill replica to a decode replica
+    through the host (``read_pages`` on the block-gather kernel)."""
+    from repro_torch.obs import chrome_trace, validate_chrome_trace
+
+    t_phase = time.perf_counter()
+    kernels = _group_kernels()
+    _reset(kernels.values())
+    group, reqs, out = disagg_run(torch, model, params)
+    launches = _launches(kernels)
+    _check_group_launches(group, launches)
+    st = group.stats()
+    per, ts = st["per_replica"], st["tiers"]
+    need = sum(1 for r in reqs if r.max_new_tokens > 1)
+    check(all(r.done and len(r.generated) == 32 for r in reqs),
+          "not every request finished with 32 tokens")
+    outs = [s["handoffs_out"] for s in per]
+    ins = [s["handoffs_in"] for s in per]
+    check(outs[0] == sum(ins) == ts["handoffs_completed"] == need
+          and sum(outs[1:]) == 0 and ins[0] == 0,
+          f"handoffs out {outs}, in {ins}, tiers {ts}")
+    emitted = [s["tokens_emitted"] for s in per]
+    check(emitted[0] == need
+          and sum(emitted[1:]) == sum(len(r.generated) - 1 for r in reqs),
+          f"tokens emitted per replica {emitted}")
+    reads = group.engines[0].dev.migration_dispatches
+    writes = sum(e.dev.migration_dispatches for e in group.engines[1:])
+    check(reads == writes == need, f"{reads} reads, {writes} writes")
+    check(out["moved"] == {"reads": reads, "writes": writes},
+          f"page moves held against the pools {out['moved']}, "
+          f"{reads} reads, {writes} writes")
+    check(launches["block_gather"] == 2 * reads,
+          f"{launches['block_gather']} gathers for {reads} reads")
+    check(all(u >= p for u, p in out["window"]) and out["window"],
+          f"exported pages reclaimed before commit: {out['window']}")
+    check(out["after_commit"] == 0,
+          f"{out['after_commit']} pages after the last commit")
+    check(group.shards.unreclaimed() == 0, "pages left after drain")
+    trace = chrome_trace(group.spans, registry=group.obs)
+    n_events = validate_chrome_trace(trace)
+    check({e["tid"] for e in trace["traceEvents"]}
+          == {r._span_rid for r in reqs}, "a request lacks its trace row")
+    exact = _cluster_f32_exact(f32, "disaggregated", lambda m, p: (
+        disagg_run(torch, m, p)[2]["tokens"]))
+    emit({"phase": "disagg_engine", "ok": True, "prefill_replicas": 1,
+          "decode_replicas": 2, "import_delay": 2,
+          "wall_s": out["wall_s"],
+          "decode_tokens_per_s": sum(map(len, out["tokens"]))
+          / out["wall_s"],
+          "cluster_steps": st["cluster_steps"], "launches": launches,
+          "tiers": {k: ts[k] for k in (
+              "handoffs_started", "handoffs_completed", "handoffs_aborted",
+              "import_retries", "pages_handed_off", "hold_ticks_total",
+              "mean_hold_ticks")},
+          "page_move_buckets": sorted(set().union(
+              *(e.dev.page_move_buckets for e in group.engines))),
+          "held_window_max": max(u for u, _ in out["window"]),
+          "page_moves_bit_exact": out["moved"],
+          "per_replica": _group_engines_stats(group),
+          "trace_events": n_events,
+          "engine_token_agreement_bf16": _agreement(out["reqs"],
+                                                    base["reqs"]),
+          "f32_exact": exact,
+          "seconds": time.perf_counter() - t_phase})
+    return launches["block_gather"]
+
+
+def lifecycle_run(torch, model, params, max_new=32, *, probe=False):
+    """The 8 requests round-robin over 3 replicas under
+    ``LifecycleManager(heartbeat_timeout=3)``; replica 1 opens a
+    checkpoint hold at cluster step 5 and is killed at step KILL_STEP.
+    ``probe`` measures the card memory the husk's pools give back."""
+    from repro_torch.cluster import LifecycleManager, ReplicaGroup
+
+    group = ReplicaGroup(shared_model(model, params), 3,
+                         router="round-robin", max_slots=CLUSTER_SLOTS,
+                         max_seq=1024)
+    mgr = LifecycleManager(group, heartbeat_timeout=3)
+    reqs = [group.submit(p, max_new_tokens=max_new) for p in prompts()]
+    husk = pool_bytes(group.engines[1])
+    out = {"husk_pool_bytes": husk}
+    t0 = time.perf_counter()
+    while group.has_work():
+        if group.steps == 5:
+            group.hold("checkpoint", owner=1)
+        if group.steps == KILL_STEP:
+            out["victim_had_work"] = group.engines[1].sched.has_work()
+            group.kill_replica(1)
+        dying = probe and group.engines[1].crashed and not mgr.dead
+        if dying:
+            torch.cuda.synchronize()
+            m0 = torch.cuda.memory_allocated()
+        group.step()
+        if dying and mgr.dead:
+            torch.cuda.synchronize()
+            out["freed_at_death_bytes"] = m0 - torch.cuda.memory_allocated()
+        check(group.steps < 3000, "lifecycle run did not converge")
+    torch.cuda.synchronize()
+    out["wall_s"] = time.perf_counter() - t0
+    group.drain()
+    out["unreclaimed_after_drain"] = group.shards.unreclaimed()
+    out["reqs"] = reqs
+    out["tokens"] = [list(r.generated) for r in reqs]
+    out["done"] = all(r.done for r in reqs)
+    return group, mgr, out
+
+
+def watchdog_run(torch, model, params, max_new=8):
+    """A checkpoint writer on replica 0 wedges inside its hold while the
+    replica keeps beating: ``LifecycleManager(hold_deadline=6)`` (its
+    ``HoldWatchdog``) expires the hold."""
+    from repro_torch.cluster import LifecycleManager, ReplicaGroup
+
+    group = ReplicaGroup(shared_model(model, params), 2,
+                         router="round-robin", max_slots=CLUSTER_SLOTS,
+                         max_seq=1024)
+    mgr = LifecycleManager(group, heartbeat_timeout=3, hold_deadline=6)
+    reqs = [group.submit(p, max_new_tokens=max_new) for p in prompts()]
+    hold = group.hold("wedged-writer", owner=0)
+    while group.has_work() or not hold.released:
+        group.step()
+        check(group.steps < 3000, "watchdog run did not converge")
+    group.drain()
+    return {"forced": hold.forced, "dead": sorted(mgr.dead),
+            "watchdog": mgr.watchdog.stats(),
+            "done": all(r.done for r in reqs),
+            "unreclaimed_after_drain": group.shards.unreclaimed(),
+            "cluster_steps": group.steps}
+
+
+def phase_lifecycle_engine(torch, model, params, base, f32):
+    """Three replicas; one dies mid-run owning a cluster hold: missed
+    heartbeats declare it dead, its holds force-expire, its pools go back
+    to the card and its journal replays its requests on the survivors."""
+    t_phase = time.perf_counter()
+    kernels = _group_kernels()
+    _reset(kernels.values())
+    group, mgr, out = lifecycle_run(torch, model, params, probe=True)
+    launches = _launches(kernels)
+    _check_group_launches(group, launches)
+    lc = mgr.stats()
+    check(out["victim_had_work"], "the kill interrupted no work")
+    check(out["done"] and all(len(t) == 32 for t in out["tokens"]),
+          "not every request finished with 32 tokens")
+    check(lc["dead"] == [1] and lc["holds_force_expired"] >= 1,
+          f"lifecycle {lc}")
+    check(lc["replays_finished"] == lc["replays_submitted"] > 0,
+          f"replays {lc}")
+    check(group.engines[1].dev.cache is None, "the husk kept its pools")
+    freed, husk = out.get("freed_at_death_bytes", 0), out["husk_pool_bytes"]
+    check(freed >= husk * 0.95,
+          f"the death freed {freed} bytes, the husk's pools are {husk}")
+    check(out["unreclaimed_after_drain"] == 0,
+          f"{out['unreclaimed_after_drain']} pages after drain")
+    t_wd = time.perf_counter()
+    wd = watchdog_run(torch, model, params)
+    check(wd["forced"] and wd["dead"] == []
+          and wd["watchdog"]["hold_expired_by_watchdog"] == 1,
+          f"watchdog {wd}")
+    check(wd["done"] and wd["unreclaimed_after_drain"] == 0,
+          f"watchdog run {wd}")
+    wd["seconds"] = time.perf_counter() - t_wd
+    def replayed_tokens(m, p):
+        _, mgr32, out32 = lifecycle_run(torch, m, p)
+        check(mgr32.replays_finished == mgr32.replays_submitted > 0,
+              f"the f32 run replayed nothing: {mgr32.stats()}")
+        return out32["tokens"]
+
+    exact = _cluster_f32_exact(f32, "lifecycle (replayed)",
+                               replayed_tokens)
+    emit({"phase": "lifecycle_engine", "ok": True, "replicas": 3,
+          "heartbeat_timeout": 3, "kill_step": KILL_STEP,
+          "wall_s": out["wall_s"], "cluster_steps": group.steps,
+          "launches": launches,
+          "lifecycle": {k: lc[k] for k in (
+              "dead", "deaths", "holds_force_expired", "domains_expired",
+              "replays_submitted", "replays_finished", "replays_recovered",
+              "reclamation_blocked_steps")},
+          "husk_pool_bytes": husk, "freed_at_death_bytes": freed,
+          "per_replica": _group_engines_stats(group),
+          "watchdog": wd,
+          "engine_token_agreement_bf16": _agreement(out["reqs"],
+                                                    base["reqs"]),
+          "f32_exact": exact,
+          "seconds": time.perf_counter() - t_phase})
+    return launches["block_gather"]
 
 
 def whole_prompt_flash_row(torch, launches, admissions, errs):
@@ -3506,7 +4094,8 @@ def main() -> int:
             phase = "fork_engine"
             fork_launches = phase_fork_engine(torch, model, params)
             phase = "block_gather_table"
-            table += block_gather_table_rows(torch, fork_launches, errs)
+            gather_rows = block_gather_table_rows(torch, fork_launches)
+            table += gather_rows
             phase = "flash_prefill_parity"
             errs.update(phase_flash_prefill_parity(torch))
             phase = "unchunked_engine"
@@ -3521,6 +4110,25 @@ def main() -> int:
             phase_spec_fork_engine(torch, model, params)
             phase = "policy_sweep"
             phase_policy_sweep(torch, model, params)
+            gathers = {"fork_engine": fork_launches["block_gather"]}
+            phase = "cluster_f32_baseline"
+            f32 = cluster_f32_baseline(torch)
+            phase = "cluster_engine"
+            gathers[phase] = phase_cluster_engine(torch, model, params, base,
+                                                  f32)
+            phase = "disagg_engine"
+            gathers[phase] = phase_disagg_engine(torch, model, params, base,
+                                                 f32)
+            phase = "lifecycle_engine"
+            gathers[phase] = phase_lifecycle_engine(torch, model, params,
+                                                    base, f32)
+            del f32
+            torch.cuda.empty_cache()
+            for row in gather_rows:
+                # the gather's launches on every path that runs it: the
+                # fork plane's page copies and the cluster plane's reads
+                row["launches"] = sum(gathers.values())
+                row["launches_by_phase"] = dict(gathers)
             if args.profile:
                 phase = "profile"
                 phase_profile(torch, model, params, wall)

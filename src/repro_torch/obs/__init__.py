@@ -1,6 +1,14 @@
 """Observability plane: typed metrics registry, retire->reclaim latency
-tracing, and per-request lifecycle spans (copies of the JAX package's
-framework-free modules; the exporters are not ported yet)."""
+tracing, per-request lifecycle spans and their exporters (Chrome trace,
+Prometheus text, spans JSONL) — copies of the JAX package's
+framework-free modules."""
+
+from .export import (
+    chrome_trace,
+    prometheus_text,
+    spans_jsonl,
+    validate_chrome_trace,
+)
 
 from .metrics import (
     NULL_INSTRUMENT,
@@ -22,4 +30,6 @@ __all__ = [
     "Span", "SpanRecorder", "PHASES",
     "STATS_KEY_ALIASES", "STEP_BUCKETS", "NULL_INSTRUMENT",
     "apply_aliases", "get_registry", "set_registry",
+    "chrome_trace", "prometheus_text", "spans_jsonl",
+    "validate_chrome_trace",
 ]

@@ -65,6 +65,16 @@ Page copies (``copy_pages``: copy-on-write fork admission, prefix-cache
 replay) gather every layer's source pages with one block-gather launch
 per pool (``ops.block_gather``), then write them into the destination
 pages with one indexed copy.
+
+Page moves between replicas (the cluster plane's cold path: each replica
+owns its own pools, so a move goes through the host) are
+:meth:`DeviceState.read_pages` — one block-gather launch per pool over
+every layer, then one copy to the host — and
+:meth:`DeviceState.write_pages` — one copy to the card and one indexed
+copy per pool.  The host payload is a pair of CPU tensors in the pool's
+dtype.  Both pad their page list to a power of two
+(``page_move_buckets``, as the JAX package keeps its compiled shapes
+few); pad lanes read, and write, the slot's scratch page 0.
 """
 
 from __future__ import annotations
@@ -188,6 +198,8 @@ class DeviceState:
         # admission work
         self.decode_dispatches = 0
         self.admission_dispatches = 0
+        self.migration_dispatches = 0  # cluster plane, cold path
+        self.page_move_buckets: set = set()  # pow2 page-move index sizes
 
     # ------------------------------------------------------------------
     # staging API (host events -> next step)
@@ -309,6 +321,81 @@ class DeviceState:
             pages = ops.block_gather(flat, src, impl=self.impl)
             flat.index_copy_(0, dst, pages)
         self.admission_dispatches += 1
+
+    # ------------------------------------------------------------------
+    # cluster-plane page moves (cold path: replicas own separate pools,
+    # so cross-replica moves go through the host)
+    # ------------------------------------------------------------------
+    def _page_move_bucket(self, n: int) -> int:
+        """Power-of-two bucket of a page move's index vector; the
+        buckets seen are kept in ``page_move_buckets``."""
+        b = 1
+        while b < n:
+            b <<= 1
+        self.page_move_buckets.add(b)
+        return b
+
+    def _page_move_index(self, slot: int, pages):
+        """(flat index over every layer of the ``(L * B * N_pool,
+        *page)`` pool view, n, bucket, pool dims): layer-major, each
+        layer's ``n`` pages padded to the bucket with the slot's scratch
+        page 0."""
+        L, B, N = self.cache["layers"]["k_pool"].shape[:3]
+        if not 0 <= slot < B:
+            raise IndexError(f"slot {slot} outside [0, {B})")
+        p = np.asarray(list(pages), np.int64)
+        n = len(p)
+        if n == 0:
+            raise ValueError("a page move needs at least one page")
+        if p.min() < 0 or p.max() >= N:
+            raise IndexError(f"page outside [0, {N})")
+        nb = self._page_move_bucket(n)
+        p = np.concatenate([p, np.zeros(nb - n, np.int64)])
+        idx = (np.arange(L, dtype=np.int64)[:, None] * (B * N)
+               + slot * N + p[None, :]).reshape(-1)
+        return idx, n, nb, (L, B, N)
+
+    def read_pages(self, slot: int, pages) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+        """Pull one slot's pages to the host: a ``(L, n, block, Hkv, D)``
+        k/v pair of CPU tensors in the pool's dtype.  One block-gather
+        launch per pool reads every layer's pages, then one copy moves
+        them to the host; synchronous, since the caller holds a cluster
+        hold over the pages and a migration is not the hot path."""
+        idx, n, nb, (L, B, N) = self._page_move_index(slot, pages)
+        src = torch.from_numpy(idx.astype(np.int32))
+        out = []
+        for name in ("k_pool", "v_pool"):
+            pool = self.cache["layers"][name]
+            flat = pool.view(L * B * N, *pool.shape[3:])
+            got = ops.block_gather(flat, src, impl=self.impl)
+            out.append(got.view(L, nb, *pool.shape[3:])[:, :n].to("cpu"))
+        self.migration_dispatches += 1
+        return out[0], out[1]
+
+    def write_pages(self, slot: int, pages, k: torch.Tensor,
+                    v: torch.Tensor) -> None:
+        """Install host K/V pages (``read_pages``' payload, in the pool's
+        dtype) into this slot's ``pages``.  The index is padded to the
+        bucket with the scratch page 0 and the payload with zeros, so pad
+        lanes write the scratch page, as inactive slots' decode writes
+        do."""
+        idx, n, nb, (L, B, N) = self._page_move_index(slot, pages)
+        dst = torch.from_numpy(idx).to(self.device)
+        for name, host in (("k_pool", k), ("v_pool", v)):
+            pool = self.cache["layers"][name]
+            page = tuple(pool.shape[3:])
+            if tuple(host.shape) != (L, n, *page):
+                raise ValueError(f"{name} payload {tuple(host.shape)}, "
+                                 f"pages are {(L, n, *page)}")
+            if host.dtype != pool.dtype:
+                raise TypeError(f"{name} payload is {host.dtype}, the pool "
+                                f"{pool.dtype}")
+            buf = pool.new_zeros((L, nb, *page))
+            buf[:, :n].copy_(host)
+            pool.view(L * B * N, *page).index_copy_(
+                0, dst, buf.view(L * nb, *page))
+        self.migration_dispatches += 1
 
     # ------------------------------------------------------------------
     # the fused step

@@ -40,8 +40,22 @@ dispatch (bucketed to a power of two of pages).  ``speculate_k = k > 0``
 verifies them with the whole model inside the same fused step; the host
 reads each slot's accepted count back before the next step.
 
-Not ported yet (ROADMAP.md, Queue A): the tier handoff and the cluster
-plane.
+Cluster plane (:mod:`repro_torch.cluster`): an engine is one replica of
+a ``ReplicaGroup`` — ``replica_id`` names it, its ``BlockPool`` is that
+replica's shard of the group's ``ShardedPoolSet`` and its policy that
+replica's stamp domain, which a ``ClusterHold`` enters.  The ``journal``
+(any object with ``record_submit`` / ``record_token`` /
+``record_finish``) records every host-observed token so a dead replica's
+requests replay elsewhere; ``crashed`` makes ``step()`` refuse to run
+and ``retired`` marks a drained or dead husk, whose pools
+``free_device_state`` releases.  Prefix migration reads cached pages to
+the host (``export_prefix``, through the block-gather kernel) and
+installs them in another replica (``import_prefix``).  A request marked
+``handoff`` (the prefill tier of a disaggregated group) parks after its
+final prefill chunk instead of decoding; ``export_request`` emits its
+token 1, reads its whole-prompt K/V to the host and frees its pages, and
+``import_request`` on a decode replica installs them and admits it
+straight into the decode lane.
 """
 
 from __future__ import annotations
@@ -53,7 +67,7 @@ import numpy as np
 
 from ..configs.base import ShapeConfig
 from ..device import DeviceLike, resolve_device
-from ..memory.block_pool import BlockPool, PoolExhausted
+from ..memory.block_pool import BlockPool, PoolExhausted, ShardedPoolSet
 from ..memory.prefix_cache import PrefixCache, block_key, prefix_block_keys
 from ..models import Model
 from ..models.transformer import BLOCK_SIZE, cache_layout
@@ -84,7 +98,10 @@ class ServingEngine:
         temperature: float = 0.0,
         top_p: float = 1.0,
         sample_seed: int = 0,
+        replica_id: int = 0,
         params: Any = None,
+        shard_set: Optional[ShardedPoolSet] = None,
+        journal: Any = None,
         cow: bool = True,
         speculate_k: int = 0,
         draft_layers: Optional[int] = None,
@@ -123,7 +140,9 @@ class ServingEngine:
         self.mb = -(-max_seq // BLOCK_SIZE) + 1
         self.pipeline_depth = pipeline_depth
         self.chunk_tokens = chunk_tokens
-        self.replica_id = 0
+        # cluster plane: which replica this engine is; its pool is that
+        # replica's shard of the group's logical pool
+        self.replica_id = replica_id
         self.temperature = temperature
         self.top_p = top_p
         # sampled mode: requests carry a per-request sample_key and the
@@ -131,6 +150,11 @@ class ServingEngine:
         # sample_seed salts the DEFAULT key of requests submitted without
         # one
         self.sample_seed = sample_seed
+        # lifecycle plane: replay journal (duck-typed: the engine never
+        # imports the cluster plane), fault-injection and drain state
+        self.journal = journal
+        self.crashed = False  # fault injection: step() refuses to run
+        self.retired = False  # drained out of a live group
         # copy-on-write fork plane: cow=False is the equality baseline
         # (fork branches re-prefill the whole prompt independently)
         self.cow = cow
@@ -140,8 +164,11 @@ class ServingEngine:
 
         shape = ShapeConfig("engine", "decode", max_seq, max_slots)
         if params is None:
+            # replicas of a group share ONE param tree (the group passes
+            # it in); a standalone engine builds its own
             params = model.init_params(seed)
-        # the steps read weights in the compute dtype: cast once here
+        # the steps read weights in the compute dtype: cast once here (a
+        # tree already in that dtype comes back as the same tensors)
         params = model.compute_params(params)
         cache = model.init_cache(shape, pool_slack=extra_pages_per_slot)
 
@@ -152,6 +179,7 @@ class ServingEngine:
         # to a TP_WIDTH multiple, as the JAX package does).
         pool_pages = int(cache["layers"]["k_pool"].shape[2])
         self.pool = BlockPool(max_slots, pool_pages, policy=policy,
+                              shard_id=replica_id, shard_set=shard_set,
                               registry=registry)
         self.obs = self.pool.trace.registry
         self.spans = (spans if spans is not None
@@ -163,7 +191,8 @@ class ServingEngine:
         self.prefix_cache = PrefixCache(self.pool, prefix_cache_entries)
 
         self.sched = Scheduler(max_slots, self.mb, self.block,
-                               pipeline_depth, n_pool=pool_pages)
+                               pipeline_depth, replica_id=replica_id,
+                               n_pool=pool_pages)
         self.dev = DeviceState(
             model, params, cache, max_slots=max_slots, mb=self.mb,
             block=self.block, chunk_tokens=chunk_tokens,
@@ -191,9 +220,35 @@ class ServingEngine:
         self._next_group_id = 0
         self.cow_copies = 0  # partial prompt pages CoW-copied
         self.fork_admissions = 0  # branches admitted by page sharing
+        # tier plane: mid-request KV handoffs (prefill -> decode tier)
+        self.handoffs_out = 0  # requests exported after prefill here
+        self.handoffs_in = 0  # requests imported mid-request
         self.tokens_emitted = 0  # host-observed generated tokens
         self.spec_drafted = 0  # draft tokens offered to the verifier
         self.spec_accepted = 0  # ... accepted (bonus tokens beyond 1)
+
+    # ------------------------------------------------------------------
+    # scheduler-plane views
+    # ------------------------------------------------------------------
+    @property
+    def waiting(self):
+        return self.sched.waiting
+
+    @property
+    def active(self):
+        return self.sched.active
+
+    @property
+    def finished(self):
+        return self.sched.finished
+
+    @property
+    def free_slots(self):
+        return self.sched.free_slots
+
+    @property
+    def _inflight(self):
+        return self.sched.inflight
 
     # ------------------------------------------------------------------
     # public API
@@ -211,6 +266,8 @@ class ServingEngine:
             self.spans.begin(self._srid(req), "queue", step=self.steps,
                              replica=self.replica_id,
                              prompt_len=len(req.prompt))
+        if self.journal is not None:
+            self.journal.record_submit(req, self.temperature, self.top_p)
         return req
 
     def fork_submit(self, prompt: Sequence[int], n: int,
@@ -277,6 +334,8 @@ class ServingEngine:
                              replica=self.replica_id)
         if req.slot >= 0 and self.sched.active.get(req.slot) is req:
             slot = req.slot
+            if self.journal is not None:
+                self.journal.record_finish(req)
             self.sched.finished.append(req)
             own, foreign = self._split_refs(
                 req, self.sched.release_slot(slot))
@@ -299,7 +358,13 @@ class ServingEngine:
                 self.pool.release_fork(refs)
 
     def _srid(self, req: Request) -> str:
-        return f"r{self.replica_id}.{req.rid}"
+        """Stable span identity: survives the rid reassignment a tier
+        handoff performs on import (set once at first submit)."""
+        srid = getattr(req, "_span_rid", None)
+        if srid is None:
+            srid = f"r{self.replica_id}.{req.rid}"
+            req._span_rid = srid  # type: ignore[attr-defined]
+        return srid
 
     def _span_admit(self, req: Request) -> None:
         """Close the queue phase, open prefill (all admission paths)."""
@@ -310,6 +375,14 @@ class ServingEngine:
         self.spans.begin(srid, "prefill", step=self.steps,
                          replica=self.replica_id)
 
+    def effective_free_pages(self) -> int:
+        """Chunk-aware router load signal: free pages minus the pages
+        this engine is already committed to allocating (the unprefilled
+        remainder of mid-flight chunked admissions and waiting prompts),
+        so a replica mid-prefill reports its TRUE load."""
+        return (self.pool.free_pages_total()
+                - self.sched.pending_prefill_pages())
+
     def run_until_done(self, max_steps: int = 10_000) -> List[Request]:
         start = self.steps
         while self.sched.has_work():
@@ -319,14 +392,19 @@ class ServingEngine:
         return self.sched.finished
 
     def step(self) -> None:
+        if self.crashed:
+            raise RuntimeError(
+                f"replica {self.replica_id} is crashed (fault injection)")
         self.steps += 1
         _t0 = time.time()
         # 1. retire the oldest in-flight step if the pipeline is full
         while self.sched.pipeline_full():
             self._complete_oldest()
         # 2. admissions (chunked admissions only OCCUPY a slot here; their
-        #    prompt tokens ride the fused step one chunk at a time)
-        while self.sched.waiting and self.sched.free_slots:
+        #    prompt tokens ride the fused step one chunk at a time; a
+        #    draining replica pauses here and only finishes what it has)
+        while (not self.sched.admissions_paused and self.sched.waiting
+               and self.sched.free_slots):
             if not self._admit(self.sched.waiting[0]):
                 break
             self.sched.waiting.popleft()
@@ -346,9 +424,181 @@ class ServingEngine:
         self.prefix_cache.drain()
         self.pool.reclaim()
 
+    # ------------------------------------------------------------------
+    # cluster-plane hooks (replica membership, migration, holds)
+    # ------------------------------------------------------------------
     def hold(self, tag: str = "hold"):
-        """Pin this engine's stamp domain (see ReclamationPolicy.hold)."""
+        """Pin this replica's stamp domain (see ReclamationPolicy.hold);
+        the ClusterLedger composes one of these per replica."""
         return self.pool.hold(tag)
+
+    def adopt(self, req: Request) -> Request:
+        """Cluster requeue path (drain): take over a request another
+        replica accepted but never admitted."""
+        self.sched.adopt(req)
+        if self.journal is not None:
+            self.journal.record_submit(req, self.temperature, self.top_p)
+        return req
+
+    def pause_admissions(self) -> None:
+        """Live drain, phase 1: stop admitting; requests already in a
+        slot (active or mid chunked prefill) run to completion."""
+        self.sched.admissions_paused = True
+
+    def force_quiesce(self) -> dict:
+        """Dead-replica reaping: abandon the in-flight pipeline (nothing
+        will ever complete it) and force-expire every hold and step
+        handle in this replica's stamp domain, so the pages it pinned —
+        its own and, through cluster holds, other replicas' — can
+        reclaim.  The engine survives as a husk and is never stepped
+        again."""
+        self.sched.inflight.clear()
+        return self.pool.force_quiesce()
+
+    def free_device_state(self) -> None:
+        """Retired-husk memory release: drop this replica's K/V pools so
+        a drained or dead engine does not hold card memory for the life
+        of the group.  The params are SHARED with live replicas and stay;
+        ``stats()`` keeps working off counters.  The husk must never be
+        stepped again."""
+        self.dev.cache = None
+
+    def export_prefix(self, keys: Sequence[tuple]) -> List[tuple]:
+        """Migration source: read the cached K/V pages of the leading run
+        of ``keys`` to the host, pinned against eviction while reading.
+        Returns [(key, k, v), ...]; the caller must hold a cluster hold so
+        the pages cannot be reclaimed between export and eviction."""
+        entries = self.prefix_cache.acquire(keys)
+        blocks = []
+        try:
+            for key, e in zip(keys, entries):
+                k, v = self.dev.read_pages(e.slot, [e.page])
+                blocks.append((key, k, v))
+        finally:
+            self.prefix_cache.unpin(entries)
+        return blocks
+
+    def import_prefix(self, blocks: Sequence[tuple]) -> int:
+        """Migration destination: install exported K/V pages into this
+        replica's pool and prefix cache.  Returns the number imported
+        (stops early on pool exhaustion; cached keys are skipped)."""
+        n = 0
+        for key, k, v in blocks:
+            if self.prefix_cache.get(key) is not None:
+                continue
+            slot = max(range(self.max_slots),
+                       key=self.pool.free_slot_pages)
+            try:
+                (page,) = self.pool.alloc(slot, 1)
+            except PoolExhausted:
+                break
+            self.dev.write_pages(slot, [page], k, v)
+            if self.prefix_cache.insert(key, slot, page):
+                n += 1
+            else:  # cache full of pinned entries: give the page back
+                self.pool.free(slot, [page])
+        return n
+
+    def evict_prefix(self, keys: Sequence[tuple]) -> int:
+        """Migration source, after a successful import: drop the moved
+        entries (their pages RETIRE through the policy — under an open
+        cluster hold they stay unreclaimed until it releases)."""
+        return self.prefix_cache.remove(keys)
+
+    def export_request(self, slot: int) -> Optional[dict]:
+        """Tier plane, source side of the mid-request K/V handoff: read a
+        parked prefill-done request's whole-prompt K/V to the host and
+        free its pages HERE.  The caller holds a ClusterLedger hold owned
+        by this replica for the whole export -> import window: the pages
+        retire now but stay pinned (retire-but-held) until the hold
+        releases after import — the paper's long-lived critical region
+        at handoff granularity.
+
+        Token 1 (sampled on the card by the final prefill chunk) is
+        emitted here, on the SOURCE, so a replay after a source death
+        mid-handoff resumes from prompt + [token 1].  A request whose
+        budget or eos is met by token 1 alone finishes here and is not
+        handed off (returns None)."""
+        sched = self.sched
+        req = sched.prefill_done[slot]
+        first_dev = req._first_dev  # type: ignore[attr-defined]
+        if first_dev is None:
+            raise RuntimeError("export before the final chunk's step")
+        t1 = int(first_dev.item())
+        req._first_dev = None  # type: ignore[attr-defined]
+        self._emit(req, t1)
+        hit_eos = req.eos_id is not None and t1 == req.eos_id
+        if hit_eos or req.max_new_tokens <= 1:
+            self._finish(slot, req)
+            return None
+        refs = sched.slot_pages[slot]
+        if any(r[0] != slot for r in refs):
+            raise RuntimeError("a handoff request never shares CoW pages")
+        pages = [p for (_, p) in refs]
+        k, v = self.dev.read_pages(slot, pages)
+        freed = sched.release_slot(slot)
+        self.pool.free_refs(freed)
+        self._refs_dirty = True
+        self.dev.stage_reset(slot)
+        self.handoffs_out += 1
+        if self.spans.enabled:
+            # close the decode sliver _emit opened for token 1; the tier
+            # plane opens the handoff phase around this export
+            self.spans.end(self._srid(req), "decode", step=self.steps)
+        return {
+            "req": req,
+            "prompt_len": len(req.prompt),
+            "token1": t1,
+            "k": k,
+            "v": v,
+            "n_pages": len(pages),
+            "src": self.replica_id,
+        }
+
+    def import_request(self, packet: dict) -> bool:
+        """Tier plane, destination side: install an exported request's
+        K/V into this replica's pool and admit it straight into the
+        decode lane (the staged admit sets lengths = prompt_len and
+        teacher-forces token 1, so the next fused step decodes token 2).
+        The request continues under a fresh LOCAL rid and a NEW journal
+        entry carrying its emitted tokens — the adopt() requeue
+        bookkeeping, which makes a death mid-handoff replay cleanly.
+        Returns False (the caller retries or re-routes) when this replica
+        has no free slot or pages."""
+        sched = self.sched
+        if not sched.free_slots or sched.admissions_paused:
+            return False
+        req: Request = packet["req"]
+        slot = sched.free_slots[-1]
+        try:
+            pages = self.pool.alloc(slot, packet["n_pages"])
+        except PoolExhausted:
+            return False
+        self.dev.write_pages(slot, pages, packet["k"], packet["v"])
+        req.rid = sched._next_rid
+        sched._next_rid += 1
+        req.replica = self.replica_id
+        gen = list(req.generated or [])  # bind_slot resets generated
+        sched.bind_slot(req, slot, pages, packet["prompt_len"])
+        req.generated = gen
+        req._tf_suffix = []  # type: ignore[attr-defined]
+        req._first_dev = None  # type: ignore[attr-defined]
+        self._refs_dirty = True
+        self.dev.stage_admit(slot, packet["prompt_len"],
+                             sched.block_table[slot], packet["n_pages"],
+                             token=packet["token1"], set_token=True,
+                             seed=int(req.sample_key or 0))
+        if self.journal is not None:
+            # record_submit journals the already-emitted prefix (token 1
+            # and any tokens served before a re-import), so a death here
+            # later replays from prompt + emitted like any other request
+            self.journal.record_submit(req, self.temperature, self.top_p)
+        self.admissions += 1
+        self.handoffs_in += 1
+        if self.spans.enabled:
+            self.spans.begin(self._srid(req), "decode", step=self.steps,
+                             replica=self.replica_id, imported=True)
+        return True
 
     # ------------------------------------------------------------------
     # admission
@@ -368,8 +618,11 @@ class ServingEngine:
         n_hit_tokens = min(len(hits) * self.block, len(prompt) - 1)
         suffix = prompt[n_hit_tokens:]
         # replay only pays off for short suffixes; a long one takes the
-        # chunked prefill, which rewrites EVERY page
-        if n_hit_tokens and len(suffix) <= 2 * self.block:
+        # chunked prefill, which rewrites EVERY page.  Handoff requests
+        # must finish prefill in the chunk lane (the tier plane parks
+        # them at the final chunk), so they skip the replay path
+        if (n_hit_tokens and len(suffix) <= 2 * self.block
+                and not req.handoff):
             # short suffix after a cache hit: teacher-force through decode
             try:
                 pages = self.pool.alloc(slot, n_blocks)
@@ -585,15 +838,24 @@ class ServingEngine:
             if hold is not None:
                 hold.release()
                 req._chunk_hold = None  # type: ignore[attr-defined]
-            # prompt fully staged: promote to the decode lane.  The admit
-            # below applies in the SAME step as the final chunk — the
-            # chunk lane runs first and leaves token 1 in first_buf, so
-            # this step already decodes token 2.
-            sched.promote(slot, P)
-            self.dev.stage_admit(slot, P, sched.block_table[slot],
-                                 req.n_pages, token_from_buf=True,
-                                 set_token=True,
-                                 seed=int(req.sample_key or 0))
+            if req.handoff:
+                # disaggregated prefill: the final chunk still rides this
+                # step (token 1 lands in first_buf and _first_dev), but the
+                # slot is NOT promoted to the decode lane — it parks in
+                # prefill_done until the tier plane exports its K/V pages
+                # to a decode replica.  The slot's device lengths and mask
+                # stay 0, so the fused step never decodes it here.
+                sched.park_prefill_done(slot)
+            else:
+                # prompt fully staged: promote to the decode lane.  The
+                # admit below applies in the SAME step as the final chunk
+                # — the chunk lane runs first and leaves token 1 in
+                # first_buf, so this step already decodes token 2.
+                sched.promote(slot, P)
+                self.dev.stage_admit(slot, P, sched.block_table[slot],
+                                     req.n_pages, token_from_buf=True,
+                                     set_token=True,
+                                     seed=int(req.sample_key or 0))
         return True
 
     def _alloc_chunk_pages(self, slot: int, req: Request,
@@ -779,7 +1041,7 @@ class ServingEngine:
 
     def _emit(self, req: Request, tok: int) -> None:
         """Host-observed token emission: the ONLY place generated tokens
-        appear."""
+        appear, so the replay journal can never miss one."""
         req.generated.append(tok)
         req.token_times.append(time.time())
         req.token_busy.append(self.busy_s)
@@ -797,6 +1059,8 @@ class ServingEngine:
                                  replica=self.replica_id)
                 self.spans.begin(srid, "decode", step=self.steps,
                                  replica=self.replica_id)
+        if self.journal is not None:
+            self.journal.record_token(req, tok)
 
     @staticmethod
     def _split_refs(req: Request, refs):
@@ -815,6 +1079,8 @@ class ServingEngine:
     def _finish(self, slot: int, req: Request) -> None:
         req.done = True
         req.finished_at = time.time()
+        if self.journal is not None:
+            self.journal.record_finish(req)
         self.sched.finished.append(req)
         refs = self.sched.release_slot(slot)
         own, foreign = self._split_refs(req, refs)
@@ -864,6 +1130,8 @@ class ServingEngine:
         g("prefill_chunks", **lab).set(self.prefill_chunks)
         g("chunk_backpressure", **lab).set(self.chunk_backpressure)
         g("backpressure_syncs", **lab).set(self.backpressure_syncs)
+        g("handoffs_out", **lab).set(self.handoffs_out)
+        g("handoffs_in", **lab).set(self.handoffs_in)
         g("prefix_hits", **lab).set(self.prefix_cache.hits)
         g("prefix_misses", **lab).set(self.prefix_cache.misses)
         g("cow_copies", **lab).set(self.cow_copies)
@@ -914,6 +1182,10 @@ class ServingEngine:
             "forks_released": self.pool.forks_released,
             "cow_copies": self.cow_copies,
             "fork_admissions": self.fork_admissions,
+            # tier plane
+            "handoffs_out": self.handoffs_out,
+            "handoffs_in": self.handoffs_in,
+            "prefill_ready": len(self.sched.prefill_done),
             # speculative-decode lane
             "speculate_k": self.speculate_k,
             "spec_drafted": self.spec_drafted,

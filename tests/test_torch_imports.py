@@ -1,9 +1,10 @@
 """The PyTorch package stands alone: importing it, running an engine
 step, a sampled engine with a copy-on-write fork, a whole-prompt
-speculative engine under a core scheme, and an SSM, an
-encoder-decoder and a hybrid prefill and decode pulls in neither JAX nor
-the JAX package, and its entry points run on the card unless told
-otherwise."""
+speculative engine under a core scheme, a disaggregated replica group
+with the lifecycle plane and the trace exporters, a prefix migration
+between replicas, and an SSM, an encoder-decoder and a hybrid prefill
+and decode pulls in neither JAX nor the JAX package, and its entry
+points run on the card unless told otherwise."""
 
 import pathlib
 import re
@@ -52,6 +53,30 @@ eng.submit(list(np.arange(1, 40)), max_new_tokens=3)
 eng.run_until_done()
 import repro_torch.core
 import repro_torch.memory.stall
+
+# the cluster plane: a disaggregated group with the lifecycle plane, a
+# prefix migration, and the trace exporters
+from repro_torch.cluster import (LifecycleManager, ReplicaGroup,
+                                 migrate_prefix)
+from repro_torch.obs.export import chrome_trace, validate_chrome_trace
+
+model = Model(smoke_config(ARCHS["qwen2-0.5b"]), device="cpu")
+group = ReplicaGroup(model, prefill_replicas=1, decode_replicas=1,
+                     max_slots=2, max_seq=256)
+LifecycleManager(group, heartbeat_timeout=2)
+group.submit(list(np.arange(1, 40)), max_new_tokens=3)
+group.run_until_done()
+assert group.tiers.handoffs_completed == 1
+assert validate_chrome_trace(chrome_trace(group.spans)) > 0
+group = ReplicaGroup(model, 2, max_slots=2, max_seq=256,
+                     router="prefix-affinity", prefix_cache_entries=4)
+prompt = list(np.arange(1, 140))
+group.submit(prompt, max_new_tokens=2)
+group.run_until_done()
+src = group.route_trace[0][1]
+assert migrate_prefix(group, prompt, src, 1 - src)["imported"] == 1
+group.checkpoint()
+group.drain()
 
 import torch
 from repro_torch.configs import ShapeConfig
@@ -120,6 +145,24 @@ def test_sources_name_no_jax_import():
     assert len(files) > 10
     hits = [f for f in files if pat.search(f.read_text())]
     assert hits == []
+
+
+def test_group_replicas_live_on_the_models_device():
+    """A group takes no device of its own: every replica's engine, pools
+    and the shared weights live on the model's device (the card unless
+    the model was built for the CPU)."""
+    from repro_torch.cluster import ReplicaGroup
+    from repro_torch.cluster.group import _leaves
+    from repro_torch.configs import ARCHS, smoke_config
+    from repro_torch.models import Model
+
+    model = Model(smoke_config(ARCHS["qwen2-0.5b"]), device="cpu")
+    group = ReplicaGroup(model, 2, max_slots=1, max_seq=256)
+    for eng in group.engines:
+        assert eng.device == model.device
+        assert eng.dev.cache["layers"]["k_pool"].device == model.device
+        assert all(t.device == model.device
+                   for t in _leaves(eng.dev.params))
 
 
 def test_engine_defaults_to_the_card():
