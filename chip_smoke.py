@@ -46,8 +46,11 @@ It checks that each path went through its kernels (launch counts, and
 the split combines beside them), and times each kernel beside its plain
 version, its bound and a library call.  The page gather is held bit
 for bit, at every handoff read's shape too (a replica's pool, a
-host-built index), and the sampling uniforms and the sampler against
-their host versions.  Every phase prints one
+host-built index), on a pool at an odd base, with ids out of range (zero
+pages) and at M 0, each case naming its plan;
+its rows time kernel and ``index_select`` on a cold L2 in turns beside
+the launch floor.  The sampling uniforms and the sampler are held
+against their host versions.  Every phase prints one
 JSON line; the card's name and power limit
 print as ``nvidia-smi`` gives them; the line before the last is the
 ``{"kernels": [...]}`` table and the last line is ``{"ok": true,
@@ -937,13 +940,45 @@ def handoff_index(torch, n, slot=1, seed=0):
     return torch.from_numpy(idx.reshape(-1).astype(np.int32))
 
 
+def gather_plan(torch, pool, got) -> dict:
+    """The plan the gather ran for ``got = block_gather_kernel(pool,
+    idx)``, and its blocks."""
+    from repro_torch.kernels.block_gather import plan_gather
+
+    plan = plan_gather(pool[0].numel() * pool.element_size(), got.shape[0],
+                       pool.data_ptr(), got.data_ptr())
+    return {**plan._asdict(), "blocks": got.shape[0] * plan.pieces}
+
+
+def gather_want(pool, idx):
+    """``pool[idx]`` with a zero page where ``idx`` is out of range."""
+    from repro_torch.kernels import ref
+
+    idx = idx.to(pool.device)
+    n = pool.shape[0]
+    want = ref.block_gather(pool, idx.clamp(0, n - 1))
+    want[(idx < 0) | (idx >= n)] = 0
+    return want
+
+
+def misaligned(torch, t):
+    """``t`` copied into storage one element past a 16-byte boundary:
+    contiguous, but its base takes no 16-byte word."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
 def phase_block_gather_parity(torch):
     """The gather kernel against ``pool[idx]``: a copy, so bit-exact.
     qwen2's and seamless's pages and a 30-byte bf16 page (the kernel's
-    narrow-word path); then every handoff read's shape (M 24 to 192) over
-    a cluster replica's pool with a host-built index, as ``read_pages``
-    passes it."""
-    from repro_torch.kernels import ref
+    narrow words); every handoff read's shape (M 24 to 192) over a
+    cluster replica's pool with a host-built index, as ``read_pages``
+    passes it, and M 192's index on the card; a pool one element past a
+    16-byte boundary (narrow words); device indices with ids out of
+    range (a zero page each); M 0 (no launch).  Each case names the plan
+    it ran."""
     from repro_torch.kernels.block_gather import block_gather_kernel
 
     saved = block_gather_kernel.launches
@@ -951,15 +986,20 @@ def phase_block_gather_parity(torch):
     errs = {}
 
     def hold(dname, page, m, pool, idx, **extra):
+        before = block_gather_kernel.launches
         got = block_gather_kernel(pool, idx)
-        want = ref.block_gather(pool, idx.to(pool.device))
+        want = gather_want(pool, idx)
         torch.cuda.synchronize()
-        err = max_err(got, want)
+        err = max_err(got, want) if m else 0.0
         same = bool(torch.equal(got, want))
+        launched = block_gather_kernel.launches - before
         rows.append({"dtype": dname, "page": list(page), "M": m,
                      "page_bytes": pool[0].numel() * pool.element_size(),
-                     "max_abs_err": err, "bit_exact": same, **extra})
+                     "max_abs_err": err, "bit_exact": same,
+                     "plan": gather_plan(torch, pool, got) if m else None,
+                     **extra})
         check(same, f"block_gather {dname} {page} M={m} {extra} differs")
+        check(launched == (m > 0), f"block_gather M={m}: {launched} launches")
         key = ("block_gather", dname)
         errs[key] = max(errs.get(key, 0.0), err)
 
@@ -975,7 +1015,22 @@ def phase_block_gather_parity(torch):
             idx = handoff_index(torch, n)
             hold(dname, QWEN_PAGE, idx.numel(), pool, idx,
                  pool_pages=pool.shape[0], pages=n, index="host int32")
+        hold(dname, QWEN_PAGE, 192, pool, handoff_index(torch, 8).cuda(),
+             pool_pages=pool.shape[0], pages=8, index="device int32")
         del pool
+    for dname in ("float32", "bfloat16"):
+        pool, idx = gather_inputs(torch, getattr(torch, dname), 512,
+                                  QWEN_PAGE, 24)
+        odd = misaligned(torch, pool)
+        hold(dname, QWEN_PAGE, 24, odd, idx, base="one element past 16 B")
+        bad = idx.clone()
+        bad[[0, 5, 23]] = torch.tensor([-1, 512, 2**31 - 1],
+                                       dtype=torch.int32, device="cuda")
+        for what, p in (("16-byte base", pool), ("odd base", odd)):
+            hold(dname, QWEN_PAGE, 24, p, bad, index="ids -1, N_pool, "
+                 "2^31 - 1 at rows 0, 5, 23 (zero pages)", base=what)
+        hold(dname, QWEN_PAGE, 0, pool, idx[:0], index="empty")
+        del pool, odd
     block_gather_kernel.launches = saved
     emit({"phase": "block_gather_parity", "ok": True, "tol": 0,
           "cases": rows})
@@ -1219,6 +1274,11 @@ def phase_fork_engine(torch, model, params):
     return launches
 
 
+#: rounds of paired cold-L2 timings of the gather rows: kernel and
+#: index_select in turns, then the reverse order; the median of each
+GATHER_COLD_ROUNDS = 7
+
+
 def block_gather_table_rows(torch, launches):
     """The gather at the fork and handoff runs' sizes, bf16: kernel,
     ``pool[idx]`` and ``index_select`` time (queued back to back, and
@@ -1226,9 +1286,16 @@ def block_gather_table_rows(torch, launches):
     once and written once, plus the index), and each row's error on its
     own inputs.  M 24 and 144 gather from the engine's pool; M 192 from
     a cluster replica's pool with the index ``read_pages`` builds for a
-    handoff of 8 pages (the kernel is timed on its uploaded copy)."""
+    handoff of 8 pages (the kernel is timed on its uploaded copy).
+
+    The cold times come first, before any profiler window: kernel,
+    ``index_select`` and the launch floor (an empty kernel from the
+    gather's library at the plan's grid, ``cold_floor_ms``) in turns,
+    then in the reverse order, ``GATHER_COLD_ROUNDS`` times, the median
+    of each; ``pool[idx]`` once after them."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.block_gather import block_gather_kernel
+    from repro_torch.kernels.block_gather import (block_gather_kernel,
+                                                  block_gather_probe)
 
     saved = block_gather_kernel.launches
     rows = []
@@ -1250,19 +1317,26 @@ def block_gather_table_rows(torch, launches):
         torch.cuda.synchronize()
         err = max_err(got, want)
         check(torch.equal(got, want), f"block_gather row M={m} differs")
+        plan = gather_plan(torch, pool, got)
         fns = {"kernel": lambda: block_gather_kernel(pool, idx),
                "plain": lambda: ref.block_gather(pool, idx),
                "library": lambda: torch.index_select(pool, 0, idx)}
+        floor = {"floor": lambda: block_gather_probe(idx, plan["blocks"])}
+        paired = {k: [] for k in ("kernel", "library", "floor")}
+        for _ in range(GATHER_COLD_ROUNDS):
+            for k in list(paired) + list(paired)[::-1]:
+                paired[k].append(cold_ms({**fns, **floor}[k]))
+        cold = {k: statistics.median(v) for k, v in paired.items()}
+        cold["plain"] = cold_ms(fns["plain"])
+        floor_ms = cold.pop("floor")
         k_ms, p_ms, l_ms = (time_ms(f) for f in fns.values())
         # at these sizes a call's host enqueue outlasts its device work,
         # so the event times above read the host; the profiler gives the
-        # device time of each call's kernels
+        # device time of each call's kernels (20 queued calls re-read
+        # pages that stay in the 50 MB L2)
         dev_ms = {k: _profile_window(torch, lambda f=f: [
             f() for _ in range(20)])["device_busy_s"] * 1e3 / 20
             for k, f in fns.items()}
-        # 20 queued calls re-read pages that stay in the 50 MB L2; a
-        # handoff read runs once on pages written long before
-        cold = {k: cold_ms(f) for k, f in fns.items()}
         # the host's enqueue alone: 1,000 calls with no synchronise, kernel
         # and index_select in turns, 7 rounds, the median of each
         rounds = {"kernel": [], "library": []}
@@ -1286,9 +1360,12 @@ def block_gather_table_rows(torch, launches):
                                      "flattened pool (timed only)",
                      "shape": f"pool ({pool.shape[0]}, 128, 2, 64) M={m}: "
                               f"{what}",
-                     "bytes": n_bytes, "device_ms": dev_ms,
-                     "cold_ms": cold,
-                     "cold_bound_share": b_ms / cold["kernel"]})
+                     "plan": plan, "bytes": n_bytes, "device_ms": dev_ms,
+                     "cold_ms": cold, "cold_floor_ms": floor_ms,
+                     "cold_rounds": {k: paired[k] for k in ("kernel",
+                                                            "library")},
+                     "cold_bound_share": b_ms / cold["kernel"],
+                     "cold_vs_library": cold["kernel"] / cold["library"]})
         del pool
     block_gather_kernel.launches = saved
     return rows

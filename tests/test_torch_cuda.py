@@ -15,7 +15,9 @@ mixtral's 4096, a window past the keys bit for bit against none), a
 full-width mixtral-8x7b layer's attention (windowed flash, one decode
 step on a wrapped ring through the decode kernel) against the plain
 path, the
-block-gather kernel against ``pool[idx]`` (bit-exact), the sampling
+block-gather kernel against ``pool[idx]`` (bit-exact: a pool at an odd
+base, a zero page for an id out of range, plans its planner does not
+pick and plans it refuses), the sampling
 uniforms on the card against their numpy twin (bit-exact), and a sampled
 fork engine on the card against the same engine on the CPU.
 Marked ``cuda``: each test skips where there is no card.  On a machine
@@ -912,6 +914,121 @@ def test_block_gather_kernel_matches_plain(card, dtype, page, M):
         ops.block_gather(pool, torch.tensor([200], dtype=torch.int32))
     with pytest.raises(ValueError):
         ops.block_gather(pool[::2], idx)  # never gathers from a copy
+
+
+def _handoff_index(n, L=24, B=4, N=16, slot=1, seed=0):
+    """The host-built index ``DeviceState.read_pages`` hands the gather
+    for ``n`` of one slot's pages in an (L * B * N)-page replica pool:
+    layer-major, padded to a power of two with the slot's page 0."""
+    rs = np.random.RandomState(seed + n)
+    pages = rs.choice(np.arange(1, N), n, replace=False)
+    nb = 1 << (n - 1).bit_length()
+    pages = np.concatenate([pages, np.zeros(nb - n, np.int64)])
+    idx = np.arange(L)[:, None] * (B * N) + slot * N + pages[None, :]
+    return torch.from_numpy(idx.reshape(-1).astype(np.int32))
+
+
+def _gather_want(pool, idx):
+    """``pool[idx]`` with a zero page where ``idx`` is out of range."""
+    n = pool.shape[0]
+    bad = (idx < 0) | (idx >= n)
+    want = ref.block_gather(pool, idx.clamp(0, n - 1))
+    want[bad] = 0
+    return want
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["unaligned", "bad_index",
+                                  "bad_index_unaligned", "m0",
+                                  "handoff_m192"])
+def test_block_gather_kernel_cases(card, dtype, case):
+    """Beside ``test_block_gather_kernel_matches_plain``, each bit-exact: a
+    pool viewed one element past a 16-byte boundary (narrow words),
+    a device index with ids out of range (a zero page, on 16-byte and on
+    narrower words), M 0 (no launch) and the M 192 index of a handoff
+    read of 8 pages over a replica's 1,536-page pool."""
+    from repro_torch.kernels.block_gather import block_gather_kernel
+
+    g = torch.Generator(device=card).manual_seed(3)
+    n_pool = 1536 if case == "handoff_m192" else 200
+    pool = torch.randn((n_pool, 128, 2, 64), generator=g,
+                       device=card).to(dtype)
+    if "unaligned" in case:
+        pool = _misaligned(pool)
+    m = {"m0": 0, "handoff_m192": 192}.get(case, 24)
+    idx = torch.randint(0, n_pool, (m,), generator=g, device=card,
+                        dtype=torch.int32)
+    if case == "handoff_m192":
+        idx = _handoff_index(8)
+    if "bad_index" in case:
+        idx[[0, 5, 23]] = torch.tensor([-1, n_pool, 2**31 - 1],
+                                       dtype=torch.int32, device=card)
+    before = block_gather_kernel.launches
+    got = ops.block_gather(pool, idx)
+    torch.cuda.synchronize()
+    assert got.shape == (m, *pool.shape[1:]) and got.dtype == dtype
+    assert block_gather_kernel.launches == before + (m > 0)
+    assert torch.equal(got, _gather_want(pool, idx.to(card)))
+    if m:
+        from repro_torch.kernels.block_gather import plan_gather
+
+        plan = plan_gather(pool[0].numel() * pool.element_size(), m,
+                           pool.data_ptr(), got.data_ptr())
+        assert (plan.word_bytes < 16) == ("unaligned" in case)
+
+
+# (piece KB, word bytes): 4, 2 and 1 words a thread, narrower words than
+# the page allows, a piece that does not divide the page
+_OTHER_PLANS = [(16, 16), (8, 16), (4, 16), (8, 8), (2, 2), (12, 16)]
+
+
+@pytest.mark.parametrize("page", [(128, 2, 64), (128, 16, 64)])
+@pytest.mark.parametrize("spec", _OTHER_PLANS,
+                         ids=[f"{p}K-w{w}" for p, w in _OTHER_PLANS])
+def test_block_gather_kernel_under_other_plans(card, monkeypatch, page,
+                                               spec):
+    """Plans the planner does not pick, bit-exact, with a zero page for
+    an id out of range."""
+    from repro_torch.kernels import block_gather as bg
+
+    g = torch.Generator(device=card).manual_seed(spec[0])
+    pool = torch.randn((64, *page), generator=g,
+                       device=card).to(torch.bfloat16)
+    idx = torch.randint(0, 64, (37,), generator=g, device=card,
+                        dtype=torch.int32)
+    idx[11] = 64
+    page_bytes = pool[0].numel() * 2
+    piece = min(spec[0] << 10, page_bytes)
+    plan = bg.GatherPlan(piece, -(-page_bytes // piece), spec[1])
+    monkeypatch.setattr(bg, "plan_gather", lambda *_: plan)
+    before = bg.block_gather_kernel.launches
+    got = bg.block_gather_kernel(pool, idx)
+    torch.cuda.synchronize()
+    assert bg.block_gather_kernel.launches == before + 1
+    assert torch.equal(got, _gather_want(pool, idx))
+
+
+@pytest.mark.parametrize("fault", ["word_on_odd_base", "piece_too_big",
+                                   "pieces_wrong", "word_not_power_of_two",
+                                   "piece_not_in_words"])
+def test_block_gather_kernel_refuses_a_plan(card, monkeypatch, fault):
+    """A plan the kernel cannot run raises and launches nothing."""
+    from repro_torch.kernels import block_gather as bg
+
+    pool = torch.zeros((8, 128, 2, 64), dtype=torch.bfloat16, device=card)
+    if fault == "word_on_odd_base":
+        pool = _misaligned(pool)
+    idx = torch.arange(8, dtype=torch.int32, device=card)
+    plan = {"word_on_odd_base": bg.GatherPlan(16384, 2, 16),
+            "piece_too_big": bg.GatherPlan(16384, 2, 8),
+            "pieces_wrong": bg.GatherPlan(8192, 3, 16),
+            "word_not_power_of_two": bg.GatherPlan(6144, 6, 6),
+            "piece_not_in_words": bg.GatherPlan(8200, 4, 16)}[fault]
+    monkeypatch.setattr(bg, "plan_gather", lambda *_: plan)
+    before = bg.block_gather_kernel.launches
+    with pytest.raises(RuntimeError):
+        bg.block_gather_kernel(pool, idx)
+    assert bg.block_gather_kernel.launches == before
 
 
 def test_counter_uniform_on_card_matches_numpy(card):
