@@ -5,7 +5,7 @@
 
 Builds the CUDA kernels from ``src/repro_torch/kernels/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version at the full-width
-shapes of its path, and drives four paths at published width with
+shapes of its path, and drives these paths at published width with
 random weights from a seed (mixtral over 6 of its 32 layers):
 
   * qwen2-0.5b through ``Model`` and a ``ServingEngine`` that serves 8
@@ -40,7 +40,14 @@ random weights from a seed (mixtral over 6 of its 32 layers):
   * mixtral-8x7b at full width over 6 layers through ``Model.prefill``
     (4 prompts of 6144 tokens: the flash kernel with the 4096-key
     sliding window, the top-2 MoE) and 32 greedy ``Model.decode_step``
-    calls on the rolling cache (the decode kernel over a wrapped ring).
+    calls on the rolling cache (the decode kernel over a wrapped ring);
+  * granite-3-8b, minitron-4b, phi3-mini-3.8b and granite-moe-3b-a800m
+    (40 experts top-8), nothing cut, one after the other: qwen2's 8
+    requests through a ``ServingEngine`` (the paged and flash kernels at
+    G 4 / D 128, G 3 / D 128, G 1 / D 96 and G 3 / D 64; the MoE over
+    each 128-token chunk), and each config over 4 layers in f32, the
+    engine on the kernels against the engine on the plain versions,
+    token for token.
 
 It checks that each path went through its kernels (launch counts, and
 the split combines beside them), and times each kernel beside its plain
@@ -55,9 +62,10 @@ JSON line; the card's name and power limit
 print as ``nvidia-smi`` gives them; the line before the last is the
 ``{"kernels": [...]}`` table and the last line is ``{"ok": true,
 "device": {...}}``.  Any failed check exits nonzero.
-``--profile`` adds torch.profiler windows over engine steps, and over a
+``--profile`` adds torch.profiler windows over engine steps, over a
 prefill and decode steps of the SSM, encoder-decoder, hybrid and MoE
-models.
+models, and over 8 engine steps (chunks and decode) of each of the four
+families.
 
 Needs a CUDA device and the repository's ``src/``; imports neither JAX
 nor the JAX package.
@@ -536,10 +544,17 @@ def phase_layers(torch, model, params):
 
     cfg, dev = model.cfg, model.device
     cache = model.init_cache(ShapeConfig("smoke", "decode", 1024, 8))
+    n_pool = cache["layers"]["k_pool"].shape[2]
     mb = 9
     row = torch.zeros((mb,), dtype=torch.int32, device=dev)
     row[:2] = torch.tensor([1, 2], dtype=torch.int32)  # slot 0's pages
+    # slots 1-7 decode at length 0: each writes its K/V to the first page
+    # of its table row and attends over that one key, so each gets its own
+    # scratch page (global id slot * n_pool).  On one shared page the 7
+    # writes land in one row in an order the card does not fix, and the
+    # kernel's and the plain path's calls can each read another winner.
     table = torch.zeros((8, mb), dtype=torch.int32, device=dev)
+    table[:, 0] = torch.arange(8, dtype=torch.int32, device=dev) * n_pool
     table[0] = row
     lengths = torch.zeros((8,), dtype=torch.int32, device=dev)
     lengths[0] = 128
@@ -641,34 +656,43 @@ def phase_model(torch, model, p_cond, p_own):
 
 
 PROMPT_LENS = (260, 900, 520, 140, 100, 400, 777, 333)  # first 4 share
+# the kernel rows' engine shapes: the 8 slots mid-decode (prompt + 16
+# generated + the new token); the 900-token prompt's last chunk (start
+# 768, its 8 pages of keys swept)
+DECODE_LENGTHS = [n + 17 for n in PROMPT_LENS]
+LAST_CHUNK_OFFSET, LAST_CHUNK_SWEEP = 768, 1024
 
 
-def prompts():
+def prompts(vocab: int = 150_000):
+    """The greedy cell's 8 prompts, token ids in ``[1, vocab)`` from seed
+    0 (qwen2's draw below its 151,936 ids unless ``vocab`` says)."""
     import numpy as np
 
     rs = np.random.RandomState(0)
-    shared = list(rs.randint(1, 150_000, 128))
+    shared = list(rs.randint(1, vocab, 128))
     out = []
     for i, n in enumerate(PROMPT_LENS):
         if i < 4:
-            out.append(shared + list(rs.randint(1, 150_000, n - 128)))
+            out.append(shared + list(rs.randint(1, vocab, n - 128)))
         else:
-            out.append(list(rs.randint(1, 150_000, n)))
+            out.append(list(rs.randint(1, vocab, n)))
     return out
 
 
 def run_engine(torch, model, params, impl=None, max_new=32, unreclaimed=None,
-               **kw):
-    """The 8 requests through a ``ServingEngine`` (stamp-it, chunks of 128
-    unless ``kw`` says otherwise); ``unreclaimed`` collects the pool's
-    unreclaimed pages after every step."""
+               prompt_list=None, **kw):
+    """The 8 requests (``prompt_list``, by default qwen2's) through a
+    ``ServingEngine`` (stamp-it, chunks of 128 unless ``kw`` says
+    otherwise); ``unreclaimed`` collects the pool's unreclaimed pages
+    after every step."""
     from repro_torch.serving import ServingEngine
 
     kw = {"policy": "stamp-it", **kw}
     eng = ServingEngine(model, max_slots=8, max_seq=1024,
                         prefix_cache_entries=16, params=params, impl=impl,
                         device=model.device, **kw)
-    reqs = [eng.submit(p, max_new_tokens=max_new) for p in prompts()]
+    reqs = [eng.submit(p, max_new_tokens=max_new)
+            for p in (prompt_list or prompts())]
     events = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -795,92 +819,117 @@ def phase_small_reference(torch):
           "tokens": sum(len(g) for g in out[None])})
 
 
-def phase_kernel_table(torch, launches, errs):
-    """Each kernel at the engine's shapes: kernel, plain and library time
-    beside the bound, all in bf16 (the compute dtype)."""
-    import torch.nn.functional as F
-
+def paged_row(torch, name, lengths, *, n_pool, H, Hkv, D, fields,
+              label=""):
+    """The paged kernel (global ids, n_kv 8 over 9 table columns) at one
+    engine decode shape, bf16: kernel, plain and device times beside the
+    bound (each K/V row read once), with the launch plan; ``fields`` (the
+    launches, the error) are the caller's.  Launch counts are restored."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_kernel
-    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
     from repro_torch.kernels.paged_attention import paged_attention_kernel
 
-    saved = (paged_attention_kernel.launches, flash_attention_kernel.launches)
-    bf = torch.bfloat16
-    elt = 2
-    H, Hkv, D = 14, 2, 64
-    # paged: the 8 slots mid-decode (prompt + 16 generated + the new token)
-    lengths = [n + 17 for n in PROMPT_LENS]
-    n_kv = 8  # pow2 bucket of ceil(max len / 128), capped at mb = 9
-    q, kp, vp, table, lens = paged_inputs(torch, bf, lengths)
+    saved = (paged_attention_kernel.launches,
+             paged_attention_kernel.combine_launches)
+    elt, n_kv = 2, 8
+    q, kp, vp, table, lens = paged_inputs(torch, torch.bfloat16, lengths,
+                                          n_pool=n_pool, mb=9, H=H, Hkv=Hkv,
+                                          D=D)
     def pfn():
         return paged_attention_kernel(q, kp, vp, table, lens, n_kv=n_kv,
                                       global_pages=True)
 
     k_ms = time_ms(pfn)
     p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens,
-                                               n_kv=n_kv,
-                                               global_pages=True))
-
+                                               n_kv=n_kv, global_pages=True))
     tok = sum(lengths)
     n_bytes = (2 * q.numel() * elt + tok * Hkv * D * 2 * elt
                + table.numel() * 4 + lens.numel() * 4)
-    flops = 4 * H * D * tok
-    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
-    paged = {"name": "paged_attention", "route": "cuda",
-             "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
-             "replaces": "src/repro/kernels/paged_attention.py:128",
-             "launches": launches["paged_attention"],
-             "max_abs_err": errs["paged_attention", "bfloat16"],
-             "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-             "bound_by": b_by, "library_ms": None,
-             **device_timings(torch, pfn),
-             "plan": paged_plan_fields(8, Hkv, n_kv, lengths),
-             "library_note": "no single PyTorch call attends over pages "
-                             "named by a block table",
-             "shape": f"B=8 lengths={lengths} n_kv={n_kv} H={H} Hkv={Hkv} "
-                      f"D={D} global ids"}
-    # flash: the last chunk of the 900-token prompt (start 768, 8 pages),
-    # and the first chunk of every prompt (start 0, one page)
-    rows = [paged]
-    for name, off, S_kv in (("flash_attention", 768, 1024),
-                            ("flash_attention_first_chunk", 0, 128)):
-        S_q = 128
-        q, k, v = flash_inputs(torch, bf, S_kv)
-        kfn = (lambda q=q, k=k, v=v, off=off: flash_attention_kernel(
-            q, k, v, causal=True, q_offset=off))
-        k_ms = time_ms(kfn)
-        p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=True,
-                                                   q_offset=off))
-        qpos = torch.arange(S_q, device=q.device)[:, None] + off
-        mask = torch.arange(S_kv, device=q.device)[None, :] <= qpos
-        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-        lfn = (lambda qt=qt, kt=kt, vt=vt, mask=mask:
-               F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                              enable_gqa=True))
-        l_ms = time_ms(lfn)
-        keys = sum(min(off + i + 1, S_kv) for i in range(S_q))
-        kv_rows = min(off + S_q, S_kv)
-        n_bytes = (2 * q.numel() * elt + 2 * kv_rows * Hkv * D * elt)
-        flops = 4 * H * D * keys
-        b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
-        plan = flash_plan(1, S_q, H, S_kv, q_offset=off, causal=True,
-                          head_dim=D)
-        rows.append({
-            "name": name, "route": "cuda",
+    b_ms, b_by = bound_ms(n_bytes, 4 * H * D * tok, "bfloat16")
+    dev = device_timings(torch, pfn)
+    (paged_attention_kernel.launches,
+     paged_attention_kernel.combine_launches) = saved
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+            "replaces": "src/repro/kernels/paged_attention.py:128",
+            **fields, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, **dev,
+            "bound_share_of_dev": b_ms / dev["dev_ms"],
+            "plan": paged_plan_fields(8, Hkv, n_kv, lengths),
+            "library_note": "no single PyTorch call attends over pages "
+                            "named by a block table",
+            "shape": f"{label}B=8 lengths={lengths} n_kv={n_kv} H={H} "
+                     f"Hkv={Hkv} D={D} n_pool={n_pool} global ids"}
+
+
+def flash_chunk_row(torch, name, off, S_kv, *, H, Hkv, D, fields, label=""):
+    """The flash kernel on one 128-query chunk at ``q_offset`` ``off``
+    over ``S_kv`` keys, causal, bf16: kernel, plain, SDPA and device
+    times beside the bound (the keys each row sees), with the launch
+    plan; ``fields`` are the caller's.  Launch counts are restored."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
+
+    saved = (flash_attention_kernel.launches,
+             flash_attention_kernel.combine_launches)
+    elt, S_q = 2, 128
+    q, k, v = flash_inputs(torch, torch.bfloat16, S_kv, H=H, Hkv=Hkv, D=D)
+    def kfn():
+        return flash_attention_kernel(q, k, v, causal=True, q_offset=off)
+
+    k_ms = time_ms(kfn)
+    p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=True,
+                                               q_offset=off))
+    qpos = torch.arange(S_q, device=q.device)[:, None] + off
+    mask = torch.arange(S_kv, device=q.device)[None, :] <= qpos
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    def lfn():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=True)
+
+    l_ms = time_ms(lfn)
+    keys = sum(min(off + i + 1, S_kv) for i in range(S_q))
+    n_bytes = 2 * q.numel() * elt + 2 * min(off + S_q, S_kv) * Hkv * D * elt
+    b_ms, b_by = bound_ms(n_bytes, 4 * H * D * keys, "bfloat16")
+    plan = flash_plan(1, S_q, H, S_kv, q_offset=off, causal=True,
+                      head_dim=D)
+    dev = device_timings(torch, kfn, lfn)
+    (flash_attention_kernel.launches,
+     flash_attention_kernel.combine_launches) = saved
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
             "replaces": "src/repro/kernels/flash_attention.py:85",
-            "launches": launches["flash_attention"],
-            "max_abs_err": errs["flash_attention", "bfloat16"],
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": l_ms,
-            **device_timings(torch, kfn, lfn),
+            **fields, "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": l_ms, **dev,
+            "bound_share_of_dev": b_ms / dev["dev_ms"],
             "library_note": "scaled_dot_product_attention, boolean causal "
                             "mask, enable_gqa=True (timed only)",
-            "shape": f"S_q={S_q} S_kv={S_kv} q_offset={off} H={H} "
+            "shape": f"{label}S_q={S_q} S_kv={S_kv} q_offset={off} H={H} "
                      f"Hkv={Hkv} D={D} warpgroups={plan.consumers} "
-                     f"key_tile={plan.keys} splits={plan.splits}"})
-    paged_attention_kernel.launches, flash_attention_kernel.launches = saved
+                     f"key_tile={plan.keys} splits={plan.splits}"
+                     + ("" if D in (32, 64, 128) else " run-time D")}
+
+
+def phase_kernel_table(torch, launches, errs):
+    """Each kernel at the engine's shapes: kernel, plain and library time
+    beside the bound, all in bf16 (the compute dtype): paged at
+    DECODE_LENGTHS, flash on the 900-token prompt's last chunk and on
+    the first chunk of every prompt (start 0, one page)."""
+    heads = dict(H=14, Hkv=2, D=64)
+    rows = [paged_row(torch, "paged_attention", DECODE_LENGTHS, n_pool=16,
+                      **heads,
+                      fields={"launches": launches["paged_attention"],
+                              "max_abs_err": errs["paged_attention",
+                                                  "bfloat16"]})]
+    for name, off, S_kv in (("flash_attention", LAST_CHUNK_OFFSET,
+                             LAST_CHUNK_SWEEP),
+                            ("flash_attention_first_chunk", 0, 128)):
+        rows.append(flash_chunk_row(
+            torch, name, off, S_kv, **heads,
+            fields={"launches": launches["flash_attention"],
+                    "max_abs_err": errs["flash_attention", "bfloat16"]}))
     return rows
 
 
@@ -3986,6 +4035,340 @@ def phase_moe_profile(torch, model, params, tokens, steps: int = 8):
         _ring_batch(torch, tokens[:, -1:], MX_SEQ), steps)
     emit({"phase": "moe_profile", "ok": True, **out})
 
+# ---------------------------------------------------------------------------
+# the dense and MoE families on the paged engine at published width
+# ---------------------------------------------------------------------------
+FAMILIES = ("granite-3-8b", "minitron-4b", "phi3-mini-3.8b",
+            "granite-moe-3b-a800m")
+# the f32 checks run each config over its first 4 layers
+FAM_F32_LAYERS = 4
+
+
+def family_attention_inputs(torch, model, params):
+    """Layer 0's q, K and V at full width in the compute dtype: 8
+    sequences of 1024 random tokens through the embedding, the norm, the
+    projections and RoPE."""
+    import numpy as np
+
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg, dev = model.cfg, model.device
+    lp = T._layer(params["layers"], 0)
+    toks = np.random.RandomState(5).randint(1, cfg.vocab_size,
+                                            (8, LAST_CHUNK_SWEEP))
+    toks = torch.from_numpy(toks.astype(np.int32)).to(dev)
+    a_in = L.apply_norm(lp["norm1"],
+                        L.embed_tokens(params["embed"], toks, cfg), cfg)
+    q, k, v = L._project_qkv(lp["attn"], a_in, cfg)
+    pos = torch.arange(LAST_CHUNK_SWEEP, dtype=torch.int32, device=dev)
+    return (L.apply_rope(q, pos, cfg.rope_theta),
+            L.apply_rope(k, pos, cfg.rope_theta), v)
+
+
+def phase_family_layer(torch, model, params, n_pool):
+    """One full-width layer in bf16, kernel against plain on the same
+    inputs: the chunk attention (the flash kernel: 128 queries at
+    q_offset 768 over the 1024-key sweep) and one decode step's attention
+    over the 8 slots' pages (the paged kernel: global ids, n_kv 8).
+    Held to the absolute and row-relative 2e-2."""
+    from repro_torch.kernels import ops
+
+    q, k, v = family_attention_inputs(torch, model, params)
+    dev = q.device
+    off = LAST_CHUNK_OFFSET
+    qc, kc, vc = q[1:2, off:off + 128], k[1:2], v[1:2]
+    got = ops.flash_attention(qc, kc, vc, causal=True, q_offset=off)
+    want = ops.flash_attention(qc, kc, vc, causal=True, q_offset=off,
+                               impl="plain")
+    out = {"flash": attention_errs(got, want, "bfloat16",
+                                   f"{model.cfg.name} chunk")}
+    # each slot's 1024 positions in its own pages 1 .. 8, named by global
+    # ids; the query is each slot's last position
+    B, S, Hkv, D = k.shape
+    kp = torch.zeros((B, n_pool, 128, Hkv, D), dtype=k.dtype, device=dev)
+    vp = torch.zeros_like(kp)
+    kp[:, 1:9] = k.view(B, 8, 128, Hkv, D)
+    vp[:, 1:9] = v.view(B, 8, 128, Hkv, D)
+    table = torch.zeros((B, 9), dtype=torch.int32, device=dev)
+    table[:, :8] = (torch.arange(B, device=dev)[:, None] * n_pool
+                    + torch.arange(1, 9, device=dev)[None]).int()
+    lens = torch.tensor(DECODE_LENGTHS, dtype=torch.int32, device=dev)
+    qd = q[torch.arange(B, device=dev), lens.long() - 1]
+    got = ops.paged_attention(qd, kp, vp, table, lens, n_kv=8,
+                              global_pages=True)
+    want = ops.paged_attention(qd, kp, vp, table, lens, n_kv=8,
+                               global_pages=True, impl="plain")
+    torch.cuda.synchronize()
+    out["paged"] = attention_errs(got, want, "bfloat16",
+                                  f"{model.cfg.name} decode")
+    return out
+
+
+def moe_chunk_drops(routes, cfg, n_layers):
+    """(token, expert) pairs each chunk of a recorded engine run drops
+    (its layers summed; chunk calls route (1, 128, k), the last chunk's
+    pad rows included, as they take capacity), the same summed over the
+    chunks layer by layer, and the pairs the decode calls drop."""
+    chunk = [dropped_pairs(ids, cfg) for ids in routes
+             if tuple(ids.shape[:2]) == (1, 128)]
+    per_chunk = [sum(chunk[i:i + n_layers])
+                 for i in range(0, len(chunk), n_layers)]
+    per_layer = [sum(chunk[i::n_layers]) for i in range(n_layers)]
+    decode = sum(dropped_pairs(ids, cfg) for ids in routes
+                 if ids.shape[1] == 1)
+    return per_chunk, per_layer, decode
+
+
+def record_kept_routes(torch, model, fn):
+    """``record_routes`` over an engine run on ``model``, each call's
+    top-k ids beside the rows whose outputs the engine keeps: a chunk's
+    rows up to its ``last_index`` (the last chunk's pad rows are
+    dropped), a decode step's active slots (a nonzero first page).  One
+    mask a model call, whose layers route in turn.
+
+    An idle slot's decode row is not a function of the run's inputs: its
+    block-table row is zeroed, so every idle slot writes its K/V to the
+    same row (row 0 of global page 0, a scratch page) with one
+    ``index_put_`` whose winner on duplicate indices the card does not
+    fix, and then attends over that one key.  Its hidden state, and so
+    its route, is whichever idle slot's write landed, in any two runs;
+    its output is discarded (the JAX package does the same)."""
+    kept = []
+    chunk, decode = model.prefill_chunk, model.decode_step
+
+    def chunk_kept(params, cache, batch, **kw):
+        rows = torch.arange(batch["tokens"].shape[1],
+                            device=batch["tokens"].device)
+        kept.append((rows <= int(batch["last_index"]))[None])
+        return chunk(params, cache, batch, **kw)
+
+    def decode_kept(params, cache, batch, **kw):
+        kept.append(batch["block_table"][:, :1] != 0)
+        return decode(params, cache, batch, **kw)
+
+    model.prefill_chunk, model.decode_step = chunk_kept, decode_kept
+    try:
+        out, routes = record_routes(fn)
+    finally:
+        del model.prefill_chunk, model.decode_step
+    n = model.cfg.num_layers
+    return out, [(ids, kept[i // n]) for i, ids in enumerate(routes)]
+
+
+def kept_route_flips(a, b) -> dict:
+    """Routing flips between two recorded runs (``record_kept_routes``):
+    on the rows the engine keeps, on idle slots' decode rows and on the
+    last chunks' pad rows."""
+    out = {"kept": 0, "idle_decode_rows": 0, "chunk_pad_rows": 0}
+    for (ia, ka), (ib, _) in zip(a, b):
+        flip = (ia.sort(-1).values != ib.sort(-1).values).any(-1)
+        out["kept"] += int((flip & ka).sum())
+        gone = "idle_decode_rows" if ia.shape[1] == 1 else "chunk_pad_rows"
+        out[gone] += int((flip & ~ka).sum())
+    return out
+
+
+def family_table_rows(torch, cfg, n_pool, launches, errs):
+    """The paged (global ids) and causal flash chunk kernels at one
+    family's engine shapes, as the qwen2 rows."""
+    heads = dict(H=cfg.num_heads, Hkv=cfg.num_kv_heads,
+                 D=cfg.resolved_head_dim)
+    short = cfg.name.split("-")[0] if cfg.family == "dense" else "granite_moe"
+    label = f"{cfg.name} "
+    return [
+        paged_row(torch, f"paged_attention_{short}", DECODE_LENGTHS,
+                  n_pool=n_pool, **heads, label=label, fields={
+                      "launches": launches["paged_attention"],
+                      "combine_launches": launches["paged_combines"],
+                      **errs["paged"]}),
+        flash_chunk_row(torch, f"flash_attention_{short}", LAST_CHUNK_OFFSET,
+                        LAST_CHUNK_SWEEP, **heads, label=label, fields={
+                            "launches": launches["flash_attention"],
+                            "combine_launches": launches["flash_combines"],
+                            **errs["flash"]})]
+
+
+def phase_family_engine(torch, name, profile=False):
+    """One config of the dense or MoE family at published width, bf16,
+    seeded and conditioned weights: one full-width layer's chunk and
+    decode attention kernel against plain; the greedy cell's 8 requests
+    through a ``ServingEngine`` (a warm-up run, then the counted run:
+    launches against layers x chunks and layers x decode dispatches,
+    every call split and combined, 0 unreclaimed after ``drain()``);
+    for the MoE the (token, expert) pairs each chunk drops and the
+    launches of one ``apply_moe`` on a chunk; then the config over its
+    first 4 layers in f32, the engine on the kernels against the engine
+    on the plain versions, token for token (routing flips counted for
+    the MoE, and between two runs on the kernels).  With ``profile``, 8
+    steps of one more engine run in a torch.profiler window give the
+    device's busy share and time by kernel.  Returns the two kernel
+    rows."""
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+    from repro_torch.models import Model
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = ARCHS[name]
+    moe = cfg.family == "moe"
+    model = Model(cfg)
+    seeded = model.init_params(seed=0)
+    params = model.compute_params(conditioned(model, seeded))
+    del seeded  # the f32 seed tree goes before anything else runs
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_phase
+    init_peak = torch.cuda.max_memory_allocated()
+    n_pool = model.cache_specs(ShapeConfig(
+        "engine", "decode", 1024, 8))["layers"]["k_pool"].shape[2]
+    errs = phase_family_layer(torch, model, params, n_pool)
+    ps = prompts(cfg.vocab_size)
+    kernels = (paged_attention_kernel, flash_attention_kernel)
+
+    # warm-up run (allocator, cuBLAS handles), not counted; the MoE's
+    # routes are recorded here, where the host syncs cost nothing counted
+    (_, wreqs, _, _), routes = record_routes(
+        lambda: run_engine(torch, model, params, prompt_list=ps))
+    _reset(kernels)
+    eng, reqs, wall, step_ms = run_engine(torch, model, params,
+                                          prompt_list=ps)
+    launches = {"paged_attention": paged_attention_kernel.launches,
+                "flash_attention": flash_attention_kernel.launches,
+                "paged_combines": paged_attention_kernel.combine_launches,
+                "flash_combines": flash_attention_kernel.combine_launches}
+    st = eng.stats()
+    n_layers = cfg.num_layers
+    check(all(r.done and len(r.generated) == 32 for r in reqs),
+          f"{name}: not every request finished with 32 tokens")
+    check(all(0 <= t < cfg.vocab_size for r in reqs for t in r.generated),
+          f"{name}: token out of vocabulary range")
+    check(st["dispatches_per_step"] == 1, f"{name}: dispatches/step {st}")
+    want = {"paged_attention": n_layers * st["decode_dispatches"],
+            "flash_attention": n_layers * st["prefill_chunks"]}
+    check(all(launches[k] == v and v > 0 for k, v in want.items()),
+          f"{name}: launches {launches} vs {want}")
+    # at these heads every n_kv bucket and every chunk splits the keys
+    check(launches["paged_combines"] == launches["paged_attention"]
+          and launches["flash_combines"] == launches["flash_attention"],
+          f"{name}: combines {launches}")
+    check(st["pool_unreclaimed"] == 0, f"{name}: pages left unreclaimed")
+    out = {"phase": "families_engine", "ok": True, "arch": name,
+           "family": cfg.family, "params": model.n_params(),
+           "init_s": init_s, "init_peak_mem_gb": init_peak / 1e9,
+           "layer_parity": errs, "requests": len(reqs),
+           "wall_s": wall, "decode_tokens_per_s": st["tokens_emitted"] / wall,
+           "median_step_ms": statistics.median(step_ms),
+           "steps": st["steps"], "decode_dispatches": st["decode_dispatches"],
+           "prefill_chunks": st["prefill_chunks"],
+           "launches": launches, "expected_launches": want,
+           "host_us_per_step": st["host_us_per_step"],
+           "pool": {k: st[k] for k in ("free_pages", "pool_unreclaimed",
+                                       "pool_freed", "scan_steps",
+                                       "prefix_hits", "prefix_misses")},
+           "repeat_tokens_identical": ([r.generated for r in reqs]
+                                       == [r.generated for r in wreqs])}
+    check(out["repeat_tokens_identical"],
+          f"{name}: the counted run's tokens differ from the warm-up's")
+    if moe:
+        per_chunk, per_layer, decode_drops = moe_chunk_drops(routes, cfg,
+                                                             n_layers)
+        check(decode_drops == 0, f"{name}: decode dropped {decode_drops}")
+        check(len(per_chunk) == st["prefill_chunks"],
+              f"{name}: {len(per_chunk)} routed chunks")
+        pairs = 128 * cfg.experts_per_token * n_layers
+        out["moe"] = {
+            "capacity_per_expert_chunk": min(max(int(
+                cfg.moe_capacity_factor * 128 * cfg.experts_per_token
+                / cfg.num_experts), cfg.experts_per_token),
+                128 * cfg.experts_per_token),
+            "dropped_pairs_per_chunk": per_chunk,
+            "dropped_pairs_per_layer": per_layer,
+            "pairs_per_chunk": pairs,
+            "dropped_share": sum(per_chunk) / (pairs * len(per_chunk)),
+            "decode_dropped": decode_drops}
+        x = torch.randn((1, 128, cfg.d_model), device=model.device).to(
+            torch.bfloat16)
+        lp = T._layer(params["layers"], 0)
+        prof = _profile_window(torch, lambda: L.apply_moe(lp["moe"], x, cfg))
+        out["moe"]["apply_moe_chunk"] = {
+            k: prof[k] for k in ("wall_s", "device_busy_s",
+                                 "kernel_launches")}
+    del routes, wreqs
+    if profile:
+        out["profile"] = profile_engine_steps(torch, model, params, ps)
+    rows = family_table_rows(torch, cfg, n_pool, launches, errs)
+    del eng, params, model
+    torch.cuda.empty_cache()
+
+    # f32 over the first 4 layers: kernels against plain, token for token
+    model32 = Model(cfg.scaled(num_layers=FAM_F32_LAYERS, dtype="float32"))
+    params32 = conditioned(model32, model32.init_params(seed=0))
+    # the MoE runs the kernels twice: flips between two runs of the same
+    # code show what is not a function of the inputs (idle slots' rows)
+    toks, rts = {}, {}
+    for run, impl in (("kernels", None), ("plain", "plain"),
+                      ("kernels_again", None))[:3 if moe else 2]:
+        (_, r32, _, _), rts[run] = record_kept_routes(
+            torch, model32,
+            lambda impl=impl: run_engine(torch, model32, params32,
+                                         impl=impl, prompt_list=ps))
+        toks[run] = [r.generated for r in r32]
+    f32 = {"layers": FAM_F32_LAYERS,
+           "tokens": sum(map(len, toks["kernels"])),
+           "identical": toks["kernels"] == toks["plain"],
+           "first_diffs": {i: next(j for j, (x, y) in enumerate(zip(a, b))
+                                   if x != y)
+                           for i, (a, b) in enumerate(zip(toks["kernels"],
+                                                          toks["plain"]))
+                           if a != b}}
+    if moe and f32["identical"]:  # the same calls in the same order
+        f32["routing_flips"] = kept_route_flips(rts["kernels"], rts["plain"])
+        f32["routing_flips_kernels_twice"] = kept_route_flips(
+            rts["kernels"], rts["kernels_again"])
+        f32["routed_rows_kept"] = sum(int(k.sum()) for _, k in rts["plain"])
+        check(toks["kernels_again"] == toks["kernels"],
+              f"{name}: two f32 runs on the kernels differ")
+    out["f32"] = f32
+    del model32, params32, rts
+    torch.cuda.empty_cache()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    check(f32["identical"], f"{name}: f32 tokens differ, kernels against "
+                            f"plain: {f32['first_diffs']}")
+    return rows
+
+
+def profile_engine_steps(torch, model, params, prompt_list, skip=8,
+                         steps=8):
+    """Device time by kernel over ``steps`` engine steps in one
+    torch.profiler window, after ``skip`` unprofiled steps, of the greedy
+    cell's requests (``run_engine``'s engine): at step 9 of about 64 the
+    window holds prefill chunks and decode dispatches both.  The engine
+    then runs to its end unprofiled."""
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(model, max_slots=8, max_seq=1024,
+                        prefix_cache_entries=16, params=params,
+                        device=model.device, policy="stamp-it")
+    for p in prompt_list:
+        eng.submit(p, max_new_tokens=32)
+    for _ in range(skip):
+        eng.step()
+    before = eng.stats()
+    out = _profile_window(torch, lambda: [eng.step() for _ in range(steps)])
+    after = eng.stats()
+    out.update({"steps": steps, "after_steps": skip,
+                **{k: after[k] - before[k]
+                   for k in ("prefill_chunks", "decode_dispatches")}})
+    eng.run_until_done()
+    eng.drain()
+    return out
+
 
 def _profiler():
     from torch.profiler import ProfilerActivity, profile
@@ -4112,8 +4495,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
                     help="add torch.profiler windows over an engine run, "
-                         "and over a prefill and decode steps of the SSM, "
-                         "encoder-decoder, hybrid and MoE models")
+                         "over a prefill and decode steps of the SSM, "
+                         "encoder-decoder, hybrid and MoE models, and over "
+                         "8 engine steps of each family")
     args = ap.parse_args()
     t_start = time.perf_counter()
 
@@ -4366,6 +4750,12 @@ def main() -> int:
             if args.profile:
                 phase = "moe_profile"
                 phase_moe_profile(torch, model, params, tokens)
+            del model, params, tokens
+            torch.cuda.empty_cache()
+
+            for name in FAMILIES:
+                phase = f"families_engine {name}"
+                table += phase_family_engine(torch, name, args.profile)
     except Exception as exc:  # report which phase failed, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

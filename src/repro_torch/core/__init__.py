@@ -1,9 +1,9 @@
 """The paper's primary contribution: Stamp-it concurrent memory reclamation
-(host plane) and the competitor schemes behind one Robison-style interface.
+(host plane), the competitor schemes behind one Robison-style interface,
+and the benchmark data structures (:mod:`.ds`).
 
 A copy of the JAX package's ``repro/core`` (pure Python, no JAX) with the
-Stamp Pool's livelock repaired (see :mod:`.stamp_pool`); the benchmark
-data structures (``repro/core/ds``) are not copied.  The device-plane
+Stamp Pool's livelock repaired (see :mod:`.stamp_pool`).  The device-plane
 adaptation (stamped block pools for the serving engine) lives in
 :mod:`repro_torch.memory`.
 """
@@ -38,6 +38,12 @@ from .schemes import (
     LockFreeRefCountReclaimer,
     NewEpochReclaimer,
     QuiescentStateReclaimer,
+)
+from .ds import (
+    BoundedHashMap,
+    HarrisMichaelListSet,
+    HashMap,
+    MichaelScottQueue,
 )
 
 #: registry of all seven schemes compared in the paper (§4)
@@ -94,4 +100,8 @@ __all__ = [
     "SCHEMES",
     "AMORTIZED_REGION_SCHEMES",
     "make_reclaimer",
+    "MichaelScottQueue",
+    "HarrisMichaelListSet",
+    "HashMap",
+    "BoundedHashMap",
 ]

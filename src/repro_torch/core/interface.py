@@ -156,6 +156,10 @@ class Guard:
         self._reclaimer.retire(node)
 
 
+#: ``ThreadRecord.in_use`` while ``_acquire_record`` attaches the record
+ATTACHING = 2
+
+
 class ThreadRecord:
     """Per-thread control block, **reused** across thread lifetimes.
 
@@ -274,9 +278,13 @@ class Reclaimer(ABC):
         return rec
 
     def _acquire_record(self) -> ThreadRecord:
+        # claimed as ATTACHING while the scheme fills the record's state in
+        # place: the schemes' scans of other records read only records in
+        # use (1), so none sees a first attach's state with a key missing
         for rec in self._records:
-            if rec.in_use.compare_exchange(0, 1):
+            if rec.in_use.compare_exchange(0, ATTACHING):
                 self._on_thread_attach(rec)
+                rec.in_use.store(1)
                 return rec
         raise RuntimeError(
             f"{self.name}: more than {self.max_threads} concurrent threads"

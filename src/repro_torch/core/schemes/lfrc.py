@@ -72,23 +72,38 @@ class LockFreeRefCountReclaimer(Reclaimer):
             self._drop_ref(slot)
 
     def _drop_ref(self, node: ReclaimableNode) -> None:
-        free = False
         with self._lock_for(node):
             node._rc -= 1
             assert node._rc >= 0, "refcount underflow"
-            if node._rc == 0 and node._retired and not node._reclaimed:
-                free = True
+            free = node._rc == 0 and node._retired and not node._reclaimed
+            if free:
+                fin = self._free_locked(node)
         if free:
-            self._free(node)
-            self.free_list_size.fetch_add(1)
+            self._finalize(fin)
 
     # ------------------------------------------------------------------
     def _retire(self, rec: ThreadRecord, node: ReclaimableNode) -> None:
-        free = False
         with self._lock_for(node):
-            if node._rc == 0 and not node._reclaimed:
-                free = True
+            free = node._rc == 0 and not node._reclaimed
+            if free:
+                fin = self._free_locked(node)
         if free:
-            self._free(node)
-            self.free_list_size.fetch_add(1)
+            self._finalize(fin)
         # else: the last _drop_ref will free it (node._retired already set).
+
+    def _free_locked(self, node: ReclaimableNode):
+        """``_free`` under the node's stripe lock, so that the check that
+        decides to free and ``_reclaimed`` change together: the last
+        guard release (or a stale safe-read's undo) racing the retire
+        frees the node once.  Checked and freed apart, both could see
+        ``_rc == 0`` and ``_reclaimed`` still False, and free it twice.
+        Returns the node's finalizer (a page returned to its pool, which
+        takes the pool's lock), held back for after the stripe lock."""
+        fin, node.finalizer = node.finalizer, None
+        self._free(node)
+        return fin
+
+    def _finalize(self, fin) -> None:
+        if fin is not None:
+            fin()
+        self.free_list_size.fetch_add(1)

@@ -366,7 +366,8 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     E), k), S * k)`` of its pairs and the rest fall into an overflow slot
     ``C`` that is dropped.  The experts' SwiGLU runs as batched products
     of each expert over its slots; each pair's output, times its gate
-    weight (cast to the compute dtype), is added back to its token."""
+    weight (cast to the compute dtype), is added back to its token
+    (:func:`combine_pairs`)."""
     B, S, M = x.shape
     E, k = cfg.num_experts, cfg.experts_per_token
     C = min(max(int(cfg.moe_capacity_factor * S * k / E), k), S * k)
@@ -402,12 +403,35 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     y.view(E, B, C + 1, M)[:, :, C] = 0
     contrib = y[sorted_ids, slot] * (
         sorted_w * valid.float()).to(dt)[..., None]
-    # a token takes k contributions onto zero: with k = 2 the sum is one
-    # rounding whatever the order
-    out = torch.zeros((B * S, M), dtype=dt, device=dev)
-    out.index_add_(0, (b_ix * S + sorted_tok).reshape(-1),
-                   contrib.reshape(-1, M))
-    return out.view(B, S, M)
+    del y
+    return combine_pairs(contrib, ids, order)
+
+
+def combine_pairs(contrib: torch.Tensor, ids: torch.Tensor,
+                  order: torch.Tensor) -> torch.Tensor:
+    """Each token's k pair outputs summed onto zero: ``contrib`` (B, S *
+    k, M) holds the pairs in the expert-sorted ``order`` (B, S * k) of
+    the router's ``ids`` (B, S, k).  The sum runs in ascending expert
+    order, each add rounded to the compute dtype: the order the JAX
+    package's scatter-add of the sorted pairs sums them in (on the CPU;
+    bit for bit).  Each pair moves to (token, rank of its expert among
+    the token's), one write a slot, so the sum is the same on every run
+    (an atomic ``index_add_`` on the card sums in no fixed order: with
+    k > 2 a bf16 token's sum would change from run to run).  With k = 2
+    the sum is one rounding whatever the order."""
+    B, S, k = ids.shape
+    M, dev = contrib.shape[-1], contrib.device
+    b_ix = torch.arange(B, device=dev)[:, None]
+    rank = (ids[..., None, :] < ids[..., :, None]).sum(-1)  # (B, S, k)
+    dest = (torch.arange(S, device=dev)[:, None] * k + rank).reshape(
+        B, S * k).gather(-1, order)
+    by_token = torch.empty((B, S * k, M), dtype=contrib.dtype, device=dev)
+    by_token[b_ix, dest] = contrib
+    by_token = by_token.view(B, S, k, M)
+    out = torch.zeros((B, S, M), dtype=contrib.dtype, device=dev)
+    for j in range(k):
+        out = out + by_token[:, :, j]
+    return out
 
 
 # ---------------------------------------------------------------------------

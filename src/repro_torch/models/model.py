@@ -1,13 +1,14 @@
 """Model facade: one object per architecture config, bound to a device.
 
 Mirrors the JAX package's ``repro/models/model.py`` for the ported
-paths: params, the decode cache (paged for the dense family, a rolling
-sliding-window ring for mixtral's MoE, state and conv tails for the SSM
-family, both for the hybrid — every Mamba2 layer's state and one paged
-pool per application of its shared attention block — and paged
+paths: params, the decode cache (paged for the dense family and
+granite-moe's MoE, a rolling sliding-window ring for mixtral's MoE,
+state and conv tails for the SSM family, both for the hybrid — every
+Mamba2 layer's state and one paged pool per application of its shared
+attention block — and paged
 self-attention pools and a fixed cross-attention cache for the
 encoder-decoder), the whole-prompt prefill (every ported family), one
-prefill chunk (dense) and one decode step.
+prefill chunk (the paged layout: dense and MoE) and one decode step.
 The model lives on the card unless the caller asks for the CPU.
 """
 

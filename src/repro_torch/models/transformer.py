@@ -1,18 +1,19 @@
-"""Model stacks of the ported paths: the decoder-only stack (dense, on
-the paged KV cache of the serving path; MoE, mixtral's on a rolling
-sliding-window cache), the Mamba2 SSM stack, the Zamba2-style hybrid
-(groups of Mamba2 layers, each followed by one shared attention block),
-and the encoder-decoder (an encoder over frame embeddings, a decoder
-with self- and cross-attention).
+"""Model stacks of the ported paths: the decoder-only stack (dense and
+granite-moe's MoE on the paged KV cache of the serving path; mixtral's
+MoE on a rolling sliding-window cache), the Mamba2 SSM stack, the
+Zamba2-style hybrid (groups of Mamba2 layers, each followed by one
+shared attention block), and the encoder-decoder (an encoder over frame
+embeddings, a decoder with self- and cross-attention).
 
 Mirrors the main-path parts of the JAX package's
 ``repro/models/transformer.py``: the param and cache spec trees, the
 whole-prompt prefill of every ported family, one chunk of a chunked
-prefill (dense), and the decode step (dense, MoE, SSM, hybrid and
-encoder-decoder).  Layer params and caches are stacked over a leading
-``layers`` axis, as there; JAX's ``lax.scan`` over that axis is a Python
-loop here.  The decode and chunk steps update
-the cache in place and return the same cache dict.
+prefill (the paged layout: dense, and MoE without a window), and the
+decode step (dense, MoE, SSM, hybrid and encoder-decoder).  Layer
+params and caches are stacked over a leading ``layers`` axis, as there;
+JAX's ``lax.scan`` over that axis is a Python loop here.  The decode
+and chunk steps update the cache in place and return the same cache
+dict.
 """
 
 from __future__ import annotations
@@ -193,12 +194,12 @@ def cache_specs(cfg: ModelConfig, batch: int, max_seq: int,
     a contiguous cache, which the window never cuts
     (:func:`layers.attention_decode` tells the two apart by ``W``).
 
-    Paged (dense): per-slot pools ``(L, batch, n_pool, BLOCK_SIZE, Hkv,
-    D)`` in the compute dtype.  ``n_pool`` is ceil(max_seq / block) + 1 +
-    ``pool_slack`` pages, rounded up to a multiple of ``TP_WIDTH`` when
-    the JAX package would stripe pages (and no slack was asked for) — the
-    same rule, so the host pool sized from this dimension matches the JAX
-    engine's page for page.
+    Paged (dense, MoE without a window): per-slot pools ``(L, batch,
+    n_pool, BLOCK_SIZE, Hkv, D)`` in the compute dtype.  ``n_pool`` is
+    ceil(max_seq / block) + 1 + ``pool_slack`` pages, rounded up to a
+    multiple of ``TP_WIDTH`` when the JAX package would stripe pages (and
+    no slack was asked for) — the same rule, so the host pool sized from
+    this dimension matches the JAX engine's page for page.
 
     Hybrid: the SSM layout of every Mamba2 layer under ``"layers"``, and
     per-slot paged pools ``(n_shared_attn, batch, n_pool, BLOCK_SIZE,
@@ -459,13 +460,18 @@ def prefill_chunk(params, cache, batch, cfg: ModelConfig, *,
     the slot-flattened pool; "slot" is then not read.  ``start``,
     ``slot`` and ``last_index`` are host integers: the host chose them,
     so the chunk lane never reads the device.  Returns (logits (1, V) at
-    ``last_index``, cache), the pools updated in place.  The dense family
-    only: the MoE branch is not ported yet (ROADMAP.md, Queue A).
+    ``last_index``, cache), the pools updated in place.
+
+    The paged layout's families: dense (the MLP) and MoE without a
+    window (:func:`layers.apply_moe` over the chunk's ``C`` positions,
+    its capacity worked out from ``C``, so a chunk may drop (token,
+    expert) pairs that a decode step of one token never drops — as in
+    the JAX package).  Other layouts raise.
     """
-    if cfg.family != "dense":
+    if cache_layout(cfg) != "paged" or cfg.family not in ("dense", "moe"):
         raise NotImplementedError(
-            f"chunked prefill of family {cfg.family!r} is not ported yet "
-            "(ROADMAP.md, Queue A)")
+            f"chunked prefill of family {cfg.family!r} (layout "
+            f"{cache_layout(cfg)!r}) is not ported: it is paged-only")
     slot = None if global_pages else int(batch["slot"])
     tokens = batch["tokens"]
     C = tokens.shape[1]
@@ -484,9 +490,7 @@ def prefill_chunk(params, cache, batch, cfg: ModelConfig, *,
                                  pages=pages, positions=positions,
                                  q_offset=start, n_kv=n_kv, slot=slot,
                                  global_pages=global_pages, impl=impl)
-        x = x + a
-        m_in = L.apply_norm(lp["norm2"], x, cfg)
-        x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
+        x = _mlp_or_moe(lp, x + a, cfg)
     x = L.apply_norm(params["final_norm"], x, cfg)
     x_last = x[:, int(batch["last_index"])]
     return L.unembed(params["embed"], x_last, cfg), cache

@@ -253,7 +253,11 @@ class DeviceState:
         the first token sampled on the card into ``first_buf[slot]``, and
         each layer's K/V written into the slot's ``nb`` pages ``pages``;
         the bucket's spare blocks go to the scratch page 0, as in the JAX
-        package.  Returns the first token, a 0-d tensor on the card."""
+        package.  For the MoE family the bucket's pad tokens are routed
+        with the prompt's and compete for expert capacity (worked out
+        from the bucket's length), as in the JAX package: a prompt's
+        first token may differ from its chunked prefill's where pairs
+        drop.  Returns the first token, a 0-d tensor on the card."""
         S = tokens_np.shape[1]
         if S % self.block:
             raise ValueError(f"prompt bucket {S} is not whole pages")

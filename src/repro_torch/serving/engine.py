@@ -26,6 +26,14 @@ request (or evicted from the prefix cache) are *retired*, not reused,
 until the policy proves no in-flight step can read them.  The host syncs
 with the card only where it reads a completed step's tokens.
 
+The engine serves the paged layout: the dense family and the MoE
+family without a sliding window (granite-moe-3b-a800m); the rolling,
+SSM and hybrid layouts are refused, as in the JAX package, whose engine
+serves no encoder-decoder either.  A MoE chunk's expert capacity is
+worked out from the chunk's (or the whole-prompt bucket's) length, a
+decode step's from one token per slot, so prefill may drop (token,
+expert) pairs and decode never does.
+
 Sampled decoding: each request carries a ``sample_key`` and the u that
 samples its token at sequence index ``pos`` is ``counter_uniform(key,
 pos)``, bit-identical to the JAX package's.  Copy-on-write forks

@@ -5,7 +5,9 @@ Stamp Pool gives the same stamps and the same answers on sequential
 push/remove orders.  Concurrency runs only under a time bound: every
 thread is joined with a timeout and a thread still alive fails the test
 (the reference pool livelocks under the staggered stress; the copy's
-repair is in ``repro_torch/core/stamp_pool.py``)."""
+repair is in ``repro_torch/core/stamp_pool.py``).  Two races are forced
+step by step with events: LFRC's last guard release against the
+retire, and a scan against a record's first attach."""
 
 import random
 import threading
@@ -276,3 +278,126 @@ def test_scheme_concurrent_retire_is_bounded(scheme):
     stats = r.stats()
     assert stats["allocated"] == 4 * 150 + 1
     assert stats["unreclaimed"] == 1  # only the published node is live
+
+
+def test_lfrc_frees_once_when_retire_races_the_last_release():
+    """LFRC: thread B drops the last guard on a node that thread A has
+    marked retired, and decides to free it; A's retire then checks the
+    node while B's free is still under way (B's ``_free`` waits up to
+    0.5 s for A to finish).  The node is freed once: the check and
+    ``_reclaimed`` change together under the node's lock, so A sees the
+    node freed (or waits for it).  Checked and freed apart, A also frees
+    it, and B's free asserts "double reclaim"."""
+    r = tcore.make_reclaimer("lfrc", max_threads=8)
+    node = tcore.ReclaimableNode()
+    r.on_allocate(node)
+    cell = tcore.AtomicMarkedRef(node)
+    held, entered, a_done = (threading.Event() for _ in range(3))
+    errors, frees = [], []
+    free, retire = r._free, r._retire
+
+    def slow_free(n):
+        frees.append(n)
+        if len(frees) == 1:  # B's free: let A's retire run meanwhile
+            entered.set()
+            a_done.wait(0.5)
+        free(n)
+
+    def late_retire(rec, n):  # A: the node is marked; B frees; A checks
+        entered.wait(5.0)
+        retire(rec, n)
+
+    r._free, r._retire = slow_free, late_retire
+
+    def thread_a():
+        try:
+            held.wait(5.0)
+            with r.thread_context():
+                r.retire(node)
+        except Exception as e:  # pragma: no cover
+            errors.append(repr(e))
+        finally:
+            a_done.set()
+
+    def thread_b():
+        try:
+            with r.thread_context():
+                g = r.guard()
+                g.acquire(cell)
+                held.set()
+                deadline = time.monotonic() + 5.0
+                while not node._retired and time.monotonic() < deadline:
+                    time.sleep(1e-3)
+                g.reset()
+        except Exception as e:  # pragma: no cover
+            errors.append(repr(e))
+
+    alive = _join_all(_run_bounded([thread_a, thread_b]))
+    assert not alive, f"threads still running: {alive}"
+    assert not errors, errors
+    assert frees == [node] and node._reclaimed
+    assert r.unreclaimed() == 0
+
+
+#: per scheme, a key of a record's state that another thread's scan reads
+SCANNED = {"qsr": "participating", "er": "active", "ner": "active",
+           "debra": "quiescent", "ibr": "lo"}
+
+
+@pytest.mark.parametrize("scheme", sorted(SCANNED))
+def test_scan_skips_a_record_while_it_attaches(scheme):
+    """Thread "late" attaches a record, and its state is filled but for
+    one key when thread "scanner" attaches, retires a node in a region
+    and runs empty regions and a flush, each scanning every record.  The
+    scans skip the record being attached (``in_use`` is ``ATTACHING``
+    until the state is whole); reading it would fail on the missing
+    key."""
+    r = tcore.make_reclaimer(scheme, max_threads=8)
+    attach = r._on_thread_attach
+    partial, scanned = threading.Event(), threading.Event()
+    errors = []
+
+    def slow_attach(rec):
+        attach(rec)
+        if threading.current_thread().name == "late":
+            key = SCANNED[scheme]
+            value = rec.scheme_state.pop(key)
+            partial.set()
+            scanned.wait(5.0)
+            rec.scheme_state[key] = value
+
+    r._on_thread_attach = slow_attach
+
+    def late():
+        try:
+            with r.thread_context():
+                with r.region_guard():
+                    pass
+        except Exception as e:  # pragma: no cover
+            errors.append(repr(e))
+
+    def scanner():
+        try:
+            partial.wait(5.0)
+            with r.thread_context():
+                node = tcore.ReclaimableNode()
+                r.on_allocate(node)
+                with r.region_guard():
+                    r.retire(node)
+                for _ in range(120):
+                    with r.region_guard():
+                        pass
+                r.flush()
+        except Exception as e:  # pragma: no cover
+            errors.append(repr(e))
+        finally:
+            scanned.set()
+
+    threads = [threading.Thread(target=late, name="late", daemon=True),
+               threading.Thread(target=scanner, daemon=True)]
+    for t in threads:
+        t.start()
+    alive = _join_all(threads)
+    assert not alive, f"threads still running: {alive}"
+    assert partial.is_set() and scanned.is_set()
+    assert not errors, errors

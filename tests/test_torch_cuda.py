@@ -14,12 +14,15 @@ kernel with a sliding window (small windows that cut tiles mid-tile,
 mixtral's 4096, a window past the keys bit for bit against none), a
 full-width mixtral-8x7b layer's attention (windowed flash, one decode
 step on a wrapped ring through the decode kernel) against the plain
-path, the
+path, the paged and flash kernels at the engine's shapes of
+granite-3-8b, minitron-4b, phi3-mini-3.8b and granite-moe-3b-a800m, the
 block-gather kernel against ``pool[idx]`` (bit-exact: a pool at an odd
 base, a zero page for an id out of range, plans its planner does not
 pick and plans it refuses), the sampling
-uniforms on the card against their numpy twin (bit-exact), and a sampled
-fork engine on the card against the same engine on the CPU.
+uniforms on the card against their numpy twin (bit-exact), a sampled
+fork engine on the card against the same engine on the CPU, and
+granite-moe-3b-a800m's MoE block (top-8 of 40) bit-identical from run to
+run on the card, its combine bit for bit the CPU's.
 Marked ``cuda``: each test skips where there is no card.  On a machine
 with one, run ``PYTHONPATH=src python -m pytest -q -m cuda
 tests/test_torch_cuda.py`` (the first test builds the kernels with nvcc).
@@ -136,6 +139,24 @@ PAGED_SHAPES = {
     "zamba2": dict(B=8, n_pool=10, mb=10, H=32, Hkv=32, D=112, n_kv=10,
                    global_pages=False,
                    lengths=[0, 1, 63, 64, 65, 129, 1280, 1056]),
+    # the engine's decode shapes of the dense and MoE families at
+    # published width (8 slots, max_seq 1024, global ids, n_kv 8): G 4 /
+    # D 128 (granite-3-8b), G 3 / D 128 (minitron-4b), G 1 / D 96
+    # through the run-time-D form (phi3-mini-3.8b), G 3 / D 64
+    # (granite-moe-3b-a800m); pools of 16 pages where 8 kv heads do not
+    # divide the JAX package's 16-wide mesh, else 9
+    "granite": dict(B=8, n_pool=16, mb=9, H=32, Hkv=8, D=128, n_kv=8,
+                    global_pages=True,
+                    lengths=[0, 1, 63, 64, 65, 129, 1024, 917]),
+    "minitron": dict(B=8, n_pool=16, mb=9, H=24, Hkv=8, D=128, n_kv=8,
+                     global_pages=True,
+                     lengths=[0, 1, 63, 64, 65, 129, 1024, 917]),
+    "phi3": dict(B=8, n_pool=9, mb=9, H=32, Hkv=32, D=96, n_kv=8,
+                 global_pages=True,
+                 lengths=[0, 1, 63, 64, 65, 129, 1024, 917]),
+    "granite_moe": dict(B=8, n_pool=16, mb=9, H=24, Hkv=8, D=64, n_kv=8,
+                        global_pages=True,
+                        lengths=[0, 1, 63, 64, 65, 129, 1024, 917]),
     "d32": dict(B=6, n_pool=4, mb=5, H=8, Hkv=2, D=32, n_kv=4,
                 global_pages=True, lengths=[0, 1, 31, 33, 65, 512]),
     "d128": dict(B=6, n_pool=4, mb=4, H=16, Hkv=16, D=128, n_kv=3,
@@ -294,6 +315,31 @@ def test_flash_kernel_peaked_softmax_matches_plain(card, dtype, B, S_q, S_kv,
     plan = _flash_case(card, dtype, B, S_q, S_kv, H, Hkv, D, causal,
                        q_offset, q_scale=PEAKED_Q)
     assert plan.splits == splits
+
+
+# the families' chunk attention at published width: (H, Hkv, D) of
+# granite-3-8b, minitron-4b, phi3-mini-3.8b (the run-time-D form) and
+# granite-moe-3b-a800m
+FAMILY_HEADS = {"granite": (32, 8, 128), "minitron": (24, 8, 128),
+                "phi3": (32, 32, 96), "granite_moe": (24, 8, 64)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", list(FAMILY_HEADS))
+@pytest.mark.parametrize("S_kv,q_offset,q_scale",
+                         [(1024, 768, 1.0), (1024, 768, PEAKED_Q),
+                          (128, 0, 1.0), (1024, 0, 1.0)])
+def test_flash_kernel_family_chunks_match_plain(card, dtype, family, S_kv,
+                                                q_offset, q_scale):
+    """The engine's 128-token chunk at each family's heads: the last
+    chunk of a 900-token prompt's sweep (split over the keys), also
+    with a peaked softmax, the first chunk, and a first chunk over a
+    1024-key sweep (the keys past the chunk masked).  phi3's D 96 runs
+    the run-time-D form, whose key tiles are 64 wide."""
+    H, Hkv, D = FAMILY_HEADS[family]
+    plan = _flash_case(card, dtype, 1, 128, S_kv, H, Hkv, D, True,
+                       q_offset, q_scale=q_scale)
+    assert plan.keys == 64
 
 
 # head dims outside the compiled 32 / 64 / 128: zamba2's 112, phi3's 96,
@@ -1197,3 +1243,60 @@ def test_full_width_mixtral_layer_kernels_match_plain(card):
         scale = float(want.float().abs().max())
         assert float((got.float() - want.float()).abs().max()) <= 2e-2 * scale
         _close_rows(got, want, torch.bfloat16)
+
+
+def _granite_moe_layer(card):
+    """granite-moe-3b-a800m's MoE block at full width (d_model 1536, 40
+    experts of d_ff 512, top-8, capacity 1.25), seeded weights scaled to
+    unit variance over their contraction, in bf16 on ``card``, and one
+    128-token chunk's input."""
+    from repro_torch.configs import ARCHS
+
+    cfg = ARCHS["granite-moe-3b-a800m"]
+    M, E, Fd = cfg.d_model, cfg.num_experts, cfg.d_ff
+    g = torch.Generator().manual_seed(9)
+    p = {"router": torch.randn((M, E), generator=g) / M ** 0.5,
+         "wi_gate": torch.randn((E, M, Fd), generator=g) / M ** 0.5,
+         "wi_up": torch.randn((E, M, Fd), generator=g) / M ** 0.5,
+         "wo": torch.randn((E, Fd, M), generator=g) / Fd ** 0.5}
+    x = torch.randn((1, 128, M), generator=g)
+    return (cfg, {k: v.to(card, torch.bfloat16) for k, v in p.items()},
+            x.to(card, torch.bfloat16))
+
+
+def test_apply_moe_top8_is_bit_identical_on_card(card):
+    """granite-moe's MoE block on one chunk, bf16, 8 times on the card:
+    every output bit for bit the first's.  Each token sums its 8 expert
+    outputs in a fixed order (``combine_pairs``); an atomic scatter-add
+    (``index_add_``) sums them in whatever order the card's threads land
+    and rounds each add to bf16, so its outputs differ between runs."""
+    from repro_torch.models import layers as L
+
+    cfg, p, x = _granite_moe_layer(card)
+    outs = [L.apply_moe(p, x, cfg) for _ in range(8)]
+    torch.cuda.synchronize()
+    assert outs[0].dtype == torch.bfloat16
+    assert bool(torch.isfinite(outs[0].float()).all())
+    for out in outs[1:]:
+        assert torch.equal(out.view(torch.int16), outs[0].view(torch.int16))
+
+
+def test_moe_combine_on_card_matches_cpu(card):
+    """``combine_pairs`` on the card, bf16, at granite-moe's chunk (128
+    tokens, top-8 of 40, d_model 1536) on pair outputs spanning 2^-8 ..
+    2^8: bit for bit the CPU's on the same inputs (which is the JAX
+    scatter-add's order, tests/test_torch_moe.py), on each of 4 runs."""
+    from repro_torch.models import layers as L
+
+    rs = np.random.RandomState(4)
+    S, k, E, M = 128, 8, 40, 1536
+    ids = torch.from_numpy(np.stack([[rs.permutation(E)[:k]
+                                      for _ in range(S)]]))
+    order = torch.argsort(ids.reshape(1, S * k), dim=-1, stable=True)
+    contrib = torch.from_numpy(rs.standard_normal((1, S * k, M)) * np.exp2(
+        rs.randint(-8, 9, (1, S * k, 1)))).to(torch.bfloat16)
+    want = L.combine_pairs(contrib, ids, order)
+    for _ in range(4):
+        got = L.combine_pairs(contrib.to(card), ids.to(card), order.to(card))
+        assert torch.equal(got.cpu().view(torch.int16),
+                           want.view(torch.int16))

@@ -1,6 +1,8 @@
 """The PyTorch package stands alone: importing it, running an engine
 step, a sampled engine with a copy-on-write fork, a whole-prompt
-speculative engine under a core scheme, a disaggregated replica group
+speculative engine under a core scheme, the paper's benchmark data
+structures, engines over the granite, minitron, phi3 and granite-moe
+configs, a disaggregated replica group
 with the lifecycle plane and the trace exporters, a prefix migration
 between replicas, and an SSM, an encoder-decoder and a hybrid prefill
 and decode pulls in neither JAX nor the JAX package, and its entry
@@ -53,6 +55,27 @@ eng.submit(list(np.arange(1, 40)), max_new_tokens=3)
 eng.run_until_done()
 import repro_torch.core
 import repro_torch.memory.stall
+
+# the paper's benchmark data structures over a core scheme
+import repro_torch.core.ds
+from repro_torch.core import BoundedHashMap, make_reclaimer
+hm = BoundedHashMap(make_reclaimer("stamp-it"), n_buckets=4, max_entries=3)
+for key in range(6):
+    hm.get_or_compute(key)
+assert hm.count.load() == 3
+
+# the four configs of the dense and MoE families on the paged engine
+import repro_torch.configs.granite_3_8b
+import repro_torch.configs.granite_moe_3b_a800m
+import repro_torch.configs.minitron_4b
+import repro_torch.configs.phi3_mini_3_8b
+from repro_torch.configs import get_arch
+for name in ("granite-moe-3b-a800m", "granite-3-8b", "minitron-4b",
+             "phi3-mini-3.8b"):
+    eng = ServingEngine(Model(smoke_config(get_arch(name)), device="cpu"),
+                        max_slots=2, max_seq=256, device="cpu")
+    eng.submit(list(np.arange(1, 140)), max_new_tokens=2)
+    eng.run_until_done()
 
 # the cluster plane: a disaggregated group with the lifecycle plane, a
 # prefix migration, and the trace exporters

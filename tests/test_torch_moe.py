@@ -2,7 +2,10 @@
 numpy inputs, at the JAX smoke config: 2 layers, d_model 128, 4 query
 heads over 2 kv heads of 32, 4 experts top-2 of d_ff 256, sliding window
 16, f32.  Checked: ``apply_moe`` dropless, at capacity 1.25 where tokens
-are dropped, and with tied router columns (the top-k order on ties); the
+are dropped, with tied router columns (the top-k order on ties), and at
+granite-moe-3b-a800m's routing (40 experts, top-8, capacity 1.25) in f32
+and bf16; its combine (``combine_pairs``) bit for bit against the JAX
+package's scatter-add at top-8 of 40 and top-2 of 4; the
 spec trees and the weight bridge; the prefill logits and every cache
 leaf; the rolling cache loaded from a prefill past its wrap and decode
 steps on it (logits and every ring leaf), and the contiguous cache that a
@@ -136,13 +139,19 @@ def _moe_case(case):
     """(cfg for both packages, numpy params of one MoE layer, x)."""
     jcfg = jax_smoke(JAX_ARCHS[ARCH])
     tcfg = smoke_config(ARCHS[ARCH])
+    if case == "top8":
+        # granite-moe-3b-a800m's routing: 40 experts, top-8, capacity
+        # 1.25 (C = 32 of the 256 pairs an expert could take at S 128)
+        top8 = dict(num_experts=40, experts_per_token=8,
+                    moe_capacity_factor=1.25)
+        jcfg, tcfg = jcfg.scaled(**top8), tcfg.scaled(**top8)
     rs = np.random.RandomState(11)
     M, E, Fd = jcfg.d_model, jcfg.num_experts, jcfg.d_ff
     p = {"router": rs.standard_normal((M, E)) / np.sqrt(M),
          "wi_gate": rs.standard_normal((E, M, Fd)) / np.sqrt(M),
          "wi_up": rs.standard_normal((E, M, Fd)) / np.sqrt(M),
          "wo": rs.standard_normal((E, Fd, M)) / np.sqrt(Fd)}
-    S = 24
+    S = 128 if case == "top8" else 24
     x = rs.standard_normal((BATCH, S, M))
     if case == "capacity":
         # capacity 1.25 at S 64 (C = 40 of 128 pairs an expert could
@@ -165,7 +174,7 @@ def _moe_case(case):
     return jcfg, tcfg, p, x.astype(np.float32)
 
 
-@pytest.mark.parametrize("case", ["dropless", "capacity", "tied"])
+@pytest.mark.parametrize("case", ["dropless", "capacity", "tied", "top8"])
 def test_apply_moe_matches_jax(case):
     jcfg, tcfg, p, x = _moe_case(case)
     want = jax.jit(JL.apply_moe, static_argnums=2)(
@@ -187,7 +196,7 @@ def test_apply_moe_matches_jax(case):
     np.testing.assert_array_equal(ids.numpy(), np.asarray(jids))
     np.testing.assert_allclose(
         gate_w.numpy(), np.asarray(jw / jw.sum(-1, keepdims=True)), **TOL)
-    if case == "capacity":
+    if case in ("capacity", "top8"):
         assert dropped > 0
     else:
         assert dropped == 0
@@ -197,6 +206,66 @@ def test_apply_moe_matches_jax(case):
             p["router"]), -1)
         srt = probs.sort(-1, descending=True).values
         assert bool((srt[..., k - 1] == srt[..., k]).any())
+
+
+def test_apply_moe_top8_bf16_matches_jax():
+    """granite-moe's routing (40 experts, top-8, capacity 1.25) in bf16,
+    the dtype the engine serves in: the router picks the JAX package's
+    experts, and the output is within 2e-2 of the largest magnitude of
+    JAX's (the two sum each product in another order and round it to
+    bf16; the combine's own bits are held by the test below)."""
+    jcfg, tcfg, p, x = _moe_case("top8")
+    jp = {k: jnp.asarray(v, jnp.bfloat16) for k, v in p.items()}
+    jx = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(jax.jit(JL.apply_moe, static_argnums=2)(
+        jp, jx, jcfg).astype(jnp.float32))
+    tp = {k: torch.from_numpy(np.array(v.astype(jnp.float32))).to(
+        torch.bfloat16) for k, v in jp.items()}
+    tx = torch.from_numpy(np.array(jx.astype(jnp.float32))).to(
+        torch.bfloat16)
+    got = TL.apply_moe(tp, tx, tcfg)
+    assert got.dtype == torch.bfloat16
+    logits = jnp.einsum("bsm,me->bse", jx, jp["router"])
+    _, jids = jax.lax.top_k(jax.nn.softmax(logits.astype(jnp.float32),
+                                           axis=-1), 8)
+    np.testing.assert_array_equal(TL.moe_route(tp, tx, tcfg)[1].numpy(),
+                                  np.asarray(jids))
+    scale = float(np.abs(want).max())
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2e-2,
+                               atol=2e-2 * scale)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("E,k", [(40, 8), (4, 2)])
+def test_combine_pairs_sums_in_jax_scatter_order(E, k, dtype):
+    """``combine_pairs`` against the JAX package's scatter-add of the same
+    expert-sorted pair outputs, bit for bit: each token's k outputs are
+    summed in ascending expert order, each add rounded to the dtype.  The
+    outputs span 2^-8 .. 2^8 in magnitude, so that at k 8 one rounding of
+    the f32 sum gives other bits (checked), as another order would."""
+    rs = np.random.RandomState(3)
+    B, S, M = 2, 128, 64
+    ids = np.stack([[rs.permutation(E)[:k] for _ in range(S)]
+                    for _ in range(B)])
+    order = np.argsort(ids.reshape(B, S * k), -1, kind="stable")
+    sorted_tok = np.take_along_axis(
+        np.broadcast_to(np.repeat(np.arange(S), k), (B, S * k)), order, -1)
+    contrib = jnp.asarray(rs.standard_normal((B, S * k, M)) * np.exp2(
+        rs.randint(-8, 9, (B, S * k, 1))), jnp.dtype(dtype))
+    want = jax.jit(lambda c: jnp.zeros((B, S, M), c.dtype).at[
+        np.arange(B)[:, None], sorted_tok].add(c))(contrib)
+    want = np.asarray(want.astype(jnp.float32))
+    tc = torch.from_numpy(np.array(contrib.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    got = TL.combine_pairs(tc, torch.from_numpy(ids), torch.from_numpy(order))
+    assert got.dtype == tc.dtype
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    if k == 8 and dtype == "bfloat16":
+        once = torch.zeros((B * S, M)).index_add_(
+            0, torch.from_numpy((np.arange(B)[:, None] * S
+                                 + sorted_tok).reshape(-1)),
+            tc.float().reshape(-1, M)).view(B, S, M).to(tc.dtype)
+        assert bool((once != got).any())
 
 
 # ---------------------------------------------------------------------------
