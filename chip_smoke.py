@@ -47,7 +47,20 @@ random weights from a seed (mixtral over 6 of its 32 layers):
     G 4 / D 128, G 3 / D 128, G 1 / D 96 and G 3 / D 64; the MoE over
     each 128-token chunk), and each config over 4 layers in f32, the
     engine on the kernels against the engine on the plain versions,
-    token for token.
+    token for token;
+  * llava-next-34b at full width over 16 of its 60 layers through
+    ``Model.prefill`` (4 requests of 1152 frontend embeddings and 896
+    text tokens: the flash kernel at 56/8 heads of 128) and 32 greedy
+    ``Model.decode_step`` calls on per-slot pages (the paged kernel at
+    G 7, D 128), its first 4 layers in f32 kernel against plain;
+  * the training plane: the flash kernel's backward kernel against
+    autograd of the plain version at six shapes (two planted faults
+    that the check must catch), qwen2-0.5b's first 4 layers in f32 (one
+    step's loss and every gradient leaf, kernels against plain), and a
+    ``Trainer`` over 8 full-width qwen2 steps of 2 x 4096 tokens (the
+    flash kernel forward and backward), then again with a checkpoint
+    every 4 steps and a failure before step 6: the replayed losses
+    identical to the first run's.
 
 It checks that each path went through its kernels (launch counts, and
 the split combines beside them), and times each kernel beside its plain
@@ -2437,12 +2450,14 @@ def phase_ssm_model(torch, model, params, model32, params32, tokens):
                             "plain_bf16_vs_plain_f32": bf16_vs_f32}})
 
 
-def greedy_decode(torch, model, params, logits, cache, batch, steps):
+def greedy_decode(torch, model, params, logits, cache, batch, steps,
+                  impl=None):
     """``steps`` greedy decode steps from ``logits``; ``batch`` holds the
     inputs besides the tokens ("lengths" advance by one a step).  Checks
     that the last logits are finite and every token lies in the
     vocabulary; returns the tokens (B, steps + 1), each step's CUDA-event
-    ms and the loop's wall seconds."""
+    ms and the loop's wall seconds.  ``impl="plain"`` decodes through the
+    plain versions."""
     batch = dict(batch)
     nxt = logits.argmax(-1).to(torch.int32)
     generated, events = [nxt], []
@@ -2452,7 +2467,8 @@ def greedy_decode(torch, model, params, logits, cache, batch, steps):
         e = torch.cuda.Event(enable_timing=True)
         s.record()
         logits, cache = model.decode_step(params, cache,
-                                          dict(batch, tokens=nxt[:, None]))
+                                          dict(batch, tokens=nxt[:, None]),
+                                          impl=impl)
         nxt = logits.argmax(-1).to(torch.int32)
         if "lengths" in batch:
             batch["lengths"] = batch["lengths"] + 1
@@ -4491,6 +4507,767 @@ def phase_profile(torch, model, params, wall_unprofiled: float):
                   for us, k, n in rows[:12]]})
 
 
+# ---------------------------------------------------------------------------
+# the vlm path: llava-next-34b
+# ---------------------------------------------------------------------------
+# llava-next-34b at full width over 16 of its 60 layers (9.8 B parameters:
+# the f32 seed tree, 39 GB, and its bf16 copy, 20 GB, fit the card
+# together; its 60 layers are 67 GB in bf16 alone): 4 requests of 1152
+# frontend embeddings (the vision stub: 2 tiles x 576 patches) followed by
+# 896 text tokens, then 32 greedy steps on per-slot pages.  The f32 checks
+# run its first 4 layers.
+VL_LAYERS, VL_BATCH, VL_TOKENS, VL_STEPS, VL_F32_LAYERS = 16, 4, 896, 32, 4
+VL_FRONT = 1152  # llava-next-34b's frontend_positions
+VL_SEQ = VL_FRONT + VL_TOKENS
+VL_MAX_SEQ = VL_SEQ + VL_STEPS
+# f32 compute, kernels vs plain and prefill+decode vs prefill: held to
+# 1e-3 of the largest magnitude through 4 layers
+VL_F32_REL_TOL = 1e-3
+
+
+def vlm_inputs(torch, cfg, batch=VL_BATCH, seed=6):
+    """Seeded frontend embeddings (normal x 0.02, as the synthetic
+    pipeline makes them) and text tokens, on the card."""
+    import numpy as np
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    fe = torch.randn((batch, cfg.frontend_positions, cfg.d_model),
+                     generator=g, device="cuda") * 0.02
+    toks = np.random.RandomState(seed).randint(1, cfg.vocab_size,
+                                               (batch, VL_TOKENS))
+    return fe, torch.from_numpy(toks.astype(np.int32)).cuda()
+
+
+def vlm_table(torch, model, batch=VL_BATCH):
+    """Per-slot page ids of the decode cache: a different permutation of
+    each slot's pool in each row."""
+    from repro_torch.configs import ShapeConfig
+
+    pool = model.cache_specs(ShapeConfig("serve", "decode", VL_MAX_SEQ,
+                                         batch))
+    n_pool = pool["layers"]["k_pool"].shape[2]
+    return local_table(torch, batch, n_pool, -(-VL_MAX_SEQ // 128) + 1,
+                       seed=6)
+
+
+def load_vlm_cache(torch, model, pcache, table):
+    """The prefill K/V (L, B, S, Hkv, D) in the paged decode cache, page
+    by page into the per-slot pages each block-table row names (the last
+    page zero-padded)."""
+    from repro_torch.configs import ShapeConfig
+
+    B = table.shape[0]
+    cache = model.init_cache(ShapeConfig("serve", "decode", VL_MAX_SEQ, B))
+    pages = table.tolist()
+    S = pcache["k"].shape[2]
+    for j in range(-(-S // 128)):
+        for name, pool in (("k", "k_pool"), ("v", "v_pool")):
+            seg = pcache[name][:, :, j * 128:(j + 1) * 128]
+            for b in range(B):
+                cache["layers"][pool][:, b, pages[b][j], :seg.shape[2]] = \
+                    seg[:, b]
+    return cache
+
+
+def phase_vlm_kernel_parity(torch):
+    """The flash kernel at llava's prefill shape (4 x 2048 positions, 56
+    query heads over 8 kv heads of 128, causal) and the paged kernel with
+    per-slot pages at its decode shape (G 7, D 128, 17 pages of a 32-page
+    pool), f32 and bf16, against the plain versions."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    S = VL_SEQ
+    rows, errs = [], {}
+    for dname in ("float32", "bfloat16"):
+        q, k, v = flash_inputs(torch, getattr(torch, dname), S, S_q=S, H=56,
+                               Hkv=8, D=128, B=VL_BATCH)
+        got = flash_attention_kernel(q, k, v, causal=True)
+        want = ref.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        case = attention_errs(got, want, dname, "flash llava prefill")
+        rows.append({"kernel": "flash_attention", "dtype": dname,
+                     "case": f"B={VL_BATCH} S_q=S_kv={S} causal H=56 Hkv=8 "
+                             f"D=128", **case})
+        errs["flash_attention_llava", dname] = case["max_abs_err"]
+        del q, k, v, got, want
+        shape = dict(n_pool=32, mb=18, H=56, Hkv=8, D=128)
+        lengths = [VL_MAX_SEQ, S + 1, VL_FRONT + 1, 2000]
+        rows.append(per_slot_case(torch, dname, shape, 18, lengths))
+        errs["paged_attention_llava", dname] = rows[-1]["max_abs_err"]
+    emit({"phase": "vlm_kernel_parity", "ok": True, "cases": rows})
+    return errs
+
+
+def phase_vlm_init(torch):
+    """llava over VL_LAYERS layers: the seeded f32 tree with conditioned
+    attention (the f32 checks run before the bf16 copy is cast from it),
+    the inputs and the block table."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    cfg = ARCHS["llava-next-34b"]
+    check(cfg.frontend_positions == VL_FRONT, "llava's frontend positions")
+    model = Model(cfg.scaled(num_layers=VL_LAYERS))
+    params32 = conditioned(model, model.init_params(seed=0))
+    fe, toks = vlm_inputs(torch, model.cfg)
+    table = vlm_table(torch, model)
+    torch.cuda.synchronize()
+    emit({"phase": "vlm_init", "ok": True, "arch": cfg.name,
+          "layers": f"{VL_LAYERS} of {cfg.num_layers}",
+          "params": model.n_params(), "seconds": time.perf_counter() - t0,
+          "block_table": table.tolist(),
+          "mem_gb": torch.cuda.memory_allocated() / 1e9})
+    return model, params32, fe, toks, table
+
+
+def phase_vlm_layers(torch, model, params, fe, toks, table):
+    """Layer by layer at full width, bf16, each layer's kernels and plain
+    versions on the SAME input (the plain path's hidden state): the
+    causal attention over the 2048 positions (flash) and, on the loaded
+    cache, one decode step's attention over each slot's pages (paged,
+    per-slot ids).  Held to 4 bf16 ulps of the largest magnitude and row
+    by row to ROW_REL_TOL."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    cfg = model.cfg
+    worst = {}
+
+    def hold(kind, i, got, want):
+        e, scale = max_err(got, want), float(want.float().abs().max())
+        check(e <= 4 * bf16_ulp(scale),
+              f"{kind} {i}: err {e} at scale {scale}")
+        r = row_rel_err(got, want)
+        check(r <= ROW_REL_TOL, f"{kind} {i}: row-relative err {r}")
+        w = worst.get(kind, {"rel": -1.0})
+        if e / scale > w["rel"]:
+            worst[kind] = {"max_abs_err": e, "max_abs": scale,
+                           "rel": e / scale, "row_rel": r, "layer": i}
+
+    h = T._embed_inputs(params, {"tokens": toks, "frontend_embeds": fe}, cfg)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["layers"], i)
+        a_in = L.apply_norm(lp["norm1"], h, cfg)
+        res = [L.attention_full(lp["attn"], a_in, cfg, causal=True,
+                                impl=impl) for impl in (None, "plain")]
+        hold("attention_prefill", i, res[0][0], res[1][0])
+        h = T._mlp_or_moe(lp, h + res[1][0], cfg)
+        ks.append(res[1][1][0])
+        vs.append(res[1][1][1])
+        del res
+    S = h.shape[1]
+    cache = load_vlm_cache(torch, model, {"k": torch.stack(ks),
+                                          "v": torch.stack(vs)}, table)
+    del ks, vs
+    lens = torch.full((VL_BATCH,), S, dtype=torch.int32, device="cuda")
+    h = L.embed_tokens(params["embed"], toks[:, -1:], cfg)
+    for i in range(cfg.num_layers):
+        lp = T._layer(params["layers"], i)
+        a_in = L.apply_norm(lp["norm1"], h, cfg)
+        # both write the same new K/V row before attending
+        outs = [L.attention_decode(lp["attn"], a_in, cfg,
+                                   T._layer(cache["layers"], i), lens,
+                                   block_table=table, impl=impl)[0]
+                for impl in (None, "plain")]
+        hold("attention_decode_paged", i, outs[0], outs[1])
+        h = T._mlp_or_moe(lp, h + outs[1], cfg)
+    torch.cuda.synchronize()
+    emit({"phase": "vlm_layers", "ok": True, "arch": cfg.name,
+          "batch": VL_BATCH, "positions": S,
+          "tol": f"4 bf16 ulps of max|out|, row by row {ROW_REL_TOL}",
+          "worst": worst})
+
+
+def _vlm_prefill_pair(torch, model, params, batch):
+    logits_k, cache_k = model.prefill(params, batch)
+    logits_p, cache_p = model.prefill(params, batch, impl="plain")
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits_k).all()), "non-finite prefill logits")
+    caches = {k: rel_err(cache_k[k], cache_p[k]) for k in ("k", "v")}
+    return _logit_err(logits_k, logits_p), caches, logits_p, cache_p
+
+
+def phase_vlm_model(torch, params32, fe, toks):
+    """llava's first VL_F32_LAYERS layers in f32 compute: prefill logits
+    and K/V through the kernels against the plain versions, teacher
+    forcing (prefill of 2047 positions + one decode step against the
+    prefill of 2048), and VL_STEPS greedy tokens through the kernels
+    identical to those through the plain versions."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import Model
+    from repro_torch.models.param import tree_map
+
+    model = Model(ARCHS["llava-next-34b"].scaled(num_layers=VL_F32_LAYERS,
+                                                 dtype="float32"))
+    params = dict(params32, layers=tree_map(lambda t: t[:VL_F32_LAYERS],
+                                            params32["layers"]))
+    table = vlm_table(torch, model)
+    batch = {"frontend_embeds": fe, "tokens": toks}
+    logits, caches, plain, pcache = _vlm_prefill_pair(torch, model, params,
+                                                      batch)
+    check(logits["rel"] <= VL_F32_REL_TOL, f"f32 logits {logits}")
+    for k, e in caches.items():
+        check(e["rel"] <= VL_F32_REL_TOL, f"f32 cache {k} {e}")
+    S = VL_SEQ
+    # teacher forcing: the last text token by one decode step
+    _, pc = model.prefill(params, dict(batch, tokens=toks[:, :-1]))
+    cache = load_vlm_cache(torch, model, pc, table)
+    del pc
+    got, _ = model.decode_step(params, cache, _decode_batch(
+        torch, toks[:, -1:], table, S - 1))
+    tf = _logit_err(got, plain)
+    check(tf["rel"] <= VL_F32_REL_TOL, f"f32 teacher forcing {tf}")
+    runs = {}
+    for impl in (None, "plain"):
+        cache = load_vlm_cache(torch, model, pcache, table)
+        runs[impl], _, _ = greedy_decode(
+            torch, model, params, plain, cache,
+            _decode_batch(torch, None, table, S), VL_STEPS, impl=impl)
+    same = bool(torch.equal(runs[None], runs["plain"]))
+    check(same, f"f32 greedy tokens differ: {runs[None][:, :8].tolist()} vs "
+                f"{runs['plain'][:, :8].tolist()}")
+    emit({"phase": "vlm_model", "ok": True, "layers": VL_F32_LAYERS,
+          "batch": VL_BATCH, "positions": S, "tol_rel_f32": VL_F32_REL_TOL,
+          "f32": {"prefill_logits": logits, "caches": caches,
+                  "teacher_forcing_2047_plus_1": tf,
+                  "greedy_tokens_identical": same, "steps": VL_STEPS},
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def phase_vlm_generate(torch, model, params, fe, toks, table):
+    """The main vlm path with the launch counts set to 0: one prefill of
+    the 4 requests (frontend embeddings + text; VL_LAYERS flash calls),
+    the K/V loaded into per-slot pages, VL_STEPS greedy decode steps
+    (VL_LAYERS paged calls each)."""
+    from repro_torch.kernels.decode_attention import decode_attention_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    kernels = {"flash_attention": flash_attention_kernel,
+               "paged_attention": paged_attention_kernel,
+               "decode_attention": decode_attention_kernel}
+    L = model.cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels.values())
+    t0 = time.perf_counter()
+    logits, pc = model.prefill(params, {"frontend_embeds": fe,
+                                        "tokens": toks})
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    S = pc["k"].shape[2]
+    check(S == VL_SEQ, f"cache positions {S}")
+    at_prefill = {n: k.launches for n, k in kernels.items()}
+    check(at_prefill == {"flash_attention": L, "paged_attention": 0,
+                         "decode_attention": 0},
+          f"prefill launches {at_prefill}: want {L} flash calls")
+    cache = load_vlm_cache(torch, model, pc, table)
+    del pc
+    toks_out, step_ms, decode_s = greedy_decode(
+        torch, model, params, logits, cache,
+        _decode_batch(torch, None, table, S), VL_STEPS)
+    launches = {n: k.launches for n, k in kernels.items()}
+    want = dict(at_prefill, paged_attention=L * VL_STEPS)
+    check(launches == want, f"launches {launches}, want {want}")
+    combines = {"flash_attention": flash_attention_kernel.combine_launches,
+                "paged_attention": paged_attention_kernel.combine_launches}
+    emit({"phase": "vlm_generate", "ok": True, "arch": model.cfg.name,
+          "batch": VL_BATCH, "frontend_positions": fe.shape[1],
+          "text_tokens": toks.shape[1], "decode_steps": VL_STEPS,
+          "launches": launches, "combine_launches": combines,
+          "prefill_ms": prefill_ms,
+          "median_decode_step_ms": statistics.median(step_ms),
+          "decode_tokens_per_s": VL_BATCH * VL_STEPS / decode_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "first_tokens": toks_out[:, :4].tolist()})
+    return launches
+
+
+def vlm_table_rows(torch, launches, errs):
+    """llava's two kernels at its shapes, bf16: the causal prefill flash
+    (4 x 2048 positions, 56 heads over 8 of 128) and the per-slot paged
+    decode at the last step (2080 positions a slot, G 7, D 128)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_splits as flash_plan
+    from repro_torch.kernels.paged_attention import paged_attention_kernel
+
+    saved = (flash_attention_kernel.launches, paged_attention_kernel.launches)
+    bf, elt = torch.bfloat16, 2
+    B, S, H, Hkv, D = VL_BATCH, VL_SEQ, 56, 8, 128
+    rows = []
+    q, k, v = flash_inputs(torch, bf, S, S_q=S, H=H, Hkv=Hkv, D=D, B=B)
+
+    def kfn():
+        return flash_attention_kernel(q, k, v, causal=True)
+
+    k_ms = time_ms(kfn, iters=20)
+    p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=True),
+                   iters=3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+
+    def lfn():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    l_ms = time_ms(lfn, iters=20)
+    plan = flash_plan(B, S, H, S, causal=True, head_dim=D)
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * elt
+    flops = 4 * B * H * D * (S * (S + 1) // 2)
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    rows.append({"name": "flash_attention_llava", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:85",
+                 "launches": launches["flash_attention"],
+                 "max_abs_err": errs["flash_attention_llava", "bfloat16"],
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": l_ms,
+                 **device_timings(torch, kfn, lfn, n=10),
+                 "library_note": "scaled_dot_product_attention, "
+                                 "is_causal=True, enable_gqa=True (timed "
+                                 "only)",
+                 "shape": f"B={B} S_q=S_kv={S} causal H={H} Hkv={Hkv} D={D} "
+                          f"warpgroups={plan.consumers} key_tile={plan.keys} "
+                          f"splits={plan.splits}",
+                 "flops": flops, "bytes": n_bytes})
+    del q, k, v, qt, kt, vt
+
+    n_pool, mb = 32, 18
+    lengths = [VL_MAX_SEQ] * B
+    q, kp, vp, _, lens = paged_inputs(torch, bf, lengths, n_pool=n_pool,
+                                      mb=mb, H=H, Hkv=Hkv, D=D)
+    table = local_table(torch, B, n_pool, mb)
+
+    def pfn():
+        return paged_attention_kernel(q, kp, vp, table, lens)
+
+    k_ms = time_ms(pfn)
+    p_ms = time_ms(lambda: ref.paged_attention(q, kp, vp, table, lens))
+    n_rows = sum(lengths)
+    n_bytes = (2 * q.numel() * elt + n_rows * Hkv * D * 2 * elt
+               + table.numel() * 4 + lens.numel() * 4)
+    b_ms, b_by = bound_ms(n_bytes, 4 * H * D * n_rows, "bfloat16")
+    rows.append({"name": "paged_attention_per_slot_llava", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/paged_attention.cu",
+                 "replaces": "src/repro/kernels/paged_attention.py:128 "
+                             "(global_pages=False, :171-177)",
+                 "launches": launches["paged_attention"],
+                 "max_abs_err": errs["paged_attention_llava", "bfloat16"],
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": None,
+                 **device_timings(torch, pfn),
+                 "plan": paged_plan_fields(B, Hkv, mb, lengths),
+                 "library_note": "no single PyTorch call attends over pages "
+                                 "named by a block table",
+                 "shape": f"B={B} n_pool={n_pool} lengths={lengths[0]} "
+                          f"H={H} Hkv={Hkv} D={D} per-slot ids",
+                 "bytes": n_bytes})
+    flash_attention_kernel.launches, paged_attention_kernel.launches = saved
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# the training plane: flash attention's backward kernel and the Trainer
+# ---------------------------------------------------------------------------
+# the backward kernel against autograd of the plain version: (name, B,
+# S_q, S_kv, H, Hkv, D, causal, window) — qwen2's train shape, D 128 at
+# G 4, phi3's D 96 and zamba2's D 112 (the run-time-D range), the
+# encoder's non-causal shape, and a 4096-key window whose edges cut key
+# tiles mid-tile
+BWD_SHAPES = (
+    ("qwen2_train", 2, 4096, 4096, 14, 2, 64, True, 0),
+    ("d128_g4", 1, 2048, 2048, 32, 8, 128, True, 0),
+    ("phi3_d96", 1, 1024, 1024, 32, 32, 96, True, 0),
+    ("zamba2_d112", 1, 1024, 1024, 32, 32, 112, True, 0),
+    ("encoder_noncausal", 2, 1024, 1024, 16, 16, 64, False, 0),
+    ("window_4096", 1, 4672, 4672, 8, 2, 128, True, 4096),
+)
+# each gradient's largest error over its largest magnitude: f32 sums in
+# another order than the plain autograd; bf16 rounds the gradients (an ulp
+# is 2**-8 of a value) and the plain forward rounds its softmax weights to
+# bf16 before P.V, which its autograd differentiates through
+BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# qwen2-0.5b's train cell train_4k: sequences of 4096; the batch is cut
+# from 256 to 2 (one card, no accumulation).  8 steps, a checkpoint every
+# 4, a failure injected before step 6 (restored from step 3's checkpoint,
+# steps 4 and 5 replayed).
+TR_SEQ, TR_BATCH, TR_STEPS, TR_CKPT_EVERY, TR_FAIL_AT = 4096, 2, 8, 4, 6
+# f32 over 4 layers, one step through the kernels against one through the
+# plain versions: loss and grad norm to 1e-5 relative, every gradient
+# leaf to 1e-4 of its largest magnitude (f32 sums in other orders through
+# 4 layers and the 151936-way log-sum-exp)
+TR_F32_LAYERS, TR_F32_LOSS_TOL, TR_F32_GRAD_TOL = 4, 1e-5, 1e-4
+
+
+def bwd_inputs(torch, dtype, B, S_q, S_kv, H, Hkv, D, seed=11):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=g, device="cuda").to(dtype)
+                 for shape in ((B, S_q, H, D), (B, S_kv, Hkv, D),
+                               (B, S_kv, Hkv, D), (B, S_q, H, D)))
+
+
+def plain_grads(torch, q, k, v, do, **kw):
+    """(out, dq, dk, dv) by autograd of the plain version."""
+    from repro_torch.kernels import ref
+
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    with torch.enable_grad():
+        out = ref.flash_attention(q, k, v, **kw)
+        grads = torch.autograd.grad(out, (q, k, v), do)
+    return (out.detach(),) + grads
+
+
+def grad_errs(got, want, dname):
+    """Per gradient: the largest error, it over the largest magnitude
+    (held to BWD_TOL), and the row-relative error over the rows whose
+    largest magnitude is at least 1% of the gradient's (reported; a
+    causal dQ's first row is 0 in exact arithmetic)."""
+    out = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        e, scale = max_err(a, b), float(b.float().abs().max())
+        rows = b.float().abs().amax(-1) >= 0.01 * scale
+        out[name] = {"max_abs_err": e, "max_abs": scale, "rel": e / scale,
+                     "row_rel_err": row_rel_err(a[rows], b[rows])}
+    out["ok"] = all(out[n]["rel"] <= BWD_TOL[dname] for n in ("dq", "dk",
+                                                              "dv"))
+    return out
+
+
+def phase_flash_bwd_parity(torch):
+    """The backward kernel against autograd of the plain version at
+    BWD_SHAPES, f32 and bf16, with two planted faults that the check must
+    catch: a kernel that drops the last member of each GQA group (its
+    dK and dV: the kernel's on an output gradient with those heads
+    zeroed) and one whose window mask keeps one key too many (the kernel
+    run with window 64 against the plain gradient at 63)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    rows, errs = [], {}
+    for name, B, S_q, S_kv, H, Hkv, D, causal, window in BWD_SHAPES:
+        for dname in ("float32", "bfloat16"):
+            q, k, v, do = bwd_inputs(torch, getattr(torch, dname), B, S_q,
+                                     S_kv, H, Hkv, D)
+            kw = dict(causal=causal, window=window)
+            out = flash_attention_kernel(q, k, v, **kw)
+            got = flash_attention_bwd_kernel(q, k, v, out, do, **kw)
+            want = plain_grads(torch, q, k, v, do, **kw)
+            torch.cuda.synchronize()
+            fwd = attention_errs(out, want[0], dname, f"flash {name}")
+            case = grad_errs(got, want[1:], dname)
+            check(case["ok"], f"flash backward {name} {dname}: {case}")
+            rows.append({"case": name, "dtype": dname,
+                         "shape": f"B={B} S_q={S_q} S_kv={S_kv} H={H} "
+                                  f"Hkv={Hkv} D={D} causal={causal} "
+                                  f"window={window}", "forward": fwd,
+                         **case})
+            if name == "qwen2_train":
+                errs["flash_attention_train", dname] = fwd["max_abs_err"]
+            errs["flash_bwd_" + name, dname] = max(
+                case[n]["max_abs_err"] for n in ("dq", "dk", "dv"))
+            del q, k, v, do, out, got, want
+    faults = {}
+    # a dropped group member: the last query head of each kv head's group
+    q, k, v, do = bwd_inputs(torch, torch.bfloat16, 1, 1024, 1024, 14, 2, 64)
+    want = plain_grads(torch, q, k, v, do, causal=True)
+    out = flash_attention_kernel(q, k, v, causal=True)
+    dropped = do.clone()
+    dropped[:, :, 6::7] = 0
+    got = flash_attention_bwd_kernel(q, k, v, out, dropped, causal=True)
+    faults["dropped_group_member"] = grad_errs(got, want[1:], "bfloat16")
+    # the window's edge one key late
+    q, k, v, do = bwd_inputs(torch, torch.bfloat16, 1, 1024, 1024, 8, 2, 128)
+    want = plain_grads(torch, q, k, v, do, causal=True, window=63)
+    out = flash_attention_kernel(q, k, v, causal=True, window=64)
+    got = flash_attention_bwd_kernel(q, k, v, out, do, causal=True, window=64)
+    faults["window_edge_shifted"] = grad_errs(got, want[1:], "bfloat16")
+    for name, f in faults.items():
+        check(not f["ok"], f"planted fault {name} passed the check: {f}")
+    emit({"phase": "flash_bwd_parity", "ok": True, "tol": BWD_TOL,
+          "cases": rows, "planted_faults_caught": faults})
+    return errs
+
+
+def flat_grads(torch, model, params, batch, impl=None, remat="full"):
+    """The train step's loss and the gradient of every f32 master leaf
+    (``launch.loss_and_grads``), the gradients by leaf path."""
+    from repro_torch.launch import loss_and_grads
+
+    loss, _, grads = loss_and_grads(model, params, batch, remat=remat,
+                                    impl=impl)
+    flat = {}
+
+    def walk(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                walk(v, f"{prefix}/{k}")
+            else:
+                flat[f"{prefix}/{k}"] = v
+
+    walk(grads)
+    return loss, flat
+
+
+def train_batch(torch, cfg, step=0):
+    """The synthetic pipeline's batch of ``step`` (seed 0), on the card."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import SyntheticDataPipeline
+
+    pipe = SyntheticDataPipeline(cfg, ShapeConfig("train_4k", "train",
+                                                  TR_SEQ, TR_BATCH),
+                                 start_step=step)
+    try:
+        return {k: torch.from_numpy(v.copy()).cuda()
+                for k, v in pipe.next().items()}
+    finally:
+        pipe.stop()
+
+
+def phase_train_grads(torch, model):
+    """At full width, bf16, one step's loss and gradients through the
+    kernels (remat "full"): every parameter leaf gets a finite, nonzero
+    gradient, and the flash launches of a step are 24 forward calls, 24
+    more where remat recomputes the layers, and 24 backward calls."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    params = model.init_params(seed=0)
+    batch = train_batch(torch, model.cfg)
+    L = model.cfg.num_layers
+    counts = {}
+    for remat in ("none", "full"):
+        _reset((flash_attention_kernel, flash_attention_bwd_kernel))
+        loss, grads = flat_grads(torch, model, params, batch, remat=remat)
+        torch.cuda.synchronize()
+        counts[remat] = {
+            "flash_forward": flash_attention_kernel.launches,
+            "flash_backward": flash_attention_bwd_kernel.launches}
+        check(bool(torch.isfinite(loss)), f"loss {loss}")
+        bad = [k for k, g in grads.items()
+               if not bool(torch.isfinite(g).all()) or float(
+                   g.abs().max()) == 0.0]
+        check(not bad, f"leaves without a gradient: {bad}")
+    check(counts == {"none": {"flash_forward": L, "flash_backward": L},
+                     "full": {"flash_forward": 2 * L, "flash_backward": L}},
+          f"flash launches per step {counts}")
+    emit({"phase": "train_grads", "ok": True, "arch": model.cfg.name,
+          "batch": TR_BATCH, "seq": TR_SEQ, "loss": float(loss),
+          "leaves_with_gradient": len(grads),
+          "flash_launches_per_step": counts,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def phase_train_f32(torch):
+    """qwen2's first 4 layers in f32: one train step's loss, grad norm
+    and every gradient leaf through the kernels (the f32 flash body and
+    the backward kernel) against the plain versions, on conditioned
+    weights, and one ``build_train_step`` step of each."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch import build_train_step
+    from repro_torch.models import Model, init_params
+    from repro_torch.models.param import tree_map
+    from repro_torch.training import opt_state_specs
+
+    model = Model(ARCHS["qwen2-0.5b"].scaled(num_layers=TR_F32_LAYERS,
+                                             dtype="float32"))
+    params = conditioned(model, model.init_params(seed=0))
+    batch = train_batch(torch, model.cfg)
+    runs = {impl: flat_grads(torch, model, params, batch, impl=impl)
+            for impl in (None, "plain")}
+    (lk, gk), (lp, gp) = runs[None], runs["plain"]
+    loss_rel = abs(float(lk) - float(lp)) / abs(float(lp))
+    check(loss_rel <= TR_F32_LOSS_TOL, f"f32 loss {float(lk)} vs {float(lp)}")
+    worst = {"rel": -1.0}
+    for k in gp:
+        e, scale = max_err(gk[k], gp[k]), float(gp[k].abs().max())
+        check(e <= TR_F32_GRAD_TOL * scale, f"f32 gradient {k}: err {e} "
+                                            f"at scale {scale}")
+        if e / scale > worst["rel"]:
+            worst = {"leaf": k, "max_abs_err": e, "max_abs": scale,
+                     "rel": e / scale}
+    steps = {}
+    for impl in (None, "plain"):
+        p = tree_map(lambda t: t.clone(), params)
+        o = init_params(opt_state_specs(model.param_specs), 0, "cuda")
+        _, _, m = build_train_step(model, impl=impl)(p, o, batch)
+        steps[impl] = {k: float(v) for k, v in m.items()}
+        del p, o
+    for key in ("loss", "grad_norm"):
+        a, b = steps[None][key], steps["plain"][key]
+        check(abs(a - b) <= TR_F32_LOSS_TOL * abs(b), f"f32 step {key} "
+                                                      f"{a} vs {b}")
+    emit({"phase": "train_f32", "ok": True, "layers": TR_F32_LAYERS,
+          "loss_rel_err": loss_rel, "worst_grad_leaf": worst,
+          "tol": {"loss_and_grad_norm": TR_F32_LOSS_TOL,
+                  "grad_leaf": f"{TR_F32_GRAD_TOL} of max|grad|"},
+          "step": steps, "leaves": len(gp)})
+
+
+def phase_train_steps(torch, model):
+    """The main training path with the launch counts set to 0: a
+    ``Trainer`` over TR_STEPS steps (the synthetic pipeline's pinned
+    buffers, remat "full"); then a second one that checkpoints every
+    TR_CKPT_EVERY steps and fails before step TR_FAIL_AT, restores and
+    replays: its losses identical to the first run's, step for step."""
+    import shutil
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.training import Trainer, inject_failure_at
+
+    shape = ShapeConfig("train_4k", "train", TR_SEQ, TR_BATCH)
+    kernels = (flash_attention_kernel, flash_attention_bwd_kernel)
+    L = model.cfg.num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels)
+    t0 = time.perf_counter()
+    base = Trainer(model, shape).run(TR_STEPS)
+    wall = time.perf_counter() - t0
+    launches = {"flash_attention": flash_attention_kernel.launches,
+                "flash_attention_bwd": flash_attention_bwd_kernel.launches}
+    want = {"flash_attention": 2 * L * TR_STEPS,
+            "flash_attention_bwd": L * TR_STEPS}
+    check(launches == want, f"launches {launches}, want {want}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in base["history"]]
+    check(all(abs(x) < float("inf") for x in losses), f"losses {losses}")
+    ckpt_dir = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        crashy = Trainer(model, shape, ckpt_dir=str(ckpt_dir),
+                         ckpt_every=TR_CKPT_EVERY,
+                         failure_hook=inject_failure_at({TR_FAIL_AT}))
+        out = crashy.run(TR_STEPS)
+        saved = crashy.ckpt.available_steps()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    check(out["restarts"] == 1 and out["final_step"] == TR_STEPS,
+          f"restarts {out['restarts']} final step {out['final_step']}")
+    steps = [h["step"] for h in out["history"]]
+    replayed = [h for h in out["history"][TR_FAIL_AT:]]
+    check(steps == list(range(TR_FAIL_AT))
+          + list(range(TR_CKPT_EVERY, TR_STEPS)), f"steps {steps}")
+    diffs = {h["step"]: h["loss"] - losses[h["step"]]
+             for h in out["history"] if h["loss"] != losses[h["step"]]}
+    check(not diffs, f"replayed losses differ from the first run's: "
+                     f"{diffs}")
+    times = [h["time_s"] for h in base["history"]]
+    emit({"phase": "train_steps", "ok": True, "arch": model.cfg.name,
+          "batch": TR_BATCH, "seq": TR_SEQ, "steps": TR_STEPS,
+          "launches": launches,
+          "flash_launches_per_step": {
+              "forward": launches["flash_attention"] // TR_STEPS,
+              "backward": launches["flash_attention_bwd"] // TR_STEPS},
+          "losses": losses,
+          "replay": {"history_steps": steps, "checkpoints": saved,
+                     "replayed_losses": [h["loss"] for h in replayed],
+                     "identical": True},
+          "step_s": times, "median_step_s": statistics.median(times[1:]),
+          "tokens_per_s": TR_BATCH * TR_SEQ / statistics.median(times[1:]),
+          "wall_s": wall, "peak_mem_gb": peak})
+    return launches
+
+
+def train_table_rows(torch, launches, errs):
+    """The flash forward and backward kernels at qwen2's train shape
+    (B 2, S 4096, 14 heads over 2 of 64, causal), bf16: kernel, plain
+    (autograd of the plain version for the backward) and SDPA times
+    beside the bound."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    saved = (flash_attention_kernel.launches,
+             flash_attention_bwd_kernel.launches)
+    B, S, H, Hkv, D = TR_BATCH, TR_SEQ, 14, 2, 64
+    elt = 2
+    q, k, v, do = bwd_inputs(torch, torch.bfloat16, B, S, S, H, Hkv, D)
+    pairs = B * H * (S * (S + 1) // 2)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    rows = []
+
+    def kfn():
+        return flash_attention_kernel(q, k, v, causal=True)
+
+    def lfn():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                              enable_gqa=True)
+
+    k_ms = time_ms(kfn, iters=20)
+    p_ms = time_ms(lambda: ref.flash_attention(q, k, v, causal=True),
+                   iters=3, warmup=1)
+    l_ms = time_ms(lfn, iters=20)
+    n_bytes = (2 * q.numel() + 2 * k.numel()) * elt
+    b_ms, b_by = bound_ms(n_bytes, 4 * D * pairs, "bfloat16")
+    rows.append({"name": "flash_attention_train", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+                 "replaces": "src/repro/kernels/flash_attention.py:85",
+                 "launches": launches["flash_attention"],
+                 "max_abs_err": errs["flash_attention_train", "bfloat16"],
+                 "ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": l_ms,
+                 "library_note": "scaled_dot_product_attention, "
+                                 "is_causal=True, enable_gqa=True (timed "
+                                 "only)",
+                 "shape": f"B={B} S_q=S_kv={S} causal H={H} Hkv={Hkv} D={D}"})
+
+    out = kfn()
+
+    def bfn():
+        return flash_attention_bwd_kernel(q, k, v, out, do, causal=True)
+
+    bk_ms = time_ms(bfn, iters=5, warmup=1)
+    qp, kp, vp = (x.detach().requires_grad_(True) for x in (q, k, v))
+    with torch.enable_grad():
+        outp = ref.flash_attention(qp, kp, vp, causal=True)
+        bp_ms = time_ms(lambda: torch.autograd.grad(
+            outp, (qp, kp, vp), do, retain_graph=True), iters=3, warmup=1)
+        del outp
+        ql, kl, vl = (x.transpose(1, 2).detach().requires_grad_(True)
+                      for x in (q, k, v))
+        outl = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True,
+                                              enable_gqa=True)
+        dol = do.transpose(1, 2)
+        bl_ms = time_ms(lambda: torch.autograd.grad(
+            outl, (ql, kl, vl), dol, retain_graph=True), iters=20)
+        del outl
+    # reads q, k, v, out and dout once, writes dq, dk, dv once; the
+    # products of each visible pair: S again, dP, dV, dQ, dK (10 D)
+    n_bytes = (4 * q.numel() + 4 * k.numel()) * elt
+    flops = 10 * D * pairs
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    rows.append({"name": "flash_bwd", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/"
+                           "flash_attention_bwd.cu",
+                 "replaces": "none: the gradient of "
+                             "src/repro/kernels/flash_attention.py:85 "
+                             "(the JAX package trains through ref, "
+                             "src/repro/kernels/ref.py)",
+                 "launches": launches["flash_attention_bwd"],
+                 "max_abs_err": errs["flash_bwd_qwen2_train", "bfloat16"],
+                 "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": b_ms,
+                 "bound_by": b_by, "library_ms": bl_ms,
+                 "library_note": "the backward of "
+                                 "scaled_dot_product_attention (is_causal, "
+                                 "enable_gqa) by autograd.grad (timed only)",
+                 "shape": f"B={B} S_q=S_kv={S} causal H={H} Hkv={Hkv} "
+                          f"D={D}; three kernels a call (statistics, "
+                          f"dK/dV, dQ)",
+                 "flops": flops, "bytes": n_bytes})
+    flash_attention_kernel.launches, flash_attention_bwd_kernel.launches = \
+        saved
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -4756,6 +5533,42 @@ def main() -> int:
             for name in FAMILIES:
                 phase = f"families_engine {name}"
                 table += phase_family_engine(torch, name, args.profile)
+
+            phase = "vlm_kernel_parity"
+            errs.update(phase_vlm_kernel_parity(torch))
+            phase = "vlm_init"
+            model, params32, fe, toks, vl_table = phase_vlm_init(torch)
+            phase = "vlm_model"
+            phase_vlm_model(torch, params32, fe, toks)
+            params = model.compute_params(params32)
+            del params32
+            torch.cuda.empty_cache()
+            phase = "vlm_layers"
+            phase_vlm_layers(torch, model, params, fe, toks, vl_table)
+            phase = "vlm_generate"
+            vl_launches = phase_vlm_generate(torch, model, params, fe, toks,
+                                             vl_table)
+            del model, params, fe, toks, vl_table
+            torch.cuda.empty_cache()
+            phase = "vlm_table"
+            table += vlm_table_rows(torch, vl_launches, errs)
+
+            phase = "flash_bwd_parity"
+            errs.update(phase_flash_bwd_parity(torch))
+            torch.cuda.empty_cache()
+            phase = "train_f32"
+            phase_train_f32(torch)
+            torch.cuda.empty_cache()
+            model = Model(ARCHS["qwen2-0.5b"])
+            phase = "train_grads"
+            phase_train_grads(torch, model)
+            torch.cuda.empty_cache()
+            phase = "train_steps"
+            tr_launches = phase_train_steps(torch, model)
+            del model
+            torch.cuda.empty_cache()
+            phase = "train_table"
+            table += train_table_rows(torch, tr_launches, errs)
     except Exception as exc:  # report which phase failed, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

@@ -3,15 +3,15 @@
 Ported: ``qwen2-0.5b``, ``granite-3-8b``, ``minitron-4b`` and
 ``phi3-mini-3.8b`` (dense), ``mamba2-2.7b`` (ssm),
 ``seamless-m4t-medium`` (encdec), ``zamba2-7b`` (hybrid),
-``mixtral-8x7b`` (moe, sliding window) and ``granite-moe-3b-a800m``
-(moe, paged) — every entry of the JAX package's registry but one.
-``llava-next-34b`` (vlm) is the next slice of the port (ROADMAP.md,
-Queue A) and stays unregistered until its path runs.
+``llava-next-34b`` (vlm), ``mixtral-8x7b`` (moe, sliding window) and
+``granite-moe-3b-a800m`` (moe, paged) — every entry of the JAX package's
+registry, in its order.
 """
 
 from .base import SHAPES, ModelConfig, ShapeConfig, smoke_config
 from .granite_3_8b import CONFIG as granite_3_8b
 from .granite_moe_3b_a800m import CONFIG as granite_moe_3b_a800m
+from .llava_next_34b import CONFIG as llava_next_34b
 from .mamba2_2_7b import CONFIG as mamba2_2_7b
 from .minitron_4b import CONFIG as minitron_4b
 from .mixtral_8x7b import CONFIG as mixtral_8x7b
@@ -20,7 +20,7 @@ from .qwen2_0_5b import CONFIG as qwen2_0_5b
 from .seamless_m4t_medium import CONFIG as seamless_m4t_medium
 from .zamba2_7b import CONFIG as zamba2_7b
 
-# the JAX registry's order, llava-next-34b left out
+# the JAX registry's order
 ARCHS = {
     c.name: c
     for c in [
@@ -30,6 +30,7 @@ ARCHS = {
         phi3_mini_3_8b,
         granite_3_8b,
         mamba2_2_7b,
+        llava_next_34b,
         mixtral_8x7b,
         granite_moe_3b_a800m,
         zamba2_7b,

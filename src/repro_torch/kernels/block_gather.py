@@ -111,6 +111,7 @@ def block_gather_kernel(pool: torch.Tensor,
     current."""
     if not pool.is_cuda:
         raise ValueError("block_gather_kernel takes a CUDA pool")
+    _build.refuse_grad("block_gather_kernel", pool)
     if not pool.is_contiguous():
         raise ValueError("block_gather_kernel needs a contiguous pool")
     if pool.dim() < 2:

@@ -634,11 +634,15 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
   const int hi0 = causal ? q_pos0 : kNone;
   const int diag = causal ? q_offset + qw0 : kNone;
   const int edge = kWindow ? wq_hi - window : -kNone;
-  for (int it = t_begin; it < min(live_begin, t_end); ++it) {
-    wait_full(it);
-    release(it);
-  }
-  if (live_begin < live_end) {
+  // a warpgroup with no tile to compute (the second of the last block,
+  // whose rows lie past S_q) releases its tiles one a turn, below
+  const bool idle = live_begin >= live_end;
+  if (!idle)
+    for (int it = t_begin; it < live_begin; ++it) {
+      wait_full(it);
+      release(it);
+    }
+  if (!idle) {
     hp::mbar_wait(q_bar, 0);
     const uint32_t q_wg = q_s + c * (L::kQBytes / NC);
     float s[KN / 2];
@@ -707,16 +711,26 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
     release(live_end - 1);
   }
   if (t_begin < t_end) {
-    const int taken = live_begin < live_end ? live_end - live_begin + 1 : 0;
+    const int taken = idle ? 0 : live_end - live_begin + 1;
     for (int k = taken; k < t_end - t_begin + 1; ++k) {
       my_turn();
       pass_turn();
+      // an idle warpgroup releases tile k after its turn k: the other
+      // one's turn k + 1 waits for tile k + 1, whose stage held tile
+      // k + 1 - kStages (kStages >= 2).  Releasing them all after its
+      // turns would hold the producer once the block has more tiles than
+      // stages, while the other warpgroup waits for its next tile.
+      if (idle && t_begin + k < t_end) {
+        wait_full(t_begin + k);
+        release(t_begin + k);
+      }
     }
   }
-  for (int it = max(live_begin, live_end); it < t_end; ++it) {
-    wait_full(it);
-    release(it);
-  }
+  if (!idle)
+    for (int it = live_end; it < t_end; ++it) {
+      wait_full(it);
+      release(it);
+    }
 
   // ---- epilogue: rows r0 and r0 + 8 of this warpgroup ----
 #pragma unroll

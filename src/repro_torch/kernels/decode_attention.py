@@ -77,6 +77,7 @@ def decode_attention_kernel(
     kernel and the plain softmax do."""
     if not q.is_cuda:
         raise ValueError("decode_attention_kernel takes CUDA tensors")
+    _build.refuse_grad("decode_attention_kernel", q, k_cache, v_cache)
     if q.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {q.dtype}")
     if k_cache.dtype != q.dtype or v_cache.dtype != q.dtype:

@@ -36,8 +36,13 @@ filled with zeros past D by TMA (a tensor map's row stride must be whole
 64.  Other head dims raise.
 
 :func:`flash_attention_plain` is the plain PyTorch version;
-``ops.flash_attention`` sends CPU tensors to it and CUDA tensors to
-:func:`flash_attention_kernel`.
+``ops.flash_attention`` sends CPU tensors to it and CUDA tensors, where
+autograd needs a gradient, to the :class:`FlashAttention` function (its
+forward the kernel above, its backward
+:func:`flash_attention_bwd_kernel`, ``csrc/flash_attention_bwd.cu``: dQ,
+dK and dV of exactly what the forward computes, at ``q_offset`` 0,
+causal or not, with any window, GQA, D as the forward takes it, bf16 and
+f32), else to the kernel alone.
 """
 
 from __future__ import annotations
@@ -60,6 +65,8 @@ SMS = 132
 ROWS = 64
 
 _launch = _build.Entry("flash_attention", "repro_flash_attention", "15qd6q")
+_launch_bwd = _build.Entry("flash_attention_bwd", "repro_flash_attention_bwd",
+                           "19qdq")
 
 
 class FlashPlan(NamedTuple):
@@ -184,5 +191,75 @@ flash_attention_kernel.launches = 0
 #: of those, the calls that also launched the split combine
 flash_attention_kernel.combine_launches = 0
 
-__all__ = ["FlashPlan", "flash_attention_kernel", "flash_attention_plain",
-           "key_range", "plan_splits"]
+
+def flash_attention_bwd_kernel(q, k, v, out, dout, *, causal: bool = True,
+                               window: int = 0):
+    """Launch the backward kernel on ``q``'s stream: (dq, dk, dv) of the
+    forward ``out = flash_attention_kernel(q, k, v, causal=causal,
+    window=window)`` (``q_offset`` 0) for the output gradient ``dout``,
+    each in its input's shape and dtype.  Three kernels: the rows'
+    softmax statistics, dK and dV per key tile (summed over each kv
+    head's query heads), dQ per query tile; no atomics, so the result is
+    the same on every run."""
+    if not q.is_cuda:
+        raise ValueError("flash_attention_bwd_kernel takes CUDA tensors")
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {q.dtype}")
+    if any(t.dtype != q.dtype for t in (k, v, out)):
+        raise TypeError("q, k, v and out must share one dtype")
+    if not isinstance(window, int) or window < 0:
+        raise ValueError(f"window must be a non-negative int, got "
+                         f"{window!r}")
+    B, S_q, H, D = q.shape
+    S_kv, Hkv = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or k.shape[0] != B or k.shape[3] != D
+            or out.shape != q.shape or dout.shape != q.shape):
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}, out {tuple(out.shape)}, "
+                         f"dout {tuple(dout.shape)}")
+    if H % Hkv or D % 8 or not 0 < D <= _MAX_HEAD_DIM or S_kv < 1:
+        raise ValueError(f"H={H} Hkv={Hkv} D={D} S_kv={S_kv}: the kernel "
+                         f"takes whole GQA groups, D % 8 == 0, D <= "
+                         f"{_MAX_HEAD_DIM} and at least one key")
+    device, stream = _build.device_stream(q)
+    q, k, v, out = (x.contiguous() for x in (q, k, v, out))
+    dout = dout.to(q.dtype).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ws = torch.empty(3 * B * H * S_q, dtype=torch.float32, device=q.device)
+    _launch_bwd(device, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), out.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), B, S_q, S_kv, H,
+                Hkv, D, 1 if causal else 0, window, 1.0 / math.sqrt(D),
+                stream)
+    flash_attention_bwd_kernel.launches += 1
+    return dq, dk, dv
+
+
+#: wrapper calls that launched the backward kernels since the count was
+#: last set to 0
+flash_attention_bwd_kernel.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """The flash kernel under autograd: the forward is
+    :func:`flash_attention_kernel` as it stands, the backward
+    :func:`flash_attention_bwd_kernel`.  Saves q, k, v and the output."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: int):
+        out = flash_attention_kernel(q, k, v, causal=causal, window=window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.window = causal, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd_kernel(
+            q, k, v, out, dout, causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None
+
+
+__all__ = ["FlashAttention", "FlashPlan", "flash_attention_bwd_kernel",
+           "flash_attention_kernel", "flash_attention_plain", "key_range",
+           "plan_splits"]

@@ -5,7 +5,9 @@ kernel, a CPU tensor to the plain PyTorch version.  There is no
 environment switch and no fallback: a kernel that fails to build or to
 launch raises.  ``impl="plain"`` forces the plain version on any device;
 it exists so tests and ``chip_smoke.py`` can hold the kernels against
-the plain versions on the card.
+the plain versions on the card.  Only flash attention has a backward
+kernel; the other kernels raise when autograd would need their gradient
+(``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,7 @@ import torch
 from . import ref
 from .block_gather import block_gather_kernel
 from .decode_attention import decode_attention_kernel
-from .flash_attention import flash_attention_kernel
+from .flash_attention import FlashAttention, flash_attention_kernel
 from .paged_attention import paged_attention_kernel
 from .ssd_scan import ssd_chunk_scan_kernel
 
@@ -36,9 +38,19 @@ def _plain(x: torch.Tensor, impl: Optional[str]) -> bool:
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     q_offset: int = 0, impl: Optional[str] = None):
+    """Attention over a whole chunk.  On the card, where grad mode is on
+    and an input requires grad, the kernel runs with its backward kernel
+    (``FlashAttention``, ``q_offset`` 0 only); the plain version keeps
+    PyTorch's own autograd."""
     if _plain(q, impl):
         return ref.flash_attention(q, k, v, causal=causal, window=window,
                                    q_offset=q_offset)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        if q_offset:
+            raise ValueError("the flash backward kernel takes q_offset 0, "
+                             f"got {q_offset}")
+        return FlashAttention.apply(q, k, v, causal, window)
     return flash_attention_kernel(q, k, v, causal=causal, window=window,
                                   q_offset=q_offset)
 

@@ -102,6 +102,7 @@ def paged_attention_kernel(
     """
     if not q.is_cuda:
         raise ValueError("paged_attention_kernel takes CUDA tensors")
+    _build.refuse_grad("paged_attention_kernel", q, k_pool, v_pool)
     dtype = _DTYPES.get(q.dtype)
     if dtype is None:
         raise TypeError(f"unsupported dtype {q.dtype}")

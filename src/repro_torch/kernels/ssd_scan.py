@@ -88,6 +88,8 @@ def ssd_chunk_scan_kernel(
     dtype, final state (B,H,P,N) f32)."""
     if not x.is_cuda:
         raise ValueError("ssd_chunk_scan_kernel takes CUDA tensors")
+    _build.refuse_grad("ssd_chunk_scan_kernel", x, dt, a, b, c, d_skip,
+                       init_state)
     chunk = _check_args(x, b, c, chunk=chunk, init_state=init_state)
     if x.dtype not in _DTYPES:
         raise TypeError(f"unsupported dtype {x.dtype}")

@@ -449,7 +449,11 @@ def embed_specs(cfg: ModelConfig) -> Dict[str, ParamSpec]:
 
 
 def embed_tokens(p, tokens: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    return p["tok"].to(getattr(torch, cfg.dtype))[tokens.long()]
+    """The rows of the embedding table (``F.embedding``: its gradient on
+    the card sums each row's contributions in a fixed order, where the
+    backward of an indexing gather accumulates by atomics)."""
+    w = p["tok"].to(getattr(torch, cfg.dtype))
+    return F.embedding(tokens.to(w.device).long(), w)
 
 
 def unembed(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

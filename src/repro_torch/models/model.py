@@ -1,28 +1,30 @@
 """Model facade: one object per architecture config, bound to a device.
 
-Mirrors the JAX package's ``repro/models/model.py`` for the ported
-paths: params, the decode cache (paged for the dense family and
-granite-moe's MoE, a rolling sliding-window ring for mixtral's MoE,
-state and conv tails for the SSM family, both for the hybrid — every
-Mamba2 layer's state and one paged pool per application of its shared
-attention block — and paged
-self-attention pools and a fixed cross-attention cache for the
-encoder-decoder), the whole-prompt prefill (every ported family), one
-prefill chunk (the paged layout: dense and MoE) and one decode step.
-The model lives on the card unless the caller asks for the CPU.
+Mirrors the JAX package's ``repro/models/model.py``: params, the step
+inputs of each shape kind (``input_specs``) and synthetic batches of
+them, the training loss (``loss_fn``), the decode cache (paged for the
+dense family, the vlm and granite-moe's MoE, a rolling sliding-window
+ring for mixtral's MoE, state and conv tails for the SSM family, both
+for the hybrid — every Mamba2 layer's state and one paged pool per
+application of its shared attention block — and paged self-attention
+pools and a fixed cross-attention cache for the encoder-decoder), the
+whole-prompt prefill, one prefill chunk (the paged layout: dense and
+MoE) and one decode step.  The model lives on the card unless the
+caller asks for the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import zlib
+from typing import Dict, Optional
 
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..device import DeviceLike, resolve_device
 from . import transformer as T
-from .param import count_params, init_params
+from .param import ParamSpec, count_params, init_params, tree_map_specs
 
 #: leaves (by the last two keys of their path) that the JAX package reads
 #: in f32 whatever the compute dtype (``repro/models/ssm.py``)
@@ -97,6 +99,80 @@ class Model:
         return init_params(self.cache_specs(shape, pool_slack), 0,
                            self.device)
 
+    # ------------------------------------------------------------------
+    # Inputs
+    # ------------------------------------------------------------------
+    def input_specs(self, shape: ShapeConfig) -> Dict[str, ParamSpec]:
+        """ParamSpec tree of the step inputs of this (arch, shape) cell,
+        as the JAX package declares them: train {"tokens", "labels"}
+        (the encoder-decoder also "enc_embeds", the vlm
+        "frontend_embeds" of ``frontend_positions`` rows, its tokens and
+        labels the other ``seq_len - P``); prefill {"tokens"} with the
+        same frontend inputs; decode {"tokens" (B, 1), "lengths"} and a
+        "block_table" for the paged layouts."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        ii = torch.int32
+        dt = getattr(torch, cfg.dtype)
+
+        def ints(*shp):
+            return ParamSpec(shp, ("batch",) + (None,) * (len(shp) - 1),
+                             dtype=ii, init="zeros")
+
+        def embeds(n):
+            return ParamSpec((B, n, cfg.d_model), ("batch", None, None),
+                             dtype=dt)
+
+        if shape.kind in ("train", "prefill"):
+            P = cfg.frontend_positions if cfg.family == "vlm" else 0
+            specs = {"tokens": ints(B, S - P)}
+            if shape.kind == "train":
+                specs["labels"] = ints(B, S - P)
+            if cfg.is_encdec:
+                specs["enc_embeds"] = embeds(S)
+            elif cfg.family == "vlm":
+                specs["frontend_embeds"] = embeds(P)
+            return specs
+
+        specs = {"tokens": ints(B, 1), "lengths": ints(B)}
+        if self.uses_block_table():
+            specs["block_table"] = ints(B, -(-S // T.BLOCK_SIZE) + 1)
+        return specs
+
+    def synthetic_batch(self, shape: ShapeConfig, seed: int = 0):
+        """A batch of :meth:`input_specs` on the model's device, by the
+        JAX package's formula: token ids uniform over the vocabulary,
+        embeddings ``N(0, 1)`` cast to their dtype times 0.02, decode
+        lengths at mid-cache and block tables ``arange`` in every row.
+        Each input's generator is seeded from ``seed`` and a CRC-32 of
+        its path, the same in every process (the JAX package's
+        ``hash(path)`` is salted per process, so two of its processes
+        given one seed make different batches).  The numbers are
+        torch's, not ``jax.random``'s."""
+        cfg = self.cfg
+
+        def make(path: str, s: ParamSpec):
+            if s.dtype == torch.int32 and path == "lengths":
+                # mid-cache decode position
+                t = torch.full(s.shape, shape.seq_len // 2,
+                               dtype=torch.int32)
+            elif s.dtype == torch.int32 and path == "block_table":
+                B, mb = s.shape
+                t = torch.arange(mb, dtype=torch.int32).repeat(B, 1)
+            else:
+                gen = torch.Generator()
+                gen.manual_seed((seed * 9973 + zlib.crc32(path.encode()))
+                                % (2**31))
+                if s.dtype == torch.int32:
+                    t = torch.randint(0, cfg.vocab_size, s.shape,
+                                      generator=gen, dtype=torch.int32)
+                else:
+                    t = torch.randn(s.shape, generator=gen).to(
+                        s.dtype) * 0.02
+            return t.to(self.device)
+
+        return tree_map_specs(make, self.input_specs(shape))
+
     def uses_block_table(self) -> bool:
         """Whether ``decode_step`` reads a block table: paged layouts,
         not the rolling one."""
@@ -106,6 +182,14 @@ class Model:
     # ------------------------------------------------------------------
     # Forward entry points
     # ------------------------------------------------------------------
+    def loss_fn(self, params, batch, *, remat: Optional[str] = "full",
+                impl: Optional[str] = None):
+        """The training loss and its metrics {"loss", "ntokens"} (see
+        :func:`repro_torch.models.transformer.forward_train`); ``remat``
+        is None, "none", "full" or "dots", as in the JAX package."""
+        return T.forward_train(params, batch, self.cfg, remat=remat,
+                               impl=impl)
+
     def prefill(self, params, batch, *, impl: Optional[str] = None):
         """Whole-prompt prefill (every ported family): last-position
         logits and the per-layer cache (see

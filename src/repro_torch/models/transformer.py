@@ -1,26 +1,28 @@
-"""Model stacks of the ported paths: the decoder-only stack (dense and
+"""Model stacks of every family: the decoder-only stack (dense and
 granite-moe's MoE on the paged KV cache of the serving path; mixtral's
-MoE on a rolling sliding-window cache), the Mamba2 SSM stack, the
+MoE on a rolling sliding-window cache; the vlm, whose frontend
+embeddings go before the token embeddings), the Mamba2 SSM stack, the
 Zamba2-style hybrid (groups of Mamba2 layers, each followed by one
 shared attention block), and the encoder-decoder (an encoder over frame
 embeddings, a decoder with self- and cross-attention).
 
-Mirrors the main-path parts of the JAX package's
-``repro/models/transformer.py``: the param and cache spec trees, the
-whole-prompt prefill of every ported family, one chunk of a chunked
-prefill (the paged layout: dense, and MoE without a window), and the
-decode step (dense, MoE, SSM, hybrid and encoder-decoder).  Layer
-params and caches are stacked over a leading ``layers`` axis, as there;
-JAX's ``lax.scan`` over that axis is a Python loop here.  The decode
-and chunk steps update the cache in place and return the same cache
-dict.
+Mirrors the JAX package's ``repro/models/transformer.py``: the param and
+cache spec trees, the training loss of every family
+(:func:`forward_train`, with the JAX package's remat policies), the
+whole-prompt prefill, one chunk of a chunked prefill (the paged layout:
+dense, and MoE without a window), and the decode step.  Layer params and
+caches are stacked over a leading ``layers`` axis, as there; JAX's
+``lax.scan`` over that axis is a Python loop here.  The decode and chunk
+steps update the cache in place and return the same cache dict.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from ..configs.base import ModelConfig
 from . import layers as L
@@ -55,7 +57,7 @@ def _decoder_layer_specs(cfg: ModelConfig, n: int) -> Dict[str, Any]:
 
 def build_specs(cfg: ModelConfig) -> Dict[str, Any]:
     specs: Dict[str, Any] = {"embed": L.embed_specs(cfg)}
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm"):
         specs["layers"] = _decoder_layer_specs(cfg, cfg.num_layers)
     elif cfg.family == "ssm":
         specs["layers"] = {
@@ -266,6 +268,37 @@ def _copy_into(dst, src) -> None:
 # ---------------------------------------------------------------------------
 # Whole-sequence stacks
 # ---------------------------------------------------------------------------
+#: the matrix products that the "dots" policy saves: products without
+#: batch dimensions, as ``jax.checkpoint_policies.
+#: checkpoint_dots_with_no_batch_dims`` saves them (``torch.matmul`` of an
+#: activation and a weight lowers to ``mm``; batched products and
+#: everything else are recomputed)
+_DOTS = frozenset((torch.ops.aten.mm.default, torch.ops.aten.addmm.default))
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return ckpt.CheckpointPolicy.MUST_SAVE
+    return ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(body, policy: Optional[str]):
+    """``body`` under the JAX package's remat policy: ``None`` / "none"
+    keeps every activation, "full" recomputes the body in the backward
+    pass (``torch.utils.checkpoint``), "dots" recomputes it but keeps the
+    outputs of its weight products.  All four give the same numbers."""
+    if policy is None or policy == "none":
+        return body
+    if policy == "full":
+        return functools.partial(ckpt.checkpoint, body, use_reentrant=False)
+    if policy == "dots":
+        return functools.partial(
+            ckpt.checkpoint, body, use_reentrant=False,
+            context_fn=functools.partial(
+                ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(f"unknown remat policy {policy!r}")
+
+
 def _mlp_or_moe(lp, x, cfg: ModelConfig):
     """The feed-forward half of a decoder layer, after its attention."""
     m_in = L.apply_norm(lp["norm2"], x, cfg)
@@ -275,40 +308,53 @@ def _mlp_or_moe(lp, x, cfg: ModelConfig):
 
 
 def run_decoder_stack(params, x, cfg: ModelConfig, *,
+                      remat: Optional[str] = None, emit_kv: bool = False,
                       impl: Optional[str] = None):
-    """Full-sequence pass over the stacked decoder layers (dense or MoE):
-    causal self-attention (the flash kernel, with the config's sliding
-    window) and the MLP or the MoE.  Returns (x, (K, V) stacked
-    ``(L, B, S, Hkv, D)``)."""
+    """Full-sequence pass over the stacked decoder layers (dense, MoE or
+    the vlm's backbone): causal self-attention (the flash kernel, with the
+    config's sliding window) and the MLP or the MoE.  Returns (x, (K, V)
+    stacked ``(L, B, S, Hkv, D)``) with ``emit_kv``, else (x, None): a
+    training pass keeps no K/V."""
+
+    def body(x, lp):
+        a_in = L.apply_norm(lp["norm1"], x, cfg)
+        a, kv = L.attention_full(lp["attn"], a_in, cfg, causal=True,
+                                 impl=impl)
+        return _mlp_or_moe(lp, x + a, cfg), kv
+
+    run = _remat(lambda x, lp: body(x, lp)[0], remat)
     ks, vs = [], []
     for i in range(cfg.num_layers):
         lp = _layer(params["layers"], i)
-        a_in = L.apply_norm(lp["norm1"], x, cfg)
-        a, (k, v) = L.attention_full(lp["attn"], a_in, cfg, causal=True,
-                                     impl=impl)
-        x = _mlp_or_moe(lp, x + a, cfg)
-        ks.append(k)
-        vs.append(v)
-    return x, (torch.stack(ks), torch.stack(vs))
+        if emit_kv:
+            x, (k, v) = body(x, lp)
+            ks.append(k)
+            vs.append(v)
+        else:
+            x = run(x, lp)
+    return x, ((torch.stack(ks), torch.stack(vs)) if emit_kv else None)
 
 
-def _mamba_layer(params, i: int, x, cfg: ModelConfig, impl):
-    """Mamba2 layer ``i`` over the whole sequence: (x, its cache)."""
-    lp = _layer(params["layers"], i)
+def _mamba_layer(lp, x, cfg: ModelConfig, impl):
+    """One Mamba2 layer over the whole sequence: (x, its cache)."""
     m_in = L.apply_norm(lp["norm"], x, cfg)
     m, cache = S.mamba_full(lp["mamba"], m_in, cfg, impl=impl)
     return x + m, cache
 
 
 def run_ssm_stack(params, x, cfg: ModelConfig, *, emit_cache: bool = False,
-                  impl: Optional[str] = None):
+                  remat: Optional[str] = None, impl: Optional[str] = None):
     """Full-sequence pass over the stacked Mamba2 layers.  Returns (x,
     caches stacked over layers, or None)."""
+    run = _remat(lambda x, lp: _mamba_layer(lp, x, cfg, impl)[0], remat)
     caches = []
     for i in range(cfg.num_layers):
-        x, cache = _mamba_layer(params, i, x, cfg, impl)
+        lp = _layer(params["layers"], i)
         if emit_cache:
+            x, cache = _mamba_layer(lp, x, cfg, impl)
             caches.append(cache)
+        else:
+            x = run(x, lp)
     return x, (_stack(caches) if emit_cache else None)
 
 
@@ -319,56 +365,82 @@ def _shared_mlp(shared, x, cfg: ModelConfig):
 
 
 def run_hybrid_stack(params, x, cfg: ModelConfig, *,
-                     emit_cache: bool = False, impl: Optional[str] = None):
+                     emit_cache: bool = False, remat: Optional[str] = None,
+                     impl: Optional[str] = None):
     """Zamba2-style: groups of ``attn_period`` Mamba2 layers, each group
     followed by the *same* shared attention block (causal, the flash
     kernel); the trailing Mamba2 layers after.  Returns (x, None) or,
     with ``emit_cache``, (x, (the Mamba2 caches stacked over all layers in
     layer order, (K, V) of the block's applications stacked
-    ``(n_shared_attn, B, S, Hkv, D)``))."""
+    ``(n_shared_attn, B, S, Hkv, D)``)).  ``remat`` wraps each group (its
+    Mamba2 layers and the shared block) and each trailing layer, as the
+    JAX package's scans do."""
     shared = params["shared_attn"]
+    period = cfg.attn_period
+    n_grouped = n_shared_attn(cfg) * period
     caches, ks, vs = [], [], []
-    for i in range(cfg.num_layers):
-        x, cache = _mamba_layer(params, i, x, cfg, impl)
-        if emit_cache:
-            caches.append(cache)
-        if (i + 1) % cfg.attn_period == 0:  # the end of a group
-            a_in = L.apply_norm(shared["norm1"], x, cfg)
-            a, (k, v) = L.attention_full(shared["attn"], a_in, cfg,
-                                         causal=True, impl=impl)
-            x = _shared_mlp(shared, x + a, cfg)
+
+    def group(x, first):
+        for i in range(first, first + period):
+            x, cache = _mamba_layer(_layer(params["layers"], i), x, cfg,
+                                    impl)
             if emit_cache:
-                ks.append(k)
-                vs.append(v)
+                caches.append(cache)
+        a_in = L.apply_norm(shared["norm1"], x, cfg)
+        a, (k, v) = L.attention_full(shared["attn"], a_in, cfg, causal=True,
+                                     impl=impl)
+        if emit_cache:
+            ks.append(k)
+            vs.append(v)
+        return _shared_mlp(shared, x + a, cfg)
+
+    run_group = group if emit_cache else _remat(group, remat)
+    run_trail = _remat(lambda x, lp: _mamba_layer(lp, x, cfg, impl)[0],
+                       remat)
+    for first in range(0, n_grouped, period):
+        x = run_group(x, first)
+    for i in range(n_grouped, cfg.num_layers):
+        lp = _layer(params["layers"], i)
+        if emit_cache:
+            x, cache = _mamba_layer(lp, x, cfg, impl)
+            caches.append(cache)
+        else:
+            x = run_trail(x, lp)
     if not emit_cache:
         return x, None
     return x, (_stack(caches), (torch.stack(ks), torch.stack(vs)))
 
 
 def run_encoder_stack(params, x, cfg: ModelConfig, *,
+                      remat: Optional[str] = None,
                       impl: Optional[str] = None):
     """The encoder: non-causal self-attention (with RoPE) and the MLP over
     the stacked ``enc_layers``."""
-    for i in range(cfg.encoder_layers):
-        lp = _layer(params["enc_layers"], i)
+
+    def body(x, lp):
         a_in = L.apply_norm(lp["norm1"], x, cfg)
         a, _ = L.attention_full(lp["attn"], a_in, cfg, causal=False,
                                 impl=impl)
         x = x + a
         m_in = L.apply_norm(lp["norm2"], x, cfg)
-        x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
+        return x + L.apply_mlp(lp["mlp"], m_in, cfg)
+
+    run = _remat(body, remat)
+    for i in range(cfg.encoder_layers):
+        x = run(x, _layer(params["enc_layers"], i))
     return x
 
 
 def run_decoder_xattn_stack(params, x, enc_out, cfg: ModelConfig, *,
+                            remat: Optional[str] = None,
+                            emit_kv: bool = False,
                             impl: Optional[str] = None):
     """The decoder: causal self-attention, cross-attention over
     ``enc_out`` and the MLP over the stacked ``dec_layers``.  Returns (x,
     the cache {"self_k", "self_v", "cross_k", "cross_v"} stacked over
-    layers)."""
-    caches = []
-    for i in range(cfg.num_layers):
-        lp = _layer(params["dec_layers"], i)
+    layers) with ``emit_kv``, else (x, None)."""
+
+    def body(x, enc_out, lp):
         a_in = L.apply_norm(lp["norm1"], x, cfg)
         a, (sk, sv) = L.attention_full(lp["self_attn"], a_in, cfg,
                                        causal=True, impl=impl)
@@ -380,9 +452,78 @@ def run_decoder_xattn_stack(params, x, enc_out, cfg: ModelConfig, *,
         x = x + xa
         m_in = L.apply_norm(lp["norm2"], x, cfg)
         x = x + L.apply_mlp(lp["mlp"], m_in, cfg)
-        caches.append({"self_k": sk, "self_v": sv, "cross_k": ck,
-                       "cross_v": cv})
-    return x, _stack(caches)
+        return x, {"self_k": sk, "self_v": sv, "cross_k": ck,
+                   "cross_v": cv}
+
+    run = _remat(lambda x, e, lp: body(x, e, lp)[0], remat)
+    caches = []
+    for i in range(cfg.num_layers):
+        lp = _layer(params["dec_layers"], i)
+        if emit_kv:
+            x, cache = body(x, enc_out, lp)
+            caches.append(cache)
+        else:
+            x = run(x, enc_out, lp)
+    return x, (_stack(caches) if emit_kv else None)
+
+
+def _embed_inputs(params, batch, cfg: ModelConfig):
+    """Token embeddings (B, S, M); the vlm's ``frontend_embeds`` (B, P,
+    M), cast to the compute dtype, go before them, as in the JAX
+    package."""
+    x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+    if cfg.family == "vlm" and "frontend_embeds" in batch:
+        fe = batch["frontend_embeds"].to(device=x.device, dtype=x.dtype)
+        x = torch.cat([fe, x], dim=1)
+    return x
+
+
+def forward_train(params, batch, cfg: ModelConfig, *,
+                  remat: Optional[str] = "full",
+                  impl: Optional[str] = None):
+    """Next-token LM loss of every family (encoder-decoder: the seq2seq
+    loss on the decoder), as the JAX package's ``forward_train``.
+
+    ``batch``: {"tokens", "labels": (B, S) int32, optional "loss_mask"
+    (B, S)}; the encoder-decoder also "enc_embeds" (B, S_enc, M), the vlm
+    "frontend_embeds" (B, P, M) — its loss is on the text positions only
+    (the logits past the ``P`` frontend positions; the labels are
+    text-aligned).  The log-sum-exp and the gold logit are taken in f32.
+    ``remat``: None, "none", "full" or "dots" (:func:`_remat`).  Returns
+    (loss, {"loss", "ntokens"}), both 0-d f32 tensors.
+    """
+    if cfg.is_encdec:
+        enc = batch["enc_embeds"].to(getattr(torch, cfg.dtype))
+        enc_out = run_encoder_stack(params, enc, cfg, remat=remat, impl=impl)
+        enc_out = L.apply_norm(params["enc_norm"], enc_out, cfg)
+        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        x, _ = run_decoder_xattn_stack(params, x, enc_out, cfg, remat=remat,
+                                       impl=impl)
+    elif cfg.family == "ssm":
+        x = _embed_inputs(params, batch, cfg)
+        x, _ = run_ssm_stack(params, x, cfg, remat=remat, impl=impl)
+    elif cfg.family == "hybrid":
+        x = _embed_inputs(params, batch, cfg)
+        x, _ = run_hybrid_stack(params, x, cfg, remat=remat, impl=impl)
+    else:
+        x = _embed_inputs(params, batch, cfg)
+        x, _ = run_decoder_stack(params, x, cfg, remat=remat, impl=impl)
+    x = L.apply_norm(params["final_norm"], x, cfg)
+    logits = L.unembed(params["embed"], x, cfg)
+
+    labels = batch["labels"].to(logits.device).long()
+    if cfg.family == "vlm" and "frontend_embeds" in batch:
+        # loss only on text positions (labels already text-aligned)
+        logits = logits[:, batch["frontend_embeds"].shape[1]:]
+    lf = logits.float()
+    nll = torch.logsumexp(lf, dim=-1) - lf.gather(-1, labels[..., None])[
+        ..., 0]
+    mask = batch.get("loss_mask")
+    mask = (torch.ones_like(nll) if mask is None
+            else mask.to(device=nll.device, dtype=nll.dtype))
+    ntokens = mask.sum()
+    loss = (nll * mask).sum() / torch.clamp(ntokens, min=1.0)
+    return loss, {"loss": loss, "ntokens": ntokens}
 
 
 def forward_prefill(params, batch, cfg: ModelConfig, *,
@@ -406,6 +547,11 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
     Decoder-only (dense, MoE): ``batch`` as SSM; the cache is {"k",
     "v": (L, B, S, Hkv, D)}, each layer's keys (after RoPE) and values.
 
+    VLM: ``batch`` also holds "frontend_embeds" (B, P, M), the patch
+    embeddings of the vision frontend (a stub in both packages), which go
+    before the tokens: the sequence, the positions, the cache and
+    ``last_index`` count P + S positions.
+
     ``impl="plain"`` runs the plain kernels' versions (comparison only).
     """
     if cfg.is_encdec:
@@ -414,18 +560,19 @@ def forward_prefill(params, batch, cfg: ModelConfig, *,
         enc_out = L.apply_norm(params["enc_norm"], enc_out, cfg)
         x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
         x, cache = run_decoder_xattn_stack(params, x, enc_out, cfg,
-                                           impl=impl)
+                                           emit_kv=True, impl=impl)
     elif cfg.family == "ssm":
-        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        x = _embed_inputs(params, batch, cfg)
         x, cache = run_ssm_stack(params, x, cfg, emit_cache=True, impl=impl)
     elif cfg.family == "hybrid":
-        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
+        x = _embed_inputs(params, batch, cfg)
         x, (mcache, (k, v)) = run_hybrid_stack(params, x, cfg,
                                                emit_cache=True, impl=impl)
         cache = {"mamba": mcache, "attn_k": k, "attn_v": v}
     else:
-        x = L.embed_tokens(params["embed"], batch["tokens"], cfg)
-        x, (k, v) = run_decoder_stack(params, x, cfg, impl=impl)
+        x = _embed_inputs(params, batch, cfg)
+        x, (k, v) = run_decoder_stack(params, x, cfg, emit_kv=True,
+                                      impl=impl)
         cache = {"k": k, "v": v}
     x = L.apply_norm(params["final_norm"], x, cfg)
     last_index = batch.get("last_index")

@@ -44,8 +44,10 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref
+from repro_torch.kernels.block_gather import block_gather_kernel
 from repro_torch.kernels.decode_attention import decode_attention_kernel
 from repro_torch.kernels.decode_attention import plan_splits as decode_plan
+from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.flash_attention import plan_splits
 from repro_torch.kernels import paged_attention as paged_module
@@ -1300,3 +1302,104 @@ def test_moe_combine_on_card_matches_cpu(card):
         got = L.combine_pairs(contrib.to(card), ids.to(card), order.to(card))
         assert torch.equal(got.cpu().view(torch.int16),
                            want.view(torch.int16))
+
+
+# ---------------------------------------------------------------------------
+# flash attention under autograd: the backward kernel
+# ---------------------------------------------------------------------------
+#: (B, S_q, S_kv, H, Hkv, D, causal, window): qwen2's heads causal; D 112
+#: with a window that cuts key tiles mid-tile; D 128 at G 4; a non-causal
+#: window whose last rows see no key (they average every key)
+_BWD_SHAPES = [
+    (2, 640, 640, 14, 2, 64, True, 0),
+    (1, 300, 300, 8, 2, 112, True, 100),
+    (1, 256, 256, 16, 4, 128, True, 0),
+    (1, 400, 300, 6, 3, 96, False, 40),
+]
+#: each gradient's largest error over its largest magnitude: f32 sums in
+#: another order than the plain autograd; bf16 rounds the gradients
+#: (one ulp is 2**-8 of a value) and the plain forward rounds its softmax
+#: weights to bf16 before P.V, which its autograd differentiates through
+_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _bwd_inputs(card, dtype, B, S_q, S_kv, H, Hkv, D, seed=0):
+    g = torch.Generator(device=card).manual_seed(seed)
+    q, k, v, do = (torch.randn(shape, generator=g, device=card).to(dtype)
+                   for shape in ((B, S_q, H, D), (B, S_kv, Hkv, D),
+                                 (B, S_kv, Hkv, D), (B, S_q, H, D)))
+    return q, k, v, do
+
+
+def _grads(fn, q, k, v, do):
+    q, k, v = (t.detach().requires_grad_(True) for t in (q, k, v))
+    out = fn(q, k, v)
+    return (out,) + torch.autograd.grad(out, (q, k, v), do)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _BWD_SHAPES, ids=lambda s: "x".join(
+    str(int(x)) for x in s))
+def test_flash_bwd_kernel_matches_plain_autograd(card, dtype, shape):
+    B, S_q, S_kv, H, Hkv, D, causal, window = shape
+    q, k, v, do = _bwd_inputs(card, dtype, B, S_q, S_kv, H, Hkv, D)
+    kw = dict(causal=causal, window=window)
+    got = _grads(lambda *a: ops.flash_attention(*a, **kw), q, k, v, do)
+    want = _grads(lambda *a: ops.flash_attention(*a, impl="plain", **kw),
+                  q, k, v, do)
+    assert got[0].grad_fn is not None
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        a, b = a.detach(), b.detach()
+        err = float((a.float() - b.float()).abs().max()
+                    / b.float().abs().max())
+        assert err <= _BWD_TOL[dtype], (name, err)
+
+
+def test_flash_bwd_kernel_is_deterministic(card):
+    B, S_q, S_kv, H, Hkv, D, causal, window = _BWD_SHAPES[0]
+    q, k, v, do = _bwd_inputs(card, torch.bfloat16, B, S_q, S_kv, H, Hkv, D)
+    out = flash_attention_kernel(q, k, v, causal=causal)
+    runs = [flash_attention_bwd_kernel(q, k, v, out, do, causal=causal)
+            for _ in range(2)]
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_inference_kernels_refuse_grad(card):
+    g = torch.Generator(device=card).manual_seed(0)
+    q = torch.randn((2, 4, 64), generator=g, device=card).requires_grad_()
+    cache = torch.randn((2, 128, 2, 64), generator=g, device=card)
+    lens = torch.tensor([5, 9], dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="decode_attention_kernel"):
+        decode_attention_kernel(q, cache, cache, lens)
+    pool = cache.reshape(2, 1, 128, 2, 64)
+    table = torch.zeros((2, 1), dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="paged_attention_kernel"):
+        paged_attention_kernel(q, pool, pool, table, lens)
+    pages = torch.randn((4, 128, 2, 64), device=card).requires_grad_()
+    idx = torch.tensor([1, 0], dtype=torch.int32, device=card)
+    with pytest.raises(RuntimeError, match="block_gather_kernel"):
+        block_gather_kernel(pages, idx)
+    x = torch.randn((1, 128, 2, 64), device=card).requires_grad_()
+    dt = torch.rand((1, 128, 2), device=card)
+    a = -torch.rand((2,), device=card)
+    bc = torch.randn((1, 128, 1, 128), device=card)
+    with pytest.raises(RuntimeError, match="ssd_chunk_scan_kernel"):
+        ssd_chunk_scan_kernel(x, dt, a, bc, bc)
+    with torch.no_grad():  # the same calls without grad run
+        decode_attention_kernel(q, cache, cache, lens)
+        block_gather_kernel(pages, idx)
+
+
+@pytest.mark.parametrize("window", [0, 4096])
+def test_flash_two_warpgroups_with_an_empty_second_match_plain(card, window):
+    """S_q = 4672 = 36.5 blocks of 128 rows under the two-warpgroup plan:
+    the last block's second warpgroup has no row and computes no tile.
+    It must still release each of the block's 37 key tiles (more than
+    the ring's 3 stages) as the first one takes its turns."""
+    B, S, H, Hkv, D = 1, 4672, 8, 2, 128
+    assert plan_splits(B, S, H, S, window=window, head_dim=D).consumers == 2
+    q, k, v, _ = _bwd_inputs(card, torch.bfloat16, B, S, S, H, Hkv, D)
+    got = flash_attention_kernel(q, k, v, causal=True, window=window)
+    want = ref.flash_attention(q, k, v, causal=True, window=window)
+    _close(got, want, torch.bfloat16)

@@ -4,9 +4,11 @@ speculative engine under a core scheme, the paper's benchmark data
 structures, engines over the granite, minitron, phi3 and granite-moe
 configs, a disaggregated replica group
 with the lifecycle plane and the trace exporters, a prefix migration
-between replicas, and an SSM, an encoder-decoder and a hybrid prefill
-and decode pulls in neither JAX nor the JAX package, and its entry
-points run on the card unless told otherwise."""
+between replicas, an SSM, an encoder-decoder and a hybrid prefill and
+decode, a vlm prefill, and the training plane (a ``Trainer`` with its
+stamp-guarded data pipeline and checkpoints) pulls in neither JAX nor
+the JAX package, and its entry points run on the card unless told
+otherwise."""
 
 import pathlib
 import re
@@ -141,6 +143,20 @@ hy.decode_step(params, cache, {
     "tokens": logits.argmax(-1).to(torch.int32)[:, None],
     "lengths": torch.full((1,), 16, dtype=torch.int32),
     "block_table": torch.ones((1, 2), dtype=torch.int32)})
+
+# the vlm's prefill, and the training plane: a Trainer over its data
+# pipeline, the train step and the checkpoint manager
+import tempfile
+import repro_torch.data
+import repro_torch.launch
+from repro_torch.training import Trainer
+vlm = Model(smoke_config(ARCHS["llava-next-34b"]), device="cpu")
+params = vlm.init_params(0)
+vlm.prefill(params, vlm.synthetic_batch(ShapeConfig("t", "prefill", 24, 1)))
+with tempfile.TemporaryDirectory() as d:
+    out = Trainer(vlm, ShapeConfig("t", "train", 24, 1), "cpu", ckpt_dir=d,
+                  ckpt_every=1).run(2)
+assert out["final_step"] == 2
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
