@@ -53,9 +53,10 @@ random weights from a seed (mixtral over 6 of its 32 layers):
     text tokens: the flash kernel at 56/8 heads of 128) and 32 greedy
     ``Model.decode_step`` calls on per-slot pages (the paged kernel at
     G 7, D 128), its first 4 layers in f32 kernel against plain;
-  * the training plane: the flash kernel's backward kernel against
-    autograd of the plain version at six shapes (two planted faults
-    that the check must catch), qwen2-0.5b's first 4 layers in f32 (one
+  * the training plane: the flash kernel's backward kernels (fed by the
+    forward's row statistics) against autograd of the plain version at
+    six shapes (three planted faults that the check must catch, and two
+    runs bit for bit), qwen2-0.5b's first 4 layers in f32 (one
     step's loss and every gradient leaf, kernels against plain), and a
     ``Trainer`` over 8 full-width qwen2 steps of 2 x 4096 tokens (the
     flash kernel forward and backward), then again with a checkpoint
@@ -4939,14 +4940,20 @@ def grad_errs(got, want, dname):
 
 
 def phase_flash_bwd_parity(torch):
-    """The backward kernel against autograd of the plain version at
-    BWD_SHAPES, f32 and bf16, with two planted faults that the check must
-    catch: a kernel that drops the last member of each GQA group (its
-    dK and dV: the kernel's on an output gradient with those heads
-    zeroed) and one whose window mask keeps one key too many (the kernel
-    run with window 64 against the plain gradient at 63)."""
+    """The backward kernels, fed by the forward kernel's row statistics,
+    against autograd of the plain version at BWD_SHAPES, f32 and bf16;
+    two bf16 runs at each shape bit for bit equal; and three planted
+    faults that the check must catch: a kernel that drops the last member
+    of each GQA group (its dK and dV: the kernel's on an output gradient
+    with those heads zeroed), one whose window mask keeps one key too
+    many (the kernel run with window 64 against the plain gradient at
+    63), and one that reads each row's statistics one row off (the
+    statistics rolled by one row).  Each bf16 case also carries its dK/dV
+    plan (``plan_bwd``, from shapes only): its blocks and its heaviest
+    block's work over the mean."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
     from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.flash_attention import plan_bwd
 
     rows, errs = [], {}
     for name, B, S_q, S_kv, H, Hkv, D, causal, window in BWD_SHAPES:
@@ -4954,10 +4961,14 @@ def phase_flash_bwd_parity(torch):
             q, k, v, do = bwd_inputs(torch, getattr(torch, dname), B, S_q,
                                      S_kv, H, Hkv, D)
             kw = dict(causal=causal, window=window)
-            out = flash_attention_kernel(q, k, v, **kw)
-            got = flash_attention_bwd_kernel(q, k, v, out, do, **kw)
+            out, stats = flash_attention_kernel(q, k, v, with_stats=True,
+                                                **kw)
+            got = flash_attention_bwd_kernel(q, k, v, out, do, stats, **kw)
+            again = flash_attention_bwd_kernel(q, k, v, out, do, stats, **kw)
             want = plain_grads(torch, q, k, v, do, **kw)
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            check(same, f"flash backward {name} {dname}: two runs differ")
             fwd = attention_errs(out, want[0], dname, f"flash {name}")
             case = grad_errs(got, want[1:], dname)
             check(case["ok"], f"flash backward {name} {dname}: {case}")
@@ -4965,26 +4976,40 @@ def phase_flash_bwd_parity(torch):
                          "shape": f"B={B} S_q={S_q} S_kv={S_kv} H={H} "
                                   f"Hkv={Hkv} D={D} causal={causal} "
                                   f"window={window}", "forward": fwd,
-                         **case})
+                         "two_runs_identical": same, **case})
+            if dname == "bfloat16":
+                work = plan_bwd(B, S_q, S_kv, H, Hkv, causal=causal,
+                                window=window, head_dim=D).work
+                rows[-1]["plan"] = {
+                    "blocks": len(work),
+                    "heaviest_over_mean": max(work) * len(work) / sum(work)}
             if name == "qwen2_train":
                 errs["flash_attention_train", dname] = fwd["max_abs_err"]
             errs["flash_bwd_" + name, dname] = max(
                 case[n]["max_abs_err"] for n in ("dq", "dk", "dv"))
-            del q, k, v, do, out, got, want
+            del q, k, v, do, out, stats, got, again, want
     faults = {}
     # a dropped group member: the last query head of each kv head's group
     q, k, v, do = bwd_inputs(torch, torch.bfloat16, 1, 1024, 1024, 14, 2, 64)
     want = plain_grads(torch, q, k, v, do, causal=True)
-    out = flash_attention_kernel(q, k, v, causal=True)
+    out, stats = flash_attention_kernel(q, k, v, causal=True, with_stats=True)
     dropped = do.clone()
     dropped[:, :, 6::7] = 0
-    got = flash_attention_bwd_kernel(q, k, v, out, dropped, causal=True)
+    got = flash_attention_bwd_kernel(q, k, v, out, dropped, stats,
+                                     causal=True)
     faults["dropped_group_member"] = grad_errs(got, want[1:], "bfloat16")
+    # each row's statistics read one row off
+    got = flash_attention_bwd_kernel(q, k, v, out, do,
+                                     stats.roll(1, dims=1).contiguous(),
+                                     causal=True)
+    faults["stats_one_row_off"] = grad_errs(got, want[1:], "bfloat16")
     # the window's edge one key late
     q, k, v, do = bwd_inputs(torch, torch.bfloat16, 1, 1024, 1024, 8, 2, 128)
     want = plain_grads(torch, q, k, v, do, causal=True, window=63)
-    out = flash_attention_kernel(q, k, v, causal=True, window=64)
-    got = flash_attention_bwd_kernel(q, k, v, out, do, causal=True, window=64)
+    out, stats = flash_attention_kernel(q, k, v, causal=True, window=64,
+                                        with_stats=True)
+    got = flash_attention_bwd_kernel(q, k, v, out, do, stats, causal=True,
+                                     window=64)
     faults["window_edge_shifted"] = grad_errs(got, want[1:], "bfloat16")
     for name, f in faults.items():
         check(not f["ok"], f"planted fault {name} passed the check: {f}")
@@ -5032,18 +5057,23 @@ def phase_train_grads(torch, model):
     """At full width, bf16, one step's loss and gradients through the
     kernels (remat "full"): every parameter leaf gets a finite, nonzero
     gradient, and the flash launches of a step are 24 forward calls, 24
-    more where remat recomputes the layers, and 24 backward calls."""
+    more where remat recomputes the layers, and 24 backward calls.  Each
+    remat's step (loss and gradients, no optimizer) is timed once on the
+    host clock, to its synchronise: the first call at its remat."""
     from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
     from repro_torch.kernels.flash_attention import flash_attention_kernel
 
     params = model.init_params(seed=0)
     batch = train_batch(torch, model.cfg)
     L = model.cfg.num_layers
-    counts = {}
+    counts, step_s = {}, {}
     for remat in ("none", "full"):
         _reset((flash_attention_kernel, flash_attention_bwd_kernel))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         loss, grads = flat_grads(torch, model, params, batch, remat=remat)
         torch.cuda.synchronize()
+        step_s[remat] = time.perf_counter() - t0
         counts[remat] = {
             "flash_forward": flash_attention_kernel.launches,
             "flash_backward": flash_attention_bwd_kernel.launches}
@@ -5058,7 +5088,9 @@ def phase_train_grads(torch, model):
     emit({"phase": "train_grads", "ok": True, "arch": model.cfg.name,
           "batch": TR_BATCH, "seq": TR_SEQ, "loss": float(loss),
           "leaves_with_gradient": len(grads),
-          "flash_launches_per_step": counts,
+          "flash_launches_per_step": counts, "grad_step_s": step_s,
+          "tokens_per_s": {r: TR_BATCH * TR_SEQ / t
+                           for r, t in step_s.items()},
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
 
 
@@ -5184,6 +5216,7 @@ def train_table_rows(torch, launches, errs):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
+    from repro_torch.kernels.flash_attention import BWD_KERNELS
     from repro_torch.kernels.flash_attention import flash_attention_kernel
 
     saved = (flash_attention_kernel.launches,
@@ -5220,12 +5253,29 @@ def train_table_rows(torch, launches, errs):
                                  "only)",
                  "shape": f"B={B} S_q=S_kv={S} causal H={H} Hkv={Hkv} D={D}"})
 
-    out = kfn()
+    out, stats = flash_attention_kernel(q, k, v, causal=True,
+                                        with_stats=True)
 
     def bfn():
-        return flash_attention_bwd_kernel(q, k, v, out, do, causal=True)
+        return flash_attention_bwd_kernel(q, k, v, out, do, stats,
+                                          causal=True)
 
-    bk_ms = time_ms(bfn, iters=5, warmup=1)
+    bk_ms = time_ms(bfn, iters=20, warmup=3)
+    # each kernel of a call on the device: CUDA events the entry records
+    # around each launch, which also counts the kernels it launched; the
+    # median of 9 calls
+    times = torch.zeros(BWD_KERNELS + 1, dtype=torch.float32)
+    calls = []
+    for _ in range(9):
+        flash_attention_bwd_kernel(q, k, v, out, do, stats, causal=True,
+                                   timing=times)
+        calls.append(times.tolist())
+    counts = {int(c[0]) for c in calls}
+    names = ("rows_kernel", "dkdv_kernel", "dq_kernel")
+    check(counts == {len(names)}, f"backward kernels a call: {counts}, "
+                                  f"want {len(names)} ({names})")
+    split = {n: statistics.median(c[1 + i] for c in calls)
+             for i, n in enumerate(names)}
     qp, kp, vp = (x.detach().requires_grad_(True) for x in (q, k, v))
     with torch.enable_grad():
         outp = ref.flash_attention(qp, kp, vp, causal=True)
@@ -5260,9 +5310,10 @@ def train_table_rows(torch, launches, errs):
                                  "scaled_dot_product_attention (is_causal, "
                                  "enable_gqa) by autograd.grad (timed only)",
                  "shape": f"B={B} S_q=S_kv={S} causal H={H} Hkv={Hkv} "
-                          f"D={D}; three kernels a call (statistics, "
-                          f"dK/dV, dQ)",
-                 "flops": flops, "bytes": n_bytes})
+                          f"D={D}",
+                 "kernels_per_call": counts.pop(),
+                 "kernel_device_ms": split, "flops": flops,
+                 "bytes": n_bytes})
     flash_attention_kernel.launches, flash_attention_bwd_kernel.launches = \
         saved
     return rows

@@ -110,7 +110,9 @@ inline cudaError_t use_device(int device) {
 // split that saw keys has l_s >= 1, since its largest weight is 2^0.  One
 // warp per row: the lanes take the splits for (m, l), then the columns for
 // acc, 128 at a time, loading kCombineBatch splits' sums before adding
-// them.
+// them.  Where `stats` is not null (training's forward) the merged (M,
+// sum_s 2^(m_s - M) l_s) of the row goes to stats[row * 2 + {0, 1}]: the
+// statistics the unsplit kernel writes, for the backward.
 //
 // It is launched to overlap the split kernel before it (programmatic
 // dependent launch): its blocks may be scheduled once every block of that
@@ -125,7 +127,8 @@ template <typename T>
 __global__ void __launch_bounds__(kCombineWarps * 32)
     combine_splits_kernel(const float* __restrict__ acc,
                           const float* __restrict__ ml, T* __restrict__ out,
-                          int64_t rows, int D, int splits) {
+                          float* __restrict__ stats, int64_t rows, int D,
+                          int splits) {
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int lane = threadIdx.x & 31;
   const int64_t row =
@@ -142,7 +145,12 @@ __global__ void __launch_bounds__(kCombineWarps * 32)
     const float* p = ml + (s * rows + row) * 2;
     if (p[1] > 0.f) den += exp2f(p[0] - M) * p[1];
   }
-  den = fmaxf(warp_sum(den), 1e-30f);
+  den = warp_sum(den);
+  if (stats != nullptr && lane == 0) {
+    stats[row * 2] = M;
+    stats[row * 2 + 1] = den;
+  }
+  den = fmaxf(den, 1e-30f);
   T* o = out + row * D;
   for (int c0 = 0; c0 < D; c0 += 128) {
     float num[4] = {0.f, 0.f, 0.f, 0.f};  // columns c0 + lane + 32 j
@@ -188,7 +196,8 @@ __global__ void __launch_bounds__(kCombineWarps * 32)
 template <typename T>
 inline cudaError_t launch_combine(const float* acc, const float* ml, T* out,
                                   int64_t rows, int D, int splits,
-                                  cudaStream_t stream) {
+                                  cudaStream_t stream,
+                                  float* stats = nullptr) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim =
       dim3(static_cast<unsigned>((rows + kCombineWarps - 1) / kCombineWarps));
@@ -200,7 +209,7 @@ inline cudaError_t launch_combine(const float* acc, const float* ml, T* out,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return cudaLaunchKernelEx(&cfg, combine_splits_kernel<T>, acc, ml, out,
-                            rows, D, splits);
+                            stats, rows, D, splits);
 }
 
 }  // namespace repro

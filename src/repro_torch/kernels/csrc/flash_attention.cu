@@ -74,6 +74,14 @@
 //     window's lower edge for the chunk's first row).  Each split writes
 //     its partial (m, l, acc) in f32 to a workspace and
 //     combine_splits_kernel (common.cuh) merges them.
+//   * Row statistics for training: with a statistics buffer the kernel
+//     also writes each row's final (m, l), f32, (B, S_q, H, 2), in its log2
+//     domain (m the largest score times scale log2 e, a masked score
+//     NEG_INF itself; l the sum of 2^(s - m)), and the split combine
+//     writes the merged pair; the backward (flash_attention_bwd.cu)
+//     rebuilds the weights 2^(s - m) / l from them.  Whether to write them
+//     is a template flag chosen at launch (kStats), so that inference
+//     calls, which pass no buffer, run the code they ran before.
 // f32: the CUDA-core body of the first version (flash_fwd_kernel<float>),
 //   chosen by dtype at every call.  It is not a fallback: the f32 path
 //   serves the correctness checks held to 1e-4 (kernel) and 1e-3 (the
@@ -92,6 +100,7 @@
 //   (the two-warpgroup D 128 form spills) over key tiles of 64, so that
 //   two blocks share an SM.
 #include "common.cuh"
+#include "flash_tiles.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -134,6 +143,7 @@ __global__ void __launch_bounds__(kThreads)
                      const T* __restrict__ k,  // (B, S_kv, Hkv, D)
                      const T* __restrict__ v,  // (B, S_kv, Hkv, D)
                      T* __restrict__ out,      // (B, S_q, H, D)
+                     float* __restrict__ stats,  // (B, S_q, H, 2) or null
                      int S_q, int S_kv, int H, int Hkv, int q_offset,
                      int causal, int window, float scale, int dh) {
   const int LD = dh + 1;
@@ -255,21 +265,28 @@ __global__ void __launch_bounds__(kThreads)
       if (c + 4 * i >= dh) break;
       ob[c + 4 * i] = repro::from_float<T>(acc[i] / denom);
     }
+    // the row's statistics in the log2 domain of the bf16 kernel: a row
+    // that sees no key keeps m = NEG_INF, as its masked scores do there
+    if (stats != nullptr && c == 0) {
+      float* st = stats + ((static_cast<int64_t>(b) * S_q + qi) * H + h) * 2;
+      st[0] = m == repro::kNegInf ? m : m * repro::flash::kLog2e;
+      st[1] = l;
+    }
   }
 }
 
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
-                       int B, int S_q, int S_kv, int H, int Hkv, int d,
-                       int q_offset, int causal, int window, float scale,
-                       cudaStream_t stream) {
+                       float* stats, int B, int S_q, int S_kv, int H,
+                       int Hkv, int d, int q_offset, int causal, int window,
+                       float scale, cudaStream_t stream) {
   const size_t smem = smem_floats(d) * sizeof(float);
   cudaError_t err = repro::set_smem(flash_fwd_kernel<float>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((S_q + kBlockQ - 1) / kBlockQ, H, B);
   flash_fwd_kernel<float><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), S_q, S_kv, H,
-      Hkv, q_offset, causal, window, scale, d);
+      static_cast<const float*>(v), static_cast<float*>(out), stats, S_q,
+      S_kv, H, Hkv, q_offset, causal, window, scale, d);
   return cudaGetLastError();
 }
 
@@ -278,20 +295,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
 // ---------------------------------------------------------------------------
 namespace hp = repro::hopper;
 using bf16 = __nv_bfloat16;
+using namespace repro::flash;
 
 constexpr int kRows = 64;    // query rows per consumer warpgroup
-constexpr float kLog2e = 1.4426950408889634f;
-
-// How a tile of D columns lies in shared memory: in chunks of kAtom
-// columns, rows of kSwizzle bytes, swizzled in the mode the TMA box writes
-// and the wgmma descriptor names.
-template <int D>
-struct TileSwizzle {
-  static constexpr int kSwizzle = D * 2 < 128 ? D * 2 : 128;  // bytes
-  static constexpr int kAtom = kSwizzle / 2;  // columns per swizzled row
-  static constexpr int kChunks = D / kAtom;   // column chunks of a tile
-  static constexpr uint32_t kSwizzleMode = kSwizzle == 128 ? 1 : 2;
-};
 
 template <int D, int NC, int KN>
 struct FlashLayout : TileSwizzle<D> {
@@ -310,32 +316,6 @@ struct FlashLayout : TileSwizzle<D> {
   static_assert(kBytes + 1024 <= 232448, "shared memory per block");
 };
 
-// A tile of `rows` rows stored as kChunks chunks of (rows x kAtom), each
-// swizzled.  K-major operand (Q, or K for S = Q.K^T): the 16 columns of
-// k-step kk start 32 bytes further along the row inside their chunk.
-template <int D>
-__device__ __forceinline__ uint64_t kmajor_desc(uint32_t tile, int rows,
-                                                int kk) {
-  using L = TileSwizzle<D>;
-  const int col = kk * 16;
-  const uint32_t addr = tile + (col / L::kAtom) * rows * L::kSwizzle +
-                        (col % L::kAtom) * 2;
-  return hp::smem_desc(addr, 16, 8 * L::kSwizzle, L::kSwizzleMode);
-}
-
-// N-major B operand (V for O += P.V): keys are the K dimension, D the N
-// dimension; k-step kk starts 16 rows further down, chunk j covers
-// columns [j * kAtom, (j + 1) * kAtom).
-template <int D, int KN>
-__device__ __forceinline__ uint64_t nmajor_desc(uint32_t tile, int kk,
-                                                int j) {
-  using L = TileSwizzle<D>;
-  const uint32_t addr =
-      tile + j * KN * L::kSwizzle + kk * 16 * L::kSwizzle;
-  return hp::smem_desc(addr, KN * L::kSwizzle, 8 * L::kSwizzle,
-                       L::kSwizzleMode);
-}
-
 // S = Q . K^T for one 64-row query tile and one key tile (D / 16 steps)
 template <int D, int KN>
 __device__ __forceinline__ void issue_s(float (&s)[KN / 2], uint32_t q_tile,
@@ -348,26 +328,6 @@ __device__ __forceinline__ void issue_s(float (&s)[KN / 2], uint32_t q_tile,
       hp::wgmma_ss_m64n128k16(s, a, b, kk > 0);
     else
       hp::wgmma_ss_m64n64k16(s, a, b, kk > 0);
-  }
-}
-
-// O += P . V for one key tile: KN / 16 key steps, N = D in chunks of 64
-template <int D, int KN>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pa)[KN / 16][4],
-                                         uint32_t v_tile) {
-#pragma unroll
-  for (int kk = 0; kk < KN / 16; ++kk) {
-    if constexpr (D == 32) {
-      hp::wgmma_rs_m64n32k16<1>(o, pa[kk],
-                                nmajor_desc<D, KN>(v_tile, kk, 0), 1);
-    } else {
-#pragma unroll
-      for (int j = 0; j < D / 64; ++j)
-        hp::wgmma_rs_m64n64k16<1>(
-            *reinterpret_cast<float(*)[32]>(&o[32 * j]), pa[kk],
-            nmajor_desc<D, KN>(v_tile, kk, j), 1);
-    }
   }
 }
 
@@ -474,23 +434,14 @@ __device__ __forceinline__ void tile_softmax(
                                        cq, scale_log2);
 }
 
-// P in bf16 as the A fragments of the KN / 16 key steps: the S
-// accumulator's layout is the A operand's, two columns a register
-template <int KN>
-__device__ __forceinline__ void pack_weights(const float (&s)[KN / 2],
-                                             uint32_t (&pa)[KN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < KN / 16; ++kk)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      pa[kk][j] = hp::pack_bf16(s[8 * kk + 2 * j], s[8 * kk + 2 * j + 1]);
-}
-
 // D: the head dim the tiles are laid out for; with kAnyD the real one,
 // d_rt <= D, is a run-time argument (columns past it load as zeros).
 // kWindow: the launch has a window (window > 0); without it the window
 // argument is not read, so that unwindowed calls run the unwindowed code.
-template <int D, int NC, int KN, bool kAnyD, bool kWindow>
+// kStats: the caller asked for the rows' softmax statistics (training's
+// forward); without it `stats` is not read, so that inference calls run
+// the code they ran before the statistics existed.
+template <int D, int NC, int KN, bool kAnyD, bool kWindow, bool kStats>
 __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
     flash_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
@@ -498,6 +449,7 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
                        bf16* __restrict__ out,      // (B, S_q, H, D)
                        float* __restrict__ ws_acc,  // (splits, B, S_q, H, D)
                        float* __restrict__ ws_ml,   // (splits, B, S_q, H, 2)
+                       float* __restrict__ stats,   // (B, S_q, H, 2)
                        int B, int S_q, int S_kv, int H, int Hkv,
                        int q_offset, int causal, int window,
                        float scale_log2, int splits, int tiles_per_split,
@@ -748,6 +700,9 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
           *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n + 2 * cq) =
               __floats2bfloat162_rn(o[4 * n + 2 * r] / denom,
                                     o[4 * n + 2 * r + 1] / denom);
+      // (m, l) in the log2 domain: the weights are 2^(s - m) / l
+      if (kStats && cq == 0)
+        *reinterpret_cast<float2*>(stats + row * 2) = make_float2(m[r], l[r]);
     } else {
       const int64_t srow =
           static_cast<int64_t>(split) * B * S_q * H + row;
@@ -768,9 +723,9 @@ __global__ void __launch_bounds__(FlashLayout<D, NC, KN>::kThreads)
 // d: the real head dim (D itself unless kAnyD); the tensor maps span it
 template <int D, int NC, int KN, bool kAnyD>
 cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        void* out, float* ws, int B, int S_q, int S_kv,
-                        int H, int Hkv, int d, int q_offset, int causal,
-                        int window, float scale, int splits,
+                        void* out, float* ws, float* stats, int B, int S_q,
+                        int S_kv, int H, int Hkv, int d, int q_offset,
+                        int causal, int window, float scale, int splits,
                         int tiles_per_split, cudaStream_t stream) {
   using L = FlashLayout<D, NC, KN>;
   const CUtensorMapSwizzle swizzle = L::kSwizzle == 128
@@ -787,9 +742,12 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
                                      L::kAtom, swizzle);
   if (err != cudaSuccess) return err;
   const size_t smem = L::kBytes + 1024;  // + slack to align the base
-  const auto kernel = window > 0
-                          ? flash_wgmma_kernel<D, NC, KN, kAnyD, true>
-                          : flash_wgmma_kernel<D, NC, KN, kAnyD, false>;
+  const auto kernel =
+      stats != nullptr
+          ? (window > 0 ? flash_wgmma_kernel<D, NC, KN, kAnyD, true, true>
+                        : flash_wgmma_kernel<D, NC, KN, kAnyD, false, true>)
+          : (window > 0 ? flash_wgmma_kernel<D, NC, KN, kAnyD, true, false>
+                        : flash_wgmma_kernel<D, NC, KN, kAnyD, false, false>);
   err = repro::set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   const int64_t rows = static_cast<int64_t>(B) * S_q * H;
@@ -797,28 +755,28 @@ cudaError_t launch_bf16(const void* q, const void* k, const void* v,
   float* ws_ml = splits > 1 ? ws + splits * rows * d : nullptr;
   const dim3 grid((S_q + NC * kRows - 1) / (NC * kRows), H, B * splits);
   kernel<<<grid, L::kThreads, smem, stream>>>(
-      q_map, k_map, v_map, static_cast<bf16*>(out), ws_acc, ws_ml, B, S_q,
-      S_kv, H, Hkv, q_offset, causal, window, scale * kLog2e, splits,
+      q_map, k_map, v_map, static_cast<bf16*>(out), ws_acc, ws_ml, stats, B,
+      S_q, S_kv, H, Hkv, q_offset, causal, window, scale * kLog2e, splits,
       tiles_per_split, d);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   return repro::launch_combine<bf16>(ws_acc, ws_ml, static_cast<bf16*>(out),
-                                     rows, d, splits, stream);
+                                     rows, d, splits, stream, stats);
 }
 
 template <int D>
 cudaError_t launch_bf16_nc(int consumers, int keys, const void* q,
                            const void* k, const void* v, void* out, float* ws,
-                           int B, int S_q, int S_kv, int H, int Hkv,
-                           int q_offset, int causal, int window, float scale,
-                           int splits, int tiles_per_split,
+                           float* stats, int B, int S_q, int S_kv, int H,
+                           int Hkv, int q_offset, int causal, int window,
+                           float scale, int splits, int tiles_per_split,
                            cudaStream_t stream) {
-#define REPRO_LAUNCH(NC, KN)                                                \
-  if (consumers == NC && keys == KN)                                        \
-    return launch_bf16<D, NC, KN, false>(q, k, v, out, ws, B, S_q, S_kv, H, \
-                                         Hkv, D, q_offset, causal, window,  \
-                                         scale, splits, tiles_per_split,    \
-                                         stream);
+#define REPRO_LAUNCH(NC, KN)                                                 \
+  if (consumers == NC && keys == KN)                                         \
+    return launch_bf16<D, NC, KN, false>(q, k, v, out, ws, stats, B, S_q,    \
+                                         S_kv, H, Hkv, D, q_offset, causal,  \
+                                         window, scale, splits,              \
+                                         tiles_per_split, stream);
   REPRO_LAUNCH(1, 64)   // split key ranges: small tiles, more blocks
   REPRO_LAUNCH(1, 128)
   REPRO_LAUNCH(2, 128)
@@ -831,14 +789,14 @@ cudaError_t launch_bf16_nc(int consumers, int keys, const void* q,
 template <int DP>
 cudaError_t launch_bf16_any_d(int consumers, int keys, const void* q,
                               const void* k, const void* v, void* out,
-                              float* ws, int B, int S_q, int S_kv, int H,
-                              int Hkv, int d, int q_offset, int causal,
-                              int window, float scale, int splits,
+                              float* ws, float* stats, int B, int S_q,
+                              int S_kv, int H, int Hkv, int d, int q_offset,
+                              int causal, int window, float scale, int splits,
                               int tiles_per_split, cudaStream_t stream) {
   if (consumers != 1 || keys != 64) return cudaErrorInvalidValue;
-  return launch_bf16<DP, 1, 64, true>(q, k, v, out, ws, B, S_q, S_kv, H, Hkv,
-                                      d, q_offset, causal, window, scale,
-                                      splits, tiles_per_split, stream);
+  return launch_bf16<DP, 1, 64, true>(q, k, v, out, ws, stats, B, S_q, S_kv,
+                                      H, Hkv, d, q_offset, causal, window,
+                                      scale, splits, tiles_per_split, stream);
 }
 
 }  // namespace
@@ -848,16 +806,17 @@ static int flash_entry(int device, int dtype, const void* q, const void* k,
                        int H, int Hkv, int D, int q_offset, int causal,
                        int window, float scale, int consumers, int keys,
                        int splits, int tiles_per_split, void* workspace,
-                       void* stream) {
+                       void* stats_out, void* stream) {
   cudaError_t err = repro::use_device(device);
   if (err != cudaSuccess) return err;
   if (B <= 0 || S_q <= 0 || Hkv <= 0 || H % Hkv != 0 || q_offset < 0 ||
       window < 0 || D <= 0 || D > 128 || D % 8 != 0)
     return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* stats = static_cast<float*>(stats_out);
   if (dtype == REPRO_F32)
-    return launch_f32(q, k, v, out, B, S_q, S_kv, H, Hkv, D, q_offset, causal,
-                      window, scale, s);
+    return launch_f32(q, k, v, out, stats, B, S_q, S_kv, H, Hkv, D, q_offset,
+                      causal, window, scale, s);
   // (consumers, keys) outside the built pairs: the launchers refuse
   if (dtype != REPRO_BF16 || S_kv <= 0 || splits < 1 ||
       tiles_per_split < 1 || static_cast<int64_t>(B) * splits > 65535 ||
@@ -866,25 +825,25 @@ static int flash_entry(int device, int dtype, const void* q, const void* k,
   float* ws = static_cast<float*>(workspace);
   switch (D) {
     case 32:
-      return launch_bf16_nc<32>(consumers, keys, q, k, v, out, ws, B, S_q,
-                                S_kv, H, Hkv, q_offset, causal, window, scale,
-                                splits, tiles_per_split, s);
+      return launch_bf16_nc<32>(consumers, keys, q, k, v, out, ws, stats, B,
+                                S_q, S_kv, H, Hkv, q_offset, causal, window,
+                                scale, splits, tiles_per_split, s);
     case 64:
-      return launch_bf16_nc<64>(consumers, keys, q, k, v, out, ws, B, S_q,
-                                S_kv, H, Hkv, q_offset, causal, window, scale,
-                                splits, tiles_per_split, s);
+      return launch_bf16_nc<64>(consumers, keys, q, k, v, out, ws, stats, B,
+                                S_q, S_kv, H, Hkv, q_offset, causal, window,
+                                scale, splits, tiles_per_split, s);
     case 128:
-      return launch_bf16_nc<128>(consumers, keys, q, k, v, out, ws, B, S_q,
-                                 S_kv, H, Hkv, q_offset, causal, window,
+      return launch_bf16_nc<128>(consumers, keys, q, k, v, out, ws, stats, B,
+                                 S_q, S_kv, H, Hkv, q_offset, causal, window,
                                  scale, splits, tiles_per_split, s);
     default:
       if (D < 64)
-        return launch_bf16_any_d<64>(consumers, keys, q, k, v, out, ws, B,
-                                     S_q, S_kv, H, Hkv, D, q_offset, causal,
-                                     window, scale, splits, tiles_per_split,
-                                     s);
-      return launch_bf16_any_d<128>(consumers, keys, q, k, v, out, ws, B,
-                                    S_q, S_kv, H, Hkv, D, q_offset, causal,
+        return launch_bf16_any_d<64>(consumers, keys, q, k, v, out, ws,
+                                     stats, B, S_q, S_kv, H, Hkv, D,
+                                     q_offset, causal, window, scale, splits,
+                                     tiles_per_split, s);
+      return launch_bf16_any_d<128>(consumers, keys, q, k, v, out, ws, stats,
+                                    B, S_q, S_kv, H, Hkv, D, q_offset, causal,
                                     window, scale, splits, tiles_per_split,
                                     s);
   }
@@ -892,12 +851,13 @@ static int flash_entry(int device, int dtype, const void* q, const void* k,
 
 // Packed arguments (common.cuh: Args), in order: device, dtype, q, k, v, out,
 // B, S_q, S_kv, H, Hkv, D, q_offset, causal, window, scale (double),
-// consumers, keys, splits, tiles_per_split, workspace, stream.
+// consumers, keys, splits, tiles_per_split, workspace, stats (the rows'
+// (m, l) in f32, (B, S_q, H, 2), or 0 where the caller wants none), stream.
 extern "C" int repro_flash_attention(const void* packed) {
   const repro::Args a(packed);
   return flash_entry(a.i32(0), a.i32(1), a.ptr(2), a.ptr(3), a.ptr(4),
                      a.ptr(5), a.i32(6), a.i32(7), a.i32(8), a.i32(9),
                      a.i32(10), a.i32(11), a.i32(12), a.i32(13), a.i32(14),
                      a.f32(15), a.i32(16), a.i32(17), a.i32(18), a.i32(19),
-                     a.ptr(20), a.ptr(21));
+                     a.ptr(20), a.ptr(21), a.ptr(22));
 }

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks written as inline PTX: mbarriers, TMA
-// tensor loads, warpgroup MMA (wgmma) and its shared-memory descriptors,
-// cp.async, and the host-side encoding of a TMA tensor map.
+// tensor loads and bulk copies, warpgroup MMA (wgmma) and its
+// shared-memory descriptors, cp.async, and the host-side encoding of a TMA
+// tensor map.
 //
 // No CUTLASS: the few instructions the kernels need are spelled out here,
 // so a source that includes this header still builds in seconds.
@@ -76,6 +77,18 @@ __device__ __forceinline__ void named_bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
+// Hand registers between warpgroups: every thread of the warpgroup that
+// runs it (all four warps together) now holds at most N (dec) or at
+// least N (inc) registers, N a multiple of 8 in [24, 256].
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
 // ---------------------------------------------------------------------------
 // TMA: one thread copies a 4-D box of a tensor into shared memory; the
 // barrier counts its bytes.  Coordinates are innermost first; elements
@@ -90,6 +103,17 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
       "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One thread copies `bytes` contiguous bytes (a multiple of 16, both
+// addresses 16-byte aligned) into shared memory; the barrier counts them.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
       : "memory");
 }
 
@@ -171,6 +195,24 @@ __device__ __forceinline__ void wgmma_ss_m64n64k16(float (&d)[32],
       "%32, %33, p, 1, 1, 0, 0;\n"
       "}\n"
       : REPRO_ACC8(0), REPRO_ACC8(8), REPRO_ACC8(16), REPRO_ACC8(24)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D(64x32, f32) (+)= A(64x16, smem) . B(16x32, smem); both K-major
+__device__ __forceinline__ void wgmma_ss_m64n32k16(float (&d)[16],
+                                                   uint64_t desc_a,
+                                                   uint64_t desc_b,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : REPRO_ACC8(0), REPRO_ACC8(8)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

@@ -10,7 +10,10 @@ the softmax weights to the value dtype before the PV product, so fully
 masked rows and tiles behave identically.
 
   * ``flash_attention``   — chunked online-softmax causal attention with
-                            a query offset and GQA (O(S * chunk) memory)
+                            a query offset and GQA (O(S * chunk) memory),
+                            optionally with its rows' statistics
+  * ``flash_attention_bwd`` — its gradients from those statistics, the
+                            formula the backward kernel implements
   * ``decode_attention``  — one query token against a contiguous cache
                             with per-sequence lengths
   * ``paged_attention``   — decode attention over a paged KV pool and
@@ -29,6 +32,7 @@ from typing import Optional, Tuple
 import torch
 
 NEG_INF = -1e30
+LOG2E = 1.4426950408889634
 
 
 # ---------------------------------------------------------------------------
@@ -43,13 +47,22 @@ def flash_attention(
     window: int = 0,  # 0 = full; >0 = sliding window (causal only)
     q_offset: int = 0,  # absolute position of q[0] relative to kv[0]
     chunk: int = 2048,
-) -> torch.Tensor:
+    with_stats: bool = False,
+):
     """Online-softmax attention over KV chunks (the flash recurrence).
 
     Scores and the accumulator are f32; operands are widened from their
     storage dtype, which is exact, so each product equals the bf16 x bf16
     -> f32 product of the tensor cores.  GQA: H must be a multiple of
     Hkv.  Returns (B, S_q, H, D) in q.dtype.
+
+    With ``with_stats`` it returns ``(out, stats)``: ``stats`` (B, S_q, H,
+    2) f32 holds each row's ``(m, l)`` in the log2 domain of the kernels,
+    so that the row's weights are ``2^(s2 - m) / l`` with ``s2`` the
+    score times ``log2 e`` where the key is visible and ``NEG_INF``
+    itself where it is not: ``m`` is the largest ``s2`` (``NEG_INF`` in a
+    row that sees no key) and ``l`` the sum of the weights before the
+    division.
     """
     B, S_q, H, D = q.shape
     S_kv, Hkv = k.shape[1], k.shape[2]
@@ -88,8 +101,79 @@ def flash_attention(
             "bhgqk,bhkd->bhgqd", p.to(v.dtype).float(), vj.float())
         m = m_new
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    out = out.reshape(B, H, S_q, D).permute(0, 2, 1, 3)
-    return out.to(q.dtype)
+    out = out.reshape(B, H, S_q, D).permute(0, 2, 1, 3).to(q.dtype)
+    if not with_stats:
+        return out
+    m2 = torch.where(m == NEG_INF, m, m * LOG2E)
+    stats = torch.stack((m2, l), dim=-1).reshape(B, H, S_q, 2)
+    return out, stats.permute(0, 2, 1, 3).contiguous()
+
+
+def flash_attention_bwd(
+    q: torch.Tensor,      # (B, S_q, H, D)
+    k: torch.Tensor,      # (B, S_kv, Hkv, D)
+    v: torch.Tensor,      # (B, S_kv, Hkv, D)
+    out: torch.Tensor,    # (B, S_q, H, D): the forward's output
+    dout: torch.Tensor,   # (B, S_q, H, D)
+    stats: torch.Tensor,  # (B, S_q, H, 2): the forward's (m, l)
+    *,
+    causal: bool = True,
+    window: int = 0,
+    chunk: int = 1024,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of ``flash_attention`` at ``q_offset`` 0 from the
+    forward's statistics: the formula the backward kernel implements, in
+    f32, ``chunk`` query rows at a time.  With ``P = 2^(s2 - m) / l``
+    (``s2`` as in ``flash_attention``'s statistics, so that a masked key
+    weighs 0, or ``1 / l`` in a row that sees no key) and ``D_i =
+    rowsum(dout_i * out_i)``:
+
+        dV = sum_i P_i^T dout_i,   dP = dout V^T,
+        dS = P (dP - D_i) where the key is visible, else 0,
+        dQ = scale dS K,           dK = scale sum_i dS_i^T q_i,
+
+    dK and dV summed over each kv head's query heads.  Each gradient in
+    its input's dtype."""
+    B, S_q, H, D = q.shape
+    S_kv, Hkv = k.shape[1], k.shape[2]
+    G = H // Hkv
+    scale = 1.0 / math.sqrt(D)
+    dev = q.device
+
+    def heads(x):  # (B, S, H, D) -> (B, Hkv, G, S, D) f32
+        return x.float().permute(0, 2, 1, 3).reshape(B, Hkv, G, S_q, D)
+
+    kf = k.float().permute(0, 2, 1, 3)  # (B, Hkv, S_kv, D)
+    vf = v.float().permute(0, 2, 1, 3)
+    st = stats.float().permute(0, 2, 1, 3).reshape(B, Hkv, G, S_q, 2)
+    qf, of, gf = heads(q), heads(out), heads(dout)
+    kv_pos = torch.arange(S_kv, device=dev)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros((B, Hkv, S_kv, D), dtype=torch.float32, device=dev)
+    dv = torch.zeros_like(dk)
+    for i0 in range(0, S_q, chunk):
+        sl = slice(i0, i0 + chunk)
+        q_pos = torch.arange(i0, min(i0 + chunk, S_q), device=dev)
+        mask = torch.ones((len(q_pos), S_kv), dtype=torch.bool, device=dev)
+        if causal:
+            mask = mask & (kv_pos[None, :] <= q_pos[:, None])
+        if window:
+            mask = mask & (kv_pos[None, :] > q_pos[:, None] - window)
+        s2 = torch.einsum("bhgqd,bhkd->bhgqk", qf[..., sl, :], kf) * (
+            scale * LOG2E)
+        s2 = torch.where(mask, s2, torch.full_like(s2, NEG_INF))
+        m, l = st[..., sl, 0], st[..., sl, 1]
+        p = torch.exp2(s2 - m[..., None]) / l[..., None]
+        d_i = (gf[..., sl, :] * of[..., sl, :]).sum(-1)
+        dp = torch.einsum("bhgqd,bhkd->bhgqk", gf[..., sl, :], vf)
+        ds = torch.where(mask, p * (dp - d_i[..., None]),
+                         torch.zeros_like(p))
+        dv += torch.einsum("bhgqk,bhgqd->bhkd", p, gf[..., sl, :])
+        dk += torch.einsum("bhgqk,bhgqd->bhkd", ds, qf[..., sl, :]) * scale
+        dq[..., sl, :] = torch.einsum("bhgqk,bhkd->bhgqd", ds, kf) * scale
+    dq = dq.reshape(B, H, S_q, D).permute(0, 2, 1, 3)
+    return (dq.to(q.dtype), dk.permute(0, 2, 1, 3).to(k.dtype),
+            dv.permute(0, 2, 1, 3).to(v.dtype))
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels.block_gather import block_gather_kernel
 from repro_torch.kernels.decode_attention import decode_attention_kernel
 from repro_torch.kernels.decode_attention import plan_splits as decode_plan
+from repro_torch.kernels import flash_attention as fa_module
 from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
 from repro_torch.kernels.flash_attention import flash_attention_kernel
 from repro_torch.kernels.flash_attention import plan_splits
@@ -1309,12 +1310,15 @@ def test_moe_combine_on_card_matches_cpu(card):
 # ---------------------------------------------------------------------------
 #: (B, S_q, S_kv, H, Hkv, D, causal, window): qwen2's heads causal; D 112
 #: with a window that cuts key tiles mid-tile; D 128 at G 4; a non-causal
-#: window whose last rows see no key (they average every key)
+#: window whose last rows see no key (they average every key); S not a
+#: multiple of 128 at D 64; G 1 at D 112
 _BWD_SHAPES = [
     (2, 640, 640, 14, 2, 64, True, 0),
     (1, 300, 300, 8, 2, 112, True, 100),
     (1, 256, 256, 16, 4, 128, True, 0),
     (1, 400, 300, 6, 3, 96, False, 40),
+    (2, 333, 333, 14, 2, 64, True, 0),
+    (1, 200, 200, 4, 4, 112, True, 0),
 ]
 #: each gradient's largest error over its largest magnitude: f32 sums in
 #: another order than the plain autograd; bf16 rounds the gradients
@@ -1358,11 +1362,93 @@ def test_flash_bwd_kernel_matches_plain_autograd(card, dtype, shape):
 def test_flash_bwd_kernel_is_deterministic(card):
     B, S_q, S_kv, H, Hkv, D, causal, window = _BWD_SHAPES[0]
     q, k, v, do = _bwd_inputs(card, torch.bfloat16, B, S_q, S_kv, H, Hkv, D)
-    out = flash_attention_kernel(q, k, v, causal=causal)
-    runs = [flash_attention_bwd_kernel(q, k, v, out, do, causal=causal)
-            for _ in range(2)]
+    out, stats = flash_attention_kernel(q, k, v, causal=causal,
+                                        with_stats=True)
+    runs = [flash_attention_bwd_kernel(q, k, v, out, do, stats,
+                                       causal=causal) for _ in range(2)]
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_times_its_kernels(card, dtype):
+    """With ``timing`` the call reports the kernels it launched, three,
+    each with a positive device time, and its gradients are those of a
+    call without it."""
+    B, S_q, S_kv, H, Hkv, D, causal, window = _BWD_SHAPES[0]
+    q, k, v, do = _bwd_inputs(card, dtype, B, S_q, S_kv, H, Hkv, D)
+    out, stats = flash_attention_kernel(q, k, v, causal=causal,
+                                        with_stats=True)
+    times = torch.zeros(fa_module.BWD_KERNELS + 1)
+    got = flash_attention_bwd_kernel(q, k, v, out, do, stats, causal=causal,
+                                     timing=times)
+    want = flash_attention_bwd_kernel(q, k, v, out, do, stats, causal=causal)
+    assert times[0].item() == 3 and bool((times[1:] > 0).all())
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_flash_bwd_kernel_refuses_a_plan_of_other_rows(card, monkeypatch):
+    """The dK/dV kernel reads the plan's query tiles in its own rows a
+    stage (64 at D 64): a plan cut for 32 is refused, not run."""
+    B, S_q, S_kv, H, Hkv, D, causal, window = 1, 256, 256, 4, 2, 64, True, 0
+    q, k, v, do = _bwd_inputs(card, torch.bfloat16, B, S_q, S_kv, H, Hkv, D)
+    out, stats = flash_attention_kernel(q, k, v, causal=causal,
+                                        with_stats=True)
+    real = fa_module._plan_tensor
+    monkeypatch.setattr(fa_module, "_plan_tensor",
+                        lambda *a: real(*a)[:2] + (32,))
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        flash_attention_bwd_kernel(q, k, v, out, do, stats, causal=causal)
+
+
+#: forward shapes for the row statistics: (B, S_q, S_kv, H, Hkv, D, causal,
+#: window) — unsplit (280 blocks of 64 rows), split (32 query blocks), a
+#: split non-causal window whose last rows see no key, and the run-time-D
+#: form at D 112
+_STATS_SHAPES = [
+    (2, 640, 640, 14, 2, 64, True, 0),
+    (1, 256, 256, 16, 4, 128, True, 0),
+    (1, 400, 300, 6, 3, 96, False, 40),
+    (1, 300, 300, 8, 2, 112, True, 100),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _STATS_SHAPES, ids=lambda s: "x".join(
+    str(int(x)) for x in s))
+def test_flash_forward_stats_match_plain(card, dtype, shape):
+    """The kernel's (m, l) against the plain forward's: m within 1e-4
+    (the scores' products summed in another order), exactly NEG_INF in a
+    row that sees no key, l within 1e-4 of itself (ex2.approx against
+    exp); split and unsplit plans both."""
+    B, S_q, S_kv, H, Hkv, D, causal, window = shape
+    if dtype == torch.bfloat16:
+        splits = plan_splits(B, S_q, H, S_kv, causal=causal, window=window,
+                             head_dim=D).splits
+        assert (splits > 1) == (shape != _STATS_SHAPES[0])
+    q, k, v, _ = _bwd_inputs(card, dtype, B, S_q, S_kv, H, Hkv, D)
+    kw = dict(causal=causal, window=window)
+    _, got = flash_attention_kernel(q, k, v, with_stats=True, **kw)
+    _, want = ref.flash_attention(q, k, v, with_stats=True, **kw)
+    empty = want[..., 0] == ref.NEG_INF
+    assert bool(empty.any()) == (window == 40)
+    assert torch.equal(got[..., 0][empty], want[..., 0][empty])
+    m_err = (got[..., 0] - want[..., 0])[~empty].abs().max()
+    l_err = ((got[..., 1] - want[..., 1]) / want[..., 1]).abs().max()
+    assert float(m_err) <= 1e-4 and float(l_err) <= 1e-4, (m_err, l_err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _STATS_SHAPES, ids=lambda s: "x".join(
+    str(int(x)) for x in s))
+def test_flash_forward_output_is_the_same_with_stats(card, dtype, shape):
+    B, S_q, S_kv, H, Hkv, D, causal, window = shape
+    q, k, v, _ = _bwd_inputs(card, dtype, B, S_q, S_kv, H, Hkv, D)
+    kw = dict(causal=causal, window=window)
+    plain = flash_attention_kernel(q, k, v, **kw)
+    with_stats, _ = flash_attention_kernel(q, k, v, with_stats=True, **kw)
+    assert torch.equal(plain, with_stats)
 
 
 def test_inference_kernels_refuse_grad(card):
