@@ -61,7 +61,16 @@ random weights from a seed (mixtral over 6 of its 32 layers):
     ``Trainer`` over 8 full-width qwen2 steps of 2 x 4096 tokens (the
     flash kernel forward and backward), then again with a checkpoint
     every 4 steps and a failure before step 6: the replayed losses
-    identical to the first run's.
+    identical to the first run's;
+  * SSM and hybrid training: the SSD scan's backward kernels against the
+    plain backward and autograd of the plain scan at mamba2's and
+    zamba2's train shapes and four more (two runs bit for bit, three
+    planted faults), then mamba2-2.7b at full width and zamba2-7b over
+    39 of its 81 layers (6 groups and the shared block, 3 trailing
+    layers), each: its first layers in f32 (every gradient leaf, kernels
+    against plain), one step's gradients (every leaf finite and nonzero,
+    the SSD and flash launches of a remat "full" step) and a ``Trainer``
+    over 4 steps of 2 x 4096 tokens, twice, the losses identical.
 
 It checks that each path went through its kernels (launch counts, and
 the split combines beside them), and times each kernel beside its plain
@@ -90,6 +99,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -512,10 +522,13 @@ def conditioned(model, params):
     paths part ways within a few layers (phase "layers" shows it).
     Dense: ``layers.attn``; encoder-decoder: ``enc_layers.attn``,
     ``dec_layers.self_attn`` and ``dec_layers.cross_attn``; hybrid:
-    ``shared_attn.attn``."""
+    ``shared_attn.attn``; the SSM family has no attention and is returned
+    as it is."""
     import math
 
     cfg = model.cfg
+    if cfg.family == "ssm":
+        return params
     M, H, Hkv = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
 
     def cond(attn):
@@ -4877,14 +4890,15 @@ def vlm_table_rows(torch, launches, errs):
 # ---------------------------------------------------------------------------
 # the backward kernel against autograd of the plain version: (name, B,
 # S_q, S_kv, H, Hkv, D, causal, window) — qwen2's train shape, D 128 at
-# G 4, phi3's D 96 and zamba2's D 112 (the run-time-D range), the
-# encoder's non-causal shape, and a 4096-key window whose edges cut key
-# tiles mid-tile
+# G 4, phi3's D 96 and zamba2's D 112 (the run-time-D range; also at its
+# train shape, B 2 x 4096), the encoder's non-causal shape, and a
+# 4096-key window whose edges cut key tiles mid-tile
 BWD_SHAPES = (
     ("qwen2_train", 2, 4096, 4096, 14, 2, 64, True, 0),
     ("d128_g4", 1, 2048, 2048, 32, 8, 128, True, 0),
     ("phi3_d96", 1, 1024, 1024, 32, 32, 96, True, 0),
     ("zamba2_d112", 1, 1024, 1024, 32, 32, 112, True, 0),
+    ("zamba2_train", 2, 4096, 4096, 32, 32, 112, True, 0),
     ("encoder_noncausal", 2, 1024, 1024, 16, 16, 64, False, 0),
     ("window_4096", 1, 4672, 4672, 8, 2, 128, True, 4096),
 )
@@ -5038,13 +5052,13 @@ def flat_grads(torch, model, params, batch, impl=None, remat="full"):
     return loss, flat
 
 
-def train_batch(torch, cfg, step=0):
+def train_batch(torch, cfg, step=0, batch=TR_BATCH):
     """The synthetic pipeline's batch of ``step`` (seed 0), on the card."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.data import SyntheticDataPipeline
 
     pipe = SyntheticDataPipeline(cfg, ShapeConfig("train_4k", "train",
-                                                  TR_SEQ, TR_BATCH),
+                                                  TR_SEQ, batch),
                                  start_step=step)
     try:
         return {k: torch.from_numpy(v.copy()).cuda()
@@ -5095,20 +5109,31 @@ def phase_train_grads(torch, model):
 
 
 def phase_train_f32(torch):
-    """qwen2's first 4 layers in f32: one train step's loss, grad norm
-    and every gradient leaf through the kernels (the f32 flash body and
-    the backward kernel) against the plain versions, on conditioned
-    weights, and one ``build_train_step`` step of each."""
+    """qwen2's first 4 layers in f32: ``train_f32_check``."""
     from repro_torch.configs import ARCHS
+
+    train_f32_check(torch, "train_f32", ARCHS["qwen2-0.5b"], TR_F32_LAYERS)
+
+
+def train_f32_check(torch, phase, arch, layers, batch_size=TR_BATCH):
+    """``arch``'s first ``layers`` layers in f32: one train step's loss,
+    grad norm and every gradient leaf through the kernels (the f32 bodies
+    and the backward kernels) against the plain versions, on conditioned
+    weights, and one ``build_train_step`` step of each, on
+    ``batch_size`` sequences of TR_SEQ."""
+    import gc
+
     from repro_torch.launch import build_train_step
     from repro_torch.models import Model, init_params
     from repro_torch.models.param import tree_map
     from repro_torch.training import opt_state_specs
 
-    model = Model(ARCHS["qwen2-0.5b"].scaled(num_layers=TR_F32_LAYERS,
-                                             dtype="float32"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = Model(arch.scaled(num_layers=layers, dtype="float32"))
     params = conditioned(model, model.init_params(seed=0))
-    batch = train_batch(torch, model.cfg)
+    batch = train_batch(torch, model.cfg, batch=batch_size)
     runs = {impl: flat_grads(torch, model, params, batch, impl=impl)
             for impl in (None, "plain")}
     (lk, gk), (lp, gp) = runs[None], runs["plain"]
@@ -5122,6 +5147,8 @@ def phase_train_f32(torch):
         if e / scale > worst["rel"]:
             worst = {"leaf": k, "max_abs_err": e, "max_abs": scale,
                      "rel": e / scale}
+    n_leaves = len(gp)
+    del runs, gk, gp
     steps = {}
     for impl in (None, "plain"):
         p = tree_map(lambda t: t.clone(), params)
@@ -5133,11 +5160,13 @@ def phase_train_f32(torch):
         a, b = steps[None][key], steps["plain"][key]
         check(abs(a - b) <= TR_F32_LOSS_TOL * abs(b), f"f32 step {key} "
                                                       f"{a} vs {b}")
-    emit({"phase": "train_f32", "ok": True, "layers": TR_F32_LAYERS,
+    emit({"phase": phase, "ok": True, "arch": arch.name, "layers": layers,
+          "batch": batch_size, "seq": TR_SEQ,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "loss_rel_err": loss_rel, "worst_grad_leaf": worst,
           "tol": {"loss_and_grad_norm": TR_F32_LOSS_TOL,
                   "grad_leaf": f"{TR_F32_GRAD_TOL} of max|grad|"},
-          "step": steps, "leaves": len(gp)})
+          "step": steps, "leaves": n_leaves})
 
 
 def phase_train_steps(torch, model):
@@ -5216,14 +5245,13 @@ def train_table_rows(torch, launches, errs):
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
-    from repro_torch.kernels.flash_attention import BWD_KERNELS
     from repro_torch.kernels.flash_attention import flash_attention_kernel
 
     saved = (flash_attention_kernel.launches,
              flash_attention_bwd_kernel.launches)
     B, S, H, Hkv, D = TR_BATCH, TR_SEQ, 14, 2, 64
     elt = 2
-    q, k, v, do = bwd_inputs(torch, torch.bfloat16, B, S, S, H, Hkv, D)
+    q, k, v, _ = bwd_inputs(torch, torch.bfloat16, B, S, S, H, Hkv, D)
     pairs = B * H * (S * (S + 1) // 2)
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
     rows = []
@@ -5252,7 +5280,33 @@ def train_table_rows(torch, launches, errs):
                                  "is_causal=True, enable_gqa=True (timed "
                                  "only)",
                  "shape": f"B={B} S_q=S_kv={S} causal H={H} Hkv={Hkv} D={D}"})
+    del q, k, v, qt, kt, vt
+    rows.append(flash_bwd_row(
+        torch, "flash_bwd", (B, S, H, Hkv, D),
+        launches["flash_attention_bwd"],
+        errs["flash_bwd_qwen2_train", "bfloat16"]))
+    flash_attention_kernel.launches, flash_attention_bwd_kernel.launches = \
+        saved
+    return rows
 
+
+def flash_bwd_row(torch, name, shape, launches, err):
+    """The flash backward kernels at a causal train shape (B, S, H, Hkv,
+    D), bf16: kernel, autograd of the plain version and the SDPA
+    backward's times beside the bound, and each kernel's device time."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
+    from repro_torch.kernels.flash_attention import BWD_KERNELS
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    saved = (flash_attention_kernel.launches,
+             flash_attention_bwd_kernel.launches)
+    B, S, H, Hkv, D = shape
+    elt = 2
+    q, k, v, do = bwd_inputs(torch, torch.bfloat16, B, S, S, H, Hkv, D)
+    pairs = B * H * (S * (S + 1) // 2)
     out, stats = flash_attention_kernel(q, k, v, causal=True,
                                         with_stats=True)
 
@@ -5295,27 +5349,425 @@ def train_table_rows(torch, launches, errs):
     n_bytes = (4 * q.numel() + 4 * k.numel()) * elt
     flops = 10 * D * pairs
     b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
-    rows.append({"name": "flash_bwd", "route": "cuda",
-                 "source": "src/repro_torch/kernels/csrc/"
-                           "flash_attention_bwd.cu",
-                 "replaces": "none: the gradient of "
-                             "src/repro/kernels/flash_attention.py:85 "
-                             "(the JAX package trains through ref, "
-                             "src/repro/kernels/ref.py)",
-                 "launches": launches["flash_attention_bwd"],
-                 "max_abs_err": errs["flash_bwd_qwen2_train", "bfloat16"],
-                 "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": b_ms,
-                 "bound_by": b_by, "library_ms": bl_ms,
-                 "library_note": "the backward of "
-                                 "scaled_dot_product_attention (is_causal, "
-                                 "enable_gqa) by autograd.grad (timed only)",
-                 "shape": f"B={B} S_q=S_kv={S} causal H={H} Hkv={Hkv} "
-                          f"D={D}",
-                 "kernels_per_call": counts.pop(),
-                 "kernel_device_ms": split, "flops": flops,
-                 "bytes": n_bytes})
     flash_attention_kernel.launches, flash_attention_bwd_kernel.launches = \
         saved
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": "none: the gradient of "
+                        "src/repro/kernels/flash_attention.py:85 (the JAX "
+                        "package trains through ref, "
+                        "src/repro/kernels/ref.py)",
+            "launches": launches, "max_abs_err": err,
+            "ms": bk_ms, "plain_ms": bp_ms, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": bl_ms,
+            "library_note": "the backward of scaled_dot_product_attention "
+                            "(is_causal, enable_gqa) by autograd.grad "
+                            "(timed only)",
+            "shape": f"B={B} S_q=S_kv={S} causal H={H} Hkv={Hkv} D={D}",
+            "kernels_per_call": counts.pop(), "kernel_device_ms": split,
+            "flops": flops, "bytes": n_bytes}
+
+
+# ---------------------------------------------------------------------------
+# SSM and hybrid training: the SSD backward kernel
+# ---------------------------------------------------------------------------
+#: the SSD scan at the train cells' shapes (TR_BATCH x TR_SEQ): mamba2's
+#: 80 heads of 64 with state 128, zamba2's 112 with state 64
+SSD_TRAIN = {"mamba2": dict(B=TR_BATCH, S=TR_SEQ, H=80, P=64, N=128,
+                            chunk=128),
+             "zamba2": dict(B=TR_BATCH, S=TR_SEQ, H=112, P=64, N=64,
+                            chunk=128)}
+#: the backward's parity cases: both train shapes, one short chunk (S =
+#: 127), chunks of 127 over two sequences, steep decay and the smoke form
+#: (P 32, N 16, 6 heads)
+SSD_BWD_CASES = (
+    ("mamba2_train", SSD_TRAIN["mamba2"]),
+    ("zamba2_train", SSD_TRAIN["zamba2"]),
+    ("short_chunk", dict(B=2, S=127, H=80, P=64, N=128, chunk=127)),
+    ("ragged_chunks", dict(B=2, S=254, H=112, P=64, N=64, chunk=127)),
+    ("steep", dict(B=2, S=512, H=80, P=64, N=128, chunk=128, steep=True)),
+    ("smoke_form", dict(B=2, S=256, H=6, P=32, N=16, chunk=128)),
+)
+SSD_GRADS = ("dx", "ddt", "da", "db", "dc", "dd")
+# each gradient's largest error over its largest magnitude, against the
+# plain backward: f32 sums in other orders; bf16 stores dx, dB and dC in
+# bf16 (half an ulp is 2**-9 of a value).  Against autograd of the plain
+# scan the same, but for da: autograd sums dt * dda in f32, where the row
+# and column terms cancel to rounding (a few percent at steep decay), so
+# its da is reported, not held
+SSD_BWD_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+# a planted fault must miss by at least this many tolerances
+FAULT_MARGIN = 10.0
+# mamba2-2.7b and zamba2-7b at the train cell train_4k (TR_SEQ x
+# TR_BATCH), remat "full", SSM_TRAIN_STEPS steps a run.  zamba2-7b (6.75 B
+# parameters, 108 GB at 16 bytes a parameter in f32 weights, gradients
+# and AdamW moments) is cut by layers to HY_TRAIN_LAYERS, keeping its form:
+# groups of 6 Mamba2 layers each followed by the shared block, and 3
+# trailing layers, the deepest 6k + 3 whose peak reserved memory leaves
+# TRAIN_SPARE_GB of the card free (39 layers reserve 70.6 GB of an H100
+# 80GB HBM3's 85.0 with the allocator's expandable segments, which
+# ``main`` asks for; 45 would need ~8.5 GB more).  The f32 checks run mamba2's first 4 layers and
+# zamba2's first 7 (one group, the shared block, one trailing layer).
+SSM_TRAIN_STEPS = 4
+HY_TRAIN_LAYERS = 39
+SSM_F32_LAYERS, HY_F32_LAYERS = 4, 7
+TRAIN_SPARE_GB = 8.0
+
+
+def ssd_bwd_inputs(torch, dtype, B, S, H, P, N, steep=False, seed=2):
+    """``ssd_inputs`` and the cotangents of y (in its dtype) and of the
+    final state (f32)."""
+    x, dt, a, b, c, d = ssd_inputs(torch, dtype, B, S, H, P, N, seed=seed,
+                                   steep=steep)
+    g = torch.Generator(device="cuda").manual_seed(seed + 100)
+    dy = torch.randn(x.shape, generator=g, device="cuda").to(dtype)
+    ds = torch.randn((B, H, P, N), generator=g, device="cuda")
+    return x, dt, a, b, c, d, dy, ds
+
+
+def ssd_grad_errs(got, want, tol, held=SSD_GRADS):
+    """Per gradient the largest error, it over the largest magnitude, and
+    whether it is finite; ``ok`` when every gradient in ``held`` is finite
+    and within ``tol`` of its largest magnitude."""
+    import torch
+
+    out = {}
+    for name, g, w in zip(SSD_GRADS, got, want):
+        if g is None or w is None:
+            continue
+        e, scale = max_err(g, w), float(w.float().abs().max())
+        out[name] = {"max_abs_err": e, "max_abs": scale,
+                     "rel": e / scale if scale else e,
+                     "finite": bool(torch.isfinite(g).all())}
+    out["ok"] = all(out[n]["finite"] and out[n]["rel"] <= tol
+                    for n in held if n in out)
+    out["worst_rel"] = max(out[n]["rel"] for n in held if n in out)
+    return out
+
+
+def ssd_plain_autograd(torch, x, dt, a, b, c, d, dy, ds, chunk):
+    """The six gradients by autograd of the plain scan."""
+    from repro_torch.kernels import ref
+
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt, a, b, c, d)]
+    with torch.enable_grad():
+        y, state = ref.ssd_chunk_scan(*leaves[:5], chunk=chunk,
+                                      d_skip=leaves[5])
+        return torch.autograd.grad((y, state), leaves, (dy, ds))
+
+
+def phase_ssd_bwd_parity(torch):
+    """The SSD backward kernels against the plain backward
+    (``ref.ssd_chunk_scan_bwd``, all six gradients) and against autograd
+    of the plain scan (five; da reported) at SSD_BWD_CASES in f32 and bf16,
+    with a final-state cotangent, and once without one; two runs bit for
+    bit; and three planted faults: the chunks run as separate sequences
+    (no state and no state gradient carried across chunks) and the skip
+    term dropped (each must miss by FAULT_MARGIN tolerances), and the
+    heads summed in reverse order (dB's and dC's bits must differ, which
+    the two-run comparison would catch)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_bwd_kernel
+
+    rows, errs = [], {}
+    for name, case in SSD_BWD_CASES:
+        for dname in ("float32", "bfloat16"):
+            tol = SSD_BWD_TOL[dname]
+            chunk = case["chunk"]
+            shape = {k: v for k, v in case.items() if k != "chunk"}
+            x, dt, a, b, c, d, dy, ds = ssd_bwd_inputs(
+                torch, getattr(torch, dname), **shape)
+            kw = dict(chunk=chunk, d_skip=d, dstate=ds)
+            got = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, **kw)
+            again = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, **kw)
+            want = ref.ssd_chunk_scan_bwd(x, dt, a, b, c, dy, **kw)
+            auto = ssd_plain_autograd(torch, x, dt, a, b, c, d, dy, ds,
+                                      chunk)
+            torch.cuda.synchronize()
+            same = all(torch.equal(p, q) for p, q in zip(got, again))
+            check(same, f"SSD backward {name} {dname}: two runs differ")
+            vs_plain = ssd_grad_errs(got, want, tol)
+            check(vs_plain["ok"], f"SSD backward {name} {dname} against "
+                                  f"the plain backward: {vs_plain}")
+            vs_auto = ssd_grad_errs(got, auto, tol, held=SSD_GRADS[:2]
+                                    + SSD_GRADS[3:])
+            check(vs_auto["ok"], f"SSD backward {name} {dname} against "
+                                 f"autograd of the plain scan: {vs_auto}")
+            rows.append({"case": name, "dtype": dname, "tol_rel": tol,
+                         "shape": " ".join(f"{k}={v}"
+                                           for k, v in case.items()),
+                         "two_runs_identical": same,
+                         "vs_plain_backward": vs_plain,
+                         "vs_plain_autograd": vs_auto})
+            if name.endswith("_train"):
+                errs["ssd_bwd_" + name, dname] = max(
+                    vs_plain[n]["max_abs_err"] for n in SSD_GRADS)
+            del x, dt, a, b, c, d, dy, ds, got, again, want, auto
+    # no final-state cotangent (the training path's case)
+    sh = dict(SSD_BWD_CASES[2][1])
+    chunk = sh.pop("chunk")
+    x, dt, a, b, c, d, dy, _ = ssd_bwd_inputs(torch, torch.bfloat16, **sh)
+    got = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, chunk=chunk,
+                                    d_skip=d)
+    want = ref.ssd_chunk_scan_bwd(x, dt, a, b, c, dy, chunk=chunk, d_skip=d)
+    no_state = ssd_grad_errs(got, want, SSD_BWD_TOL["bfloat16"])
+    check(no_state["ok"], f"SSD backward without dstate: {no_state}")
+
+    faults = {}
+    B, S, H, P, N, L = 2, 1024, 80, 64, 128, 128
+    tol = SSD_BWD_TOL["bfloat16"]
+    x, dt, a, b, c, d, dy, ds = ssd_bwd_inputs(torch, torch.bfloat16, B, S,
+                                               H, P, N)
+    want = ref.ssd_chunk_scan_bwd(x, dt, a, b, c, dy, chunk=L, d_skip=d,
+                                  dstate=ds)
+
+    def apart(t):  # each chunk a sequence of its own
+        return t.reshape(B * (S // L), L, *t.shape[2:])
+
+    got = ssd_chunk_scan_bwd_kernel(apart(x), apart(dt), a, apart(b),
+                                    apart(c), apart(dy), chunk=L, d_skip=d)
+    got = tuple(g.reshape(w.shape) for g, w in zip(got, want))
+    faults["no_carry_across_chunks"] = ssd_grad_errs(got, want, tol)
+    got = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, chunk=L, dstate=ds)
+    faults["skip_term_dropped"] = ssd_grad_errs(got, want, tol)
+    for fname, f in faults.items():
+        check(not f["ok"] and f["worst_rel"] >= FAULT_MARGIN * tol,
+              f"planted fault {fname} passed the check: {f}")
+    # the heads in reverse order: each head's gradients are the same
+    # numbers, dB and dC sum the heads' partials the other way round
+    x, dt, a, b, c, d, dy, ds = ssd_bwd_inputs(torch, torch.float32, B, S,
+                                               H, P, N)
+    rev = torch.arange(H - 1, -1, -1, device="cuda")
+    base = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, chunk=L, d_skip=d,
+                                     dstate=ds)
+    flipped = ssd_chunk_scan_bwd_kernel(
+        x[:, :, rev], dt[:, :, rev], a[rev], b, c, dy[:, :, rev], chunk=L,
+        d_skip=d[rev], dstate=ds[:, rev])
+    differ = {n: int((base[i] != flipped[i]).sum()) for i, n in
+              ((3, "db"), (4, "dc"))}
+    same_heads = torch.equal(base[0], flipped[0][:, :, rev])
+    faults["heads_reversed"] = {
+        "elements_differing": differ, "dx_identical": same_heads,
+        "db_rel": max_err(flipped[3], base[3])
+        / float(base[3].abs().max())}
+    check(all(v > 0 for v in differ.values()) and same_heads,
+          f"planted fault heads_reversed: {faults['heads_reversed']}")
+    emit({"phase": "ssd_bwd_parity", "ok": True, "tol": SSD_BWD_TOL,
+          "cases": rows, "no_final_state_cotangent": no_state,
+          "planted_faults_caught": faults, "fault_margin": FAULT_MARGIN})
+    return errs
+
+
+def _train_kernels():
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_bwd_kernel
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
+
+    return {"ssd_scan": ssd_chunk_scan_kernel,
+            "ssd_scan_bwd": ssd_chunk_scan_bwd_kernel,
+            "flash_attention": flash_attention_kernel,
+            "flash_attention_bwd": flash_attention_bwd_kernel}
+
+
+def train_launches_per_step(cfg) -> dict:
+    """A remat "full" step's launches: each Mamba2 layer's scan forward
+    twice (the recompute) and backward once; each application of the
+    hybrid's shared block's attention the same."""
+    from repro_torch.models.transformer import n_shared_attn
+
+    L = cfg.num_layers
+    A = n_shared_attn(cfg) if cfg.family == "hybrid" else 0
+    return {"ssd_scan": 2 * L, "ssd_scan_bwd": L,
+            "flash_attention": 2 * A, "flash_attention_bwd": A}
+
+
+def phase_family_train_grads(torch, phase, model):
+    """At full width (zamba2 at its cut), bf16, one ``loss_and_grads``
+    step through the kernels, remat "full": every parameter leaf gets a
+    finite, nonzero gradient and the step's launches are
+    ``train_launches_per_step``; its time on the host clock, to its
+    synchronise, and the peak memory."""
+    import gc
+
+    kernels = _train_kernels()
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = conditioned(model, model.init_params(seed=0))
+    batch = train_batch(torch, model.cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels.values())
+    t0 = time.perf_counter()
+    loss, grads = flat_grads(torch, model, params, batch, remat="full")
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    counts = _launches(kernels)
+    check(bool(torch.isfinite(loss)), f"loss {loss}")
+    bad = [k for k, g in grads.items()
+           if not bool(torch.isfinite(g).all()) or float(
+               g.abs().max()) == 0.0]
+    check(not bad, f"leaves without a finite, nonzero gradient: {bad}")
+    want = train_launches_per_step(model.cfg)
+    check(counts == want, f"launches per step {counts}, want {want}")
+    emit({"phase": phase, "ok": True, "arch": model.cfg.name,
+          "layers": model.cfg.num_layers, "params": model.n_params(),
+          "batch": TR_BATCH, "seq": TR_SEQ, "loss": float(loss),
+          "leaves_with_gradient": len(grads), "launches_per_step": counts,
+          "grad_step_s": step_s, "tokens_per_s": TR_BATCH * TR_SEQ / step_s,
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+
+
+def phase_family_train_steps(torch, phase, model):
+    """The training path with the launch counts set to 0: a ``Trainer``
+    over SSM_TRAIN_STEPS steps (remat "full", the synthetic pipeline's
+    pinned buffers), its median step, tokens/s and peak memory beside the
+    card's; then a second ``Trainer`` from the same seed, whose losses
+    must equal the first's bit for bit, step for step (the SSD backward
+    sums in a fixed order)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.training import Trainer
+
+    import gc
+
+    shape = ShapeConfig("train_4k", "train", TR_SEQ, TR_BATCH)
+    kernels = _train_kernels()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    _reset(kernels.values())
+    t0 = time.perf_counter()
+    base = Trainer(model, shape).run(SSM_TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    launches = _launches(kernels)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    reserved = torch.cuda.max_memory_reserved() / 1e9
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    total = torch.cuda.get_device_properties(0).total_memory / 1e9
+    per_step = train_launches_per_step(model.cfg)
+    want = {k: v * SSM_TRAIN_STEPS for k, v in per_step.items()}
+    check(launches == want, f"launches {launches}, want {want}")
+    check(reserved + TRAIN_SPARE_GB <= total,
+          f"peak reserved {reserved:.1f} GB leaves under {TRAIN_SPARE_GB} "
+          f"GB of {total:.1f}")
+    losses = [h["loss"] for h in base["history"]]
+    check(all(abs(x) < float("inf") for x in losses), f"losses {losses}")
+    torch.cuda.empty_cache()
+    again = Trainer(model, shape).run(SSM_TRAIN_STEPS)
+    repeat = [h["loss"] for h in again["history"]]
+    check(repeat == losses, f"a second run's losses {repeat} differ from "
+                            f"the first's {losses}")
+    times = [h["time_s"] for h in base["history"]]
+    emit({"phase": phase, "ok": True, "arch": model.cfg.name,
+          "layers": model.cfg.num_layers, "params": model.n_params(),
+          "batch": TR_BATCH, "seq": TR_SEQ, "steps": SSM_TRAIN_STEPS,
+          "launches": launches, "launches_per_step": per_step,
+          "losses": losses, "repeat_losses_identical": True,
+          "step_s": times, "median_step_s": statistics.median(times[1:]),
+          "tokens_per_s": TR_BATCH * TR_SEQ / statistics.median(times[1:]),
+          "wall_s": wall, "mem_gb_at_start": start_gb, "peak_mem_gb": peak,
+          "peak_reserved_gb": reserved, "alloc_retries": retries,
+          "card_gb": total})
+    return launches
+
+
+def ssd_bwd_table_row(torch, name, shape, launches, err):
+    """The SSD backward kernels at a train shape, bf16: kernel, plain
+    backward and autograd-of-the-plain-scan times beside the bound, and
+    each kernel's device time."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import BWD_KERNELS
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_bwd_kernel
+
+    saved = ssd_chunk_scan_bwd_kernel.launches
+    B, S, H, P, N, L = (shape[k] for k in ("B", "S", "H", "P", "N",
+                                           "chunk"))
+    x, dt, a, b, c, d, dy, _ = ssd_bwd_inputs(torch, torch.bfloat16, B, S,
+                                              H, P, N)
+
+    def kfn():
+        return ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, chunk=L,
+                                         d_skip=d)
+
+    k_ms = time_ms(kfn, iters=10, warmup=2)
+    times = torch.zeros(BWD_KERNELS + 1, dtype=torch.float32)
+    calls = []
+    for _ in range(5):
+        ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, chunk=L, d_skip=d,
+                                  timing=times)
+        calls.append(times.tolist())
+    counts = {int(ct[0]) for ct in calls}
+    names = ("carry_kernel", "chunk_kernel", "reduce_bc_kernel",
+             "reduce_heads_kernel")
+    check(counts == {len(names)}, f"SSD backward kernels a call: {counts}")
+    split = {n: statistics.median(ct[1 + i] for ct in calls)
+             for i, n in enumerate(names)}
+    p_ms = time_ms(lambda: ref.ssd_chunk_scan_bwd(x, dt, a, b, c, dy,
+                                                  chunk=L, d_skip=d),
+                   iters=3, warmup=1)
+    leaves = [t.detach().requires_grad_(True) for t in (x, dt, a, b, c, d)]
+    with torch.enable_grad():
+        y, _ = ref.ssd_chunk_scan(*leaves[:5], chunk=L, d_skip=leaves[5])
+        a_ms = time_ms(lambda: torch.autograd.grad(y, leaves, dy,
+                                                   retain_graph=True),
+                       iters=3, warmup=1)
+        del y
+    ssd_chunk_scan_bwd_kernel.launches = saved
+    # each input read once (x, dy, B, C in bf16; dt, a, d in f32), each
+    # output written once (dx, dB, dC in bf16; ddt, da, dd in f32)
+    n_bytes = (3 * x.numel() * 2 + 4 * b.numel() * 2 + 2 * dt.numel() * 4
+               + 4 * H * 4)
+    # a chunk's products: C.B over its causal pairs once (shared by the
+    # heads); each head's Q, dx's and dB's and dC's intra products over the
+    # pairs, and five (L, P, N) products: the chunk's state, its state
+    # gradient, the inter term of dC, X G (dB, V) and B G (dx)
+    nc, pairs = S // L, L * (L + 1) // 2
+    flops = 2 * B * nc * (pairs * N + H * (pairs * (2 * P + 2 * N)
+                                            + 5 * L * P * N))
+    b_ms, b_by = bound_ms(n_bytes, flops, "bfloat16")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+            "replaces": "none: the gradient of "
+                        "src/repro/kernels/ssd_scan.py:83 (the JAX package "
+                        "trains through ref, src/repro/kernels/ref.py)",
+            "launches": launches, "max_abs_err": err,
+            "ms": k_ms, "plain_ms": p_ms, "plain_autograd_ms": a_ms,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "library_note": "no PyTorch call computes the SSD scan or its "
+                            "gradient",
+            "shape": " ".join(f"{k}={v}" for k, v in shape.items()),
+            "kernels_per_call": counts.pop(), "kernel_device_ms": split,
+            "flops": flops, "bytes": n_bytes}
+
+
+#: the trained configurations: (phase prefix, arch name, layers or None
+#: for all, layers and sequences of the f32 check).  zamba2's f32 check
+#: takes one sequence of 4096: at two, the plain path's autograd (the
+#: shared block's f32 attention scores and six plain SSD layers under one
+#: remat group) ran out of the card's memory
+SSM_TRAIN_RUNS = (
+    ("ssm", "mamba2-2.7b", None, SSM_F32_LAYERS, TR_BATCH),
+    ("hybrid", "zamba2-7b", HY_TRAIN_LAYERS, HY_F32_LAYERS, 1))
+
+
+def ssm_train_table_rows(torch, launches, errs):
+    """The SSD backward kernels at mamba2's and zamba2's train shapes and
+    the flash backward at zamba2's (D 112, 32/32 heads), bf16, with the
+    launches of the ``Trainer`` runs."""
+    rows = [ssd_bwd_table_row(torch, "ssd_scan_bwd", SSD_TRAIN["mamba2"],
+                              launches["ssm"]["ssd_scan_bwd"],
+                              errs["ssd_bwd_mamba2_train", "bfloat16"]),
+            ssd_bwd_table_row(torch, "ssd_scan_bwd_zamba2",
+                              SSD_TRAIN["zamba2"],
+                              launches["hybrid"]["ssd_scan_bwd"],
+                              errs["ssd_bwd_zamba2_train", "bfloat16"])]
+    torch.cuda.empty_cache()
+    rows.append(flash_bwd_row(
+        torch, "flash_bwd_zamba2", (TR_BATCH, TR_SEQ, 32, 32, 112),
+        launches["hybrid"]["flash_attention_bwd"],
+        errs["flash_bwd_zamba2_train", "bfloat16"]))
     return rows
 
 
@@ -5329,6 +5781,12 @@ def main() -> int:
     args = ap.parse_args()
     t_start = time.perf_counter()
 
+    # the caching allocator grows segments in place rather than keeping
+    # fixed ones: zamba2's training step over HY_TRAIN_LAYERS then reserves
+    # what it allocates (70.6 GB against 69.7 on an H100 80GB HBM3), not
+    # 79–81 GB; it must be set before the first allocation
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
 
     if not torch.cuda.is_available():
@@ -5620,6 +6078,29 @@ def main() -> int:
             torch.cuda.empty_cache()
             phase = "train_table"
             table += train_table_rows(torch, tr_launches, errs)
+
+            phase = "ssd_bwd_parity"
+            errs.update(phase_ssd_bwd_parity(torch))
+            torch.cuda.empty_cache()
+            tr_launches = {}
+            for fam, name, layers, f32_layers, f32_batch in SSM_TRAIN_RUNS:
+                phase = f"{fam}_train_f32"
+                train_f32_check(torch, phase, ARCHS[name], f32_layers,
+                                f32_batch)
+                torch.cuda.empty_cache()
+                cfg = ARCHS[name]
+                model = Model(cfg if layers is None
+                              else cfg.scaled(num_layers=layers))
+                phase = f"{fam}_train_grads"
+                phase_family_train_grads(torch, phase, model)
+                torch.cuda.empty_cache()
+                phase = f"{fam}_train_steps"
+                tr_launches[fam] = phase_family_train_steps(torch, phase,
+                                                            model)
+                del model
+                torch.cuda.empty_cache()
+            phase = "ssm_train_table"
+            table += ssm_train_table_rows(torch, tr_launches, errs)
     except Exception as exc:  # report which phase failed, then fail
         emit({"phase": phase, "ok": False,
               "error": f"{type(exc).__name__}: {exc}"})

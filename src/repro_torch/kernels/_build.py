@@ -31,7 +31,7 @@ import torch
 CSRC = Path(__file__).resolve().with_name("csrc")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("paged_attention", "decode_attention", "flash_attention",
-           "flash_attention_bwd", "ssd_scan", "block_gather")
+           "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd", "block_gather")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -167,13 +167,15 @@ def device_stream(t: torch.Tensor) -> Tuple[int, int]:
 
 
 def refuse_grad(kernel: str, *tensors) -> None:
-    """Raise where a kernel without a backward kernel would cut the
-    autograd graph: grad mode is on and an input requires grad.  Its
-    output, written through ``ctypes``, would carry no ``grad_fn``, and
-    everything before it would get no gradient, silently."""
+    """Raise where a raw kernel call would cut the autograd graph: grad
+    mode is on and an input requires grad.  Its output, written through
+    ``ctypes``, would carry no ``grad_fn``, and everything before it would
+    get no gradient, silently.  The inference kernels (decode, paged
+    attention, the block gather) have no backward; the SSD scan's is
+    reached through ``ops.ssd_chunk_scan`` (``SSDChunkScan``)."""
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{kernel} has no backward kernel (ROADMAP.md, Queue B): call "
-            f"it under torch.no_grad(), or train through the plain "
-            f"version on the CPU")
+            f"{kernel} is not differentiable as called: call it under "
+            f"torch.no_grad(), or through kernels.ops, whose flash "
+            f"attention and SSD scan run their backward kernels")

@@ -947,35 +947,7 @@ __global__ void __launch_bounds__(kThreads)
 // ---------------------------------------------------------------------------
 constexpr int kMaxKernels = 3;  // kernels a call launches
 
-// Each kernel's device time in one call, where the caller asks for it: an
-// event recorded on the stream before the first kernel and after each,
-// read once the last has run.  ``out`` is null (no events, no wait) or
-// the caller's kMaxKernels + 1 floats: the kernels launched, then each
-// one's milliseconds in launch order.
-struct KernelTimes {
-  float* out;
-  cudaStream_t stream;
-  cudaEvent_t ev[kMaxKernels + 1];
-  int n = 0;
-
-  // after a launch (and before the first): record the next event
-  cudaError_t mark() {
-    if (out == nullptr) return cudaSuccess;
-    if (n > kMaxKernels) return cudaErrorInvalidValue;
-    const cudaError_t err = cudaEventCreate(&ev[n]);
-    if (err != cudaSuccess) return err;
-    return cudaEventRecord(ev[n++], stream);
-  }
-  cudaError_t finish(cudaError_t err) {
-    if (out == nullptr) return err;
-    if (err == cudaSuccess && n > 0) err = cudaEventSynchronize(ev[n - 1]);
-    out[0] = static_cast<float>(n > 0 ? n - 1 : 0);
-    for (int i = 0; i + 1 < n && err == cudaSuccess; ++i)
-      err = cudaEventElapsedTime(&out[1 + i], ev[i], ev[i + 1]);
-    for (int i = 0; i < n; ++i) cudaEventDestroy(ev[i]);
-    return err;
-  }
-};
+using KernelTimes = repro::KernelTimes<kMaxKernels>;
 
 template <typename T>
 cudaError_t launch_rows(const Shape& s, const void* o, const void* dout,

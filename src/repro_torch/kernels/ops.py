@@ -5,9 +5,10 @@ kernel, a CPU tensor to the plain PyTorch version.  There is no
 environment switch and no fallback: a kernel that fails to build or to
 launch raises.  ``impl="plain"`` forces the plain version on any device;
 it exists so tests and ``chip_smoke.py`` can hold the kernels against
-the plain versions on the card.  Only flash attention has a backward
-kernel; the other kernels raise when autograd would need their gradient
-(``_build.refuse_grad``).
+the plain versions on the card.  Flash attention and the SSD scan have
+backward kernels (``FlashAttention``, ``SSDChunkScan``); the inference
+kernels (decode, paged attention, the block gather) raise when autograd
+would need their gradient (``_build.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from .block_gather import block_gather_kernel
 from .decode_attention import decode_attention_kernel
 from .flash_attention import FlashAttention, flash_attention_kernel
 from .paged_attention import paged_attention_kernel
-from .ssd_scan import ssd_chunk_scan_kernel
+from .ssd_scan import SSDChunkScan, ssd_chunk_scan_kernel
 
 
 def _plain(x: torch.Tensor, impl: Optional[str]) -> bool:
@@ -83,11 +84,21 @@ def ssd_chunk_scan(x, dt, a, b, c, *, chunk: int = 128, d_skip=None,
     The plain version takes what the JAX package's oracle takes: G B/C
     groups with ``H % G == 0`` and an ``init_state``; it raises where that
     oracle asserts.  The kernel keeps the TPU kernel's limits (one group,
-    no initial state) and raises on the others."""
+    no initial state) and raises on the others.  On the card, where grad
+    mode is on and an input requires grad, the kernel runs with its
+    backward kernel (``SSDChunkScan``); the plain version keeps PyTorch's
+    own autograd."""
     chunk = min(int(chunk), x.shape[1])
     if _plain(x, impl):
         return ref.ssd_chunk_scan(x, dt, a, b, c, chunk=chunk,
                                   d_skip=d_skip, init_state=init_state)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, a, b, c, d_skip, init_state)):
+        if init_state is not None:
+            raise ValueError("the SSD backward kernel starts from a zero "
+                             "state; init_state is not supported")
+        return SSDChunkScan.apply(x, dt, a, b, c, d_skip, chunk)
     return ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=chunk, d_skip=d_skip,
                                  init_state=init_state)
 

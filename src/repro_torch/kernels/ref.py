@@ -20,6 +20,8 @@ masked rows and tiles behave identically.
                             block tables (gathers the pages first)
   * ``ssd_chunk_scan``    — the Mamba2 SSD chunked scan (dual form
                             within a chunk, state recurrence across)
+  * ``ssd_chunk_scan_bwd`` — its gradients, the formula the SSD backward
+                            kernel implements
   * ``ssd_decode_step``   — the single-token SSD recurrence
   * ``block_gather``      — whole pages out of a pool by index
 """
@@ -262,7 +264,11 @@ def ssd_chunk_scan(
     Returns (y: (B,S,H,P) in x's dtype, final_state: (B,H,P,N) f32).
     Heads are grouped over b/c (G groups; H % G == 0).  All arithmetic is
     f32.  The intra-chunk decay is ``where(tri, exp(diff), 0)``: above the
-    diagonal ``diff > 0`` can overflow, and ``inf * 0`` would be NaN.
+    diagonal ``diff > 0`` can overflow, and ``inf * 0`` would be NaN.  The
+    exponent is selected too (``exp(where(tri, diff, 0))``), which gives
+    the same values: autograd would otherwise multiply the select's zero
+    gradient by the overflowed ``exp`` and make the gradients of dt and a
+    NaN, as ``jax.vjp`` of the JAX package's oracle does.
     """
     Bb, S, H, P = x.shape
     G, N = b.shape[2], b.shape[3]
@@ -291,9 +297,9 @@ def ssd_chunk_scan(
     # decay[i,j] = exp(cum_i - cum_j) for j <= i
     diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,L,L,H)
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
-                                device=x.device))
-    decay = torch.where(tri[None, None, :, :, None], torch.exp(diff),
-                        torch.zeros((), device=x.device))
+                                device=x.device))[None, None, :, :, None]
+    zero = torch.zeros((), device=x.device)
+    decay = torch.where(tri, torch.exp(torch.where(tri, diff, zero)), zero)
     scores = torch.einsum("bclhn,bcshn->bclsh", ch, bh)   # C_i . B_j
     w = scores * decay * dtf[:, :, None, :, :]            # weight x_j by dt_j
     y_intra = torch.einsum("bclsh,bcshp->bclhp", w, xf)
@@ -325,6 +331,135 @@ def ssd_chunk_scan(
     if d_skip is not None:
         y = y + d_skip.float()[None, None, None, :, None] * xf
     return y.reshape(Bb, S, H, P).to(x.dtype), final_state
+
+
+def ssd_chunk_scan_bwd(
+    x: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,   # (B, S, H)
+    a: torch.Tensor,    # (H,)
+    b: torch.Tensor,    # (B, S, 1, N)
+    c: torch.Tensor,    # (B, S, 1, N)
+    dy: torch.Tensor,   # (B, S, H, P): the gradient of y
+    *,
+    chunk: int = 128,
+    d_skip: Optional[torch.Tensor] = None,
+    dstate: Optional[torch.Tensor] = None,  # (B, H, P, N): of the final state
+):
+    """(dx, ddt, da, db, dc, dd) of ``ssd_chunk_scan`` (one B/C group, no
+    initial state) for the cotangents ``dy`` and ``dstate`` (None: 0),
+    each in its input's shape and dtype (dd None without ``d_skip``): the
+    formula the backward kernel implements, in f32, not autograd.
+
+    Per chunk, with cum = cumsum(dt a), E_ij = e^{cum_i - cum_j} (j <= i,
+    a select: above the diagonal the exponent can overflow), CB_ij = C_i .
+    B_j, Q_ij = dy_i . x_j, u_j = e^{total - cum_j} dt_j, S_c the state
+    entering chunk c and G_c the gradient of the state leaving it (G of
+    the last chunk is ``dstate``; G_{c-1} = e^{total_c} G_c + sum_i
+    e^{cum_i} dy_i (x) C_i, walked from the last chunk back):
+
+      dx_j  = dt_j sum_i CB_ij E_ij dy_i + u_j G_c B_j + d dy_j
+      db_j  = sum_heads [dt_j sum_i E_ij Q_ij C_i + u_j G_c^T x_j]
+      dc_i  = sum_heads [sum_j E_ij dt_j Q_ij B_j + e^{cum_i} S_c^T dy_i]
+      ddt_j = sum_i W_ij + V_j + a dda_j,   W_ij = CB_ij E_ij Q_ij,
+              V_j = e^{total - cum_j} x_j^T G_c B_j
+      dcum_i = sum_j dt_j W_ij - dt_i sum_k W_ki + dy_i . y_inter_i
+               - dt_i V_i  (+ e^{total} <G_c, S_c> + sum_j dt_j V_j at the
+               chunk's last row, the gradient of ``total``)
+      dda_k = sum_{i >= k} dcum_i,  da = sum dt dda,  dd = sum dy . x
+
+    da is summed pairwise (the exponents' gaps cumsum(dt)_i - cumsum(dt)_j
+    times each pair's term), where the row and column terms cancel.
+
+    B and C are shared by the heads (G == 1), so db and dc sum over them;
+    da and dd sum over batch and sequence."""
+    Bb, S, H, P = x.shape
+    N = b.shape[3]
+    if b.shape[2] != 1:
+        raise ValueError(f"the SSD backward takes one B/C group, got "
+                         f"G={b.shape[2]}")
+    chunk = min(int(chunk), S)
+    if S % chunk:
+        raise ValueError(f"seq {S} must be a multiple of chunk {chunk}")
+    nc, L = S // chunk, chunk
+    xf = x.float().reshape(Bb, nc, L, H, P)
+    dyf = dy.float().reshape(Bb, nc, L, H, P)
+    dtf = dt.float().reshape(Bb, nc, L, H)
+    bf = b.float().reshape(Bb, nc, L, N)
+    cf = c.float().reshape(Bb, nc, L, N)
+    af = a.float()
+
+    cum = torch.cumsum(dtf * af, dim=2)                   # (B,nc,L,H)
+    total = cum[:, :, -1, :]                              # (B,nc,H)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]  # (B,nc,i,j,H)
+    tri = torch.tril(torch.ones((L, L), dtype=torch.bool, device=x.device))
+    E = torch.where(tri[None, None, :, :, None], torch.exp(diff),
+                    torch.zeros((), device=x.device))
+    ecum = torch.exp(cum)
+    to_end = torch.exp(total[:, :, None, :] - cum)
+    u = to_end * dtf
+
+    # the states entering each chunk, and the state gradients leaving it
+    states = torch.einsum("bcjn,bcjh,bcjhp->bchpn", bf, u, xf)
+    pulls = torch.einsum("bcih,bcihp,bcin->bchpn", ecum, dyf, cf)
+    decay = torch.exp(total)[:, :, :, None, None]
+    s = torch.zeros((Bb, H, P, N), dtype=torch.float32, device=x.device)
+    g = (dstate.float() if dstate is not None
+         else torch.zeros_like(s))
+    entering, leaving = [], [None] * nc
+    for ic in range(nc):
+        entering.append(s)
+        s = s * decay[:, ic] + states[:, ic]
+    for ic in reversed(range(nc)):
+        leaving[ic] = g
+        g = g * decay[:, ic] + pulls[:, ic]
+    S_in = torch.stack(entering, dim=1)                   # (B,nc,H,P,N)
+    G_out = torch.stack(leaving, dim=1)
+
+    # within the chunk
+    CB = torch.einsum("bcin,bcjn->bcij", cf, bf)[..., None]
+    Q = torch.einsum("bcihp,bcjhp->bcijh", dyf, xf)
+    dtj = dtf[:, :, None, :, :]
+    W = CB * E * Q
+    R = E * dtj * Q
+    dx = torch.einsum("bcijh,bcihp->bcjhp", CB * E * dtj, dyf)
+    db = torch.einsum("bcijh,bcin->bcjn", R, cf)
+    dc = torch.einsum("bcijh,bcjn->bcin", R, bf)
+    ddt = W.sum(dim=2)
+    dcum = (W * dtj).sum(dim=3) - dtf * ddt
+
+    # the inter-chunk term and the state update
+    dc_inter = torch.einsum("bcih,bcihp,bchpn->bcihn", ecum, dyf, S_in)
+    dc = dc + dc_inter.sum(dim=3)
+    inter = torch.einsum("bcihn,bcin->bcih", dc_inter, cf)
+    dcum = dcum + inter
+    xg = torch.einsum("bcjhp,bchpn->bcjhn", xf, G_out)
+    V = to_end * torch.einsum("bcjhn,bcjn->bcjh", xg, bf)
+    dx = dx + u[..., None] * torch.einsum("bcjn,bchpn->bcjhp", bf, G_out)
+    db = db + torch.einsum("bcjh,bcjhn->bcjn", u, xg)
+    ddt = ddt + V
+    dcum = dcum - dtf * V
+    carried = torch.exp(total) * (G_out * S_in).sum(dim=(-2, -1))
+    dcum[:, :, -1, :] += carried + (dtf * V).sum(dim=2)
+
+    dda = torch.flip(torch.cumsum(torch.flip(dcum, (2,)), dim=2), (2,))
+    ddt = ddt + af * dda
+    # da = sum_k dt_k dda_k = sum_i cdt_i dcum_i (cdt = cumsum(dt)),
+    # summed pairwise: the row and column terms of W, and V against the
+    # gradient of total, cancel to rounding in that sum
+    cdt = torch.cumsum(dtf, dim=2)
+    gap = cdt[:, :, :, None, :] - cdt[:, :, None, :, :]
+    last = cdt[:, :, -1:, :]
+    da = ((W * dtj * gap).sum(dim=(2, 3)) + (cdt * inter).sum(dim=2)
+          + last[:, :, 0] * carried
+          + (dtf * V * (last - cdt)).sum(dim=2)).sum(dim=(0, 1))
+    dd = None
+    if d_skip is not None:
+        dx = dx + d_skip.float()[:, None] * dyf
+        dd = (dyf * xf).sum(dim=(0, 1, 2, 4)).to(d_skip.dtype)
+    return (dx.reshape(Bb, S, H, P).to(x.dtype),
+            ddt.reshape(Bb, S, H).to(dt.dtype), da.to(a.dtype),
+            db.reshape(Bb, S, 1, N).to(b.dtype),
+            dc.reshape(Bb, S, 1, N).to(c.dtype), dd)
 
 
 def ssd_decode_step(

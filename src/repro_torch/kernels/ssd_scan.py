@@ -18,6 +18,11 @@ bf16 copy of it is the inter term's operand; the state update takes its
 f32 factor as two bf16 operands, so that the state keeps ~16 bits).  f32
 runs the first version's CUDA-core body, kept for the correctness checks
 held to 1e-4 (bf16 operands would miss them).  Times are in PERF.md.
+Under autograd (``SSDChunkScan``) the backward is
+:func:`ssd_chunk_scan_bwd_kernel` (``csrc/ssd_scan_bwd.cu``): the states
+and state gradients at each chunk's edge, each chunk's gradients with B's
+and C's per head, and their sums in a fixed order, on CUDA cores in f32
+for both dtypes (P 32 or 64, N 16, 32, 64 or 128).
 bf16 takes any head dim P % 8 == 0 up to 64 and state dim N % 8 == 0 up
 to 128 (its tiles are laid out for 64 and 64 or 128 columns, zero past P
 and N); f32 takes its compiled forms, P 32 or 64 and N 16, 32, 64 or 128.
@@ -26,6 +31,7 @@ and N); f32 takes its compiled forms, P 32 or 64 and N 16, 32, 64 or 128.
 ``ops.ssd_chunk_scan`` sends CPU tensors to it and CUDA tensors to
 :func:`ssd_chunk_scan_kernel`.  The plain version takes more than the
 kernel (B/C groups, an initial state), as the JAX package's oracle does.
+:func:`ssd_chunk_scan_bwd_plain` is the backward's plain version.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ import torch
 
 from . import _build
 from .ref import ssd_chunk_scan as ssd_chunk_scan_plain
+from .ref import ssd_chunk_scan_bwd as ssd_chunk_scan_bwd_plain
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # f32: the compiled forms of the CUDA-core body
@@ -48,6 +55,10 @@ MAX_CHUNK = 128
 
 _launch = _build.Entry("ssd_scan", "repro_ssd_chunk_scan", "17q")
 _plan = _build.Entry("ssd_scan", "repro_ssd_plan", "6q")
+_launch_bwd = _build.Entry("ssd_scan_bwd", "repro_ssd_chunk_scan_bwd", "26q")
+#: kernels a backward call launches: the carry across chunks, the chunks'
+#: gradients, the sums over heads of dB and dC, the sums of da and dd
+BWD_KERNELS = 4
 #: the keys of :func:`bf16_plan`, in the order the C entry writes them
 PLAN_FIELDS = ("blocks", "threads", "stages", "smem_bytes", "registers",
                "local_bytes", "max_threads")
@@ -135,6 +146,129 @@ def ssd_chunk_scan_kernel(
 ssd_chunk_scan_kernel.launches = 0
 
 
+def _bwd_workspace(B: int, S: int, H: int, P: int, N: int,
+                   chunk: int) -> int:
+    """f32 elements of the backward's workspace (``workspace_floats`` in
+    ``csrc/ssd_scan_bwd.cu``): the states entering and the state gradients
+    leaving each chunk, (B, S / chunk, H, P, N) each; dB's and dC's per-head
+    partials, (B, S, H, N) each; da's and dd's per-chunk partials, (B, S /
+    chunk, H) each."""
+    nc = S // chunk
+    return 2 * B * nc * H * P * N + 2 * B * S * H * N + 2 * B * nc * H
+
+
+def ssd_chunk_scan_bwd_kernel(
+    x: torch.Tensor,    # (B, S, H, P)
+    dt: torch.Tensor,   # (B, S, H)
+    a: torch.Tensor,    # (H,)
+    b: torch.Tensor,    # (B, S, 1, N)
+    c: torch.Tensor,    # (B, S, 1, N)
+    dy: torch.Tensor,   # (B, S, H, P)
+    *,
+    chunk: int = 128,
+    d_skip: Optional[torch.Tensor] = None,
+    dstate: Optional[torch.Tensor] = None,  # (B, H, P, N)
+    timing: Optional[torch.Tensor] = None,
+):
+    """Launch the backward kernels on ``x``'s stream: (dx, ddt, da, db, dc,
+    dd) of ``ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=chunk,
+    d_skip=d_skip)`` for the cotangents ``dy`` of y and ``dstate`` of the
+    final state (None: 0), each in its input's shape and dtype (dd None
+    without ``d_skip``).  Four kernels, no atomics: the same bits on every
+    run.  ``timing``, a CPU f32 tensor of ``BWD_KERNELS + 1``, asks for
+    each kernel's device time: the call writes the number of kernels it
+    launched, then each one's milliseconds in launch order, and waits for
+    them."""
+    if not x.is_cuda:
+        raise ValueError("ssd_chunk_scan_bwd_kernel takes CUDA tensors")
+    chunk = _check_args(x, b, c, chunk=chunk, init_state=None)
+    if x.dtype not in _DTYPES:
+        raise TypeError(f"unsupported dtype {x.dtype}")
+    if b.dtype != x.dtype or c.dtype != x.dtype:
+        raise TypeError("x, b and c must share one dtype")
+    B, S, H, P = x.shape
+    N = b.shape[3]
+    if P not in _HEAD_DIMS or N not in _STATE_DIMS or chunk > MAX_CHUNK:
+        raise ValueError(f"P={P} N={N} chunk={chunk}: the backward takes P "
+                         f"in {_HEAD_DIMS}, N in {_STATE_DIMS}, chunk <= "
+                         f"{MAX_CHUNK}")
+    if (dt.shape != (B, S, H) or a.shape != (H,) or b.shape[:2] != (B, S)
+            or dy.shape != x.shape
+            or (d_skip is not None and d_skip.shape != (H,))
+            or (dstate is not None and dstate.shape != (B, H, P, N))):
+        raise ValueError(f"dt {tuple(dt.shape)}, a {tuple(a.shape)}, "
+                         f"b {tuple(b.shape)}, dy {tuple(dy.shape)} for x "
+                         f"{tuple(x.shape)}")
+    if timing is not None and (
+            timing.device.type != "cpu" or timing.dtype != torch.float32
+            or not timing.is_contiguous()
+            or timing.numel() != BWD_KERNELS + 1):
+        raise ValueError(f"timing must be a contiguous CPU f32 tensor of "
+                         f"{BWD_KERNELS + 1}")
+    device, stream = _build.device_stream(x)
+    operands = [dt, a, b, c, dy] + [t for t in (d_skip, dstate)
+                                    if t is not None]
+    if any(t.get_device() != device for t in operands):
+        raise ValueError("all operands must be on x's device")
+    d = (d_skip if d_skip is not None
+         else torch.zeros((H,), dtype=torch.float32, device=x.device))
+    x, b, c = (t.contiguous() for t in (x, b, c))
+    dy = dy.to(x.dtype).contiguous()
+    dtf, af, d = (t.float().contiguous() for t in (dt, a, d))
+    ds = dstate.float().contiguous() if dstate is not None else None
+    dx = torch.empty_like(x)
+    db, dc = torch.empty_like(b), torch.empty_like(c)
+    ddt = torch.empty((B, S, H), dtype=torch.float32, device=x.device)
+    da = torch.empty((H,), dtype=torch.float32, device=x.device)
+    dd = torch.empty((H,), dtype=torch.float32, device=x.device)
+    n_work = _bwd_workspace(B, S, H, P, N, chunk)
+    work = torch.empty((n_work,), dtype=torch.float32, device=x.device)
+    _launch_bwd(device, _DTYPES[x.dtype], x.data_ptr(), dtf.data_ptr(),
+                af.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
+                dy.data_ptr(), 0 if ds is None else ds.data_ptr(),
+                dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
+                dc.data_ptr(), dd.data_ptr(), work.data_ptr(), n_work, B, S,
+                H, P, N, chunk, 0 if timing is None else timing.data_ptr(),
+                stream)
+    ssd_chunk_scan_bwd_kernel.launches += 1
+    return (dx, ddt.to(dt.dtype), da.to(a.dtype), db, dc,
+            dd.to(d_skip.dtype) if d_skip is not None else None)
+
+
+#: wrapper calls that launched the backward kernels since the count was
+#: last set to 0
+ssd_chunk_scan_bwd_kernel.launches = 0
+
+
+class SSDChunkScan(torch.autograd.Function):
+    """The SSD kernel under autograd: the forward is
+    :func:`ssd_chunk_scan_kernel`, the backward
+    :func:`ssd_chunk_scan_bwd_kernel`, which recomputes the chunks' states
+    from the inputs.  Saves x, dt, a, b, c and d_skip through
+    ``save_for_backward`` (so that ``torch.utils.checkpoint`` can drop and
+    recompute them); a missing gradient of y or of the final state is
+    0."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a, b, c, d_skip, chunk: int):
+        y, state = ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=chunk,
+                                         d_skip=d_skip)
+        ctx.save_for_backward(x, dt, a, b, c, d_skip)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return y, state
+
+    @staticmethod
+    def backward(ctx, dy, dstate):
+        x, dt, a, b, c, d_skip = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, ddt, da, db, dc, dd = ssd_chunk_scan_bwd_kernel(
+            x, dt, a, b, c, dy, chunk=ctx.chunk, d_skip=d_skip,
+            dstate=dstate)
+        return dx, ddt, da, db, dc, dd, None
+
+
 def bf16_plan(B: int, H: int, P: int, N: int, device: int = 0) -> dict:
     """The bf16 kernel's launch plan at (B, H, P, N), read from the built
     library: blocks, threads a block, ring stages, dynamic shared memory,
@@ -146,4 +280,6 @@ def bf16_plan(B: int, H: int, P: int, N: int, device: int = 0) -> dict:
     return dict(zip(PLAN_FIELDS, out.tolist()))
 
 
-__all__ = ["bf16_plan", "ssd_chunk_scan_kernel", "ssd_chunk_scan_plain"]
+__all__ = ["BWD_KERNELS", "SSDChunkScan", "bf16_plan",
+           "ssd_chunk_scan_bwd_kernel", "ssd_chunk_scan_bwd_plain",
+           "ssd_chunk_scan_kernel", "ssd_chunk_scan_plain"]

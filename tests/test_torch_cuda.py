@@ -55,7 +55,9 @@ from repro_torch.kernels import paged_attention as paged_module
 from repro_torch.kernels.paged_attention import PagedPlan
 from repro_torch.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels.paged_attention import plan_splits as paged_plan
+from repro_torch.kernels import ssd_scan as ssd_module
 from repro_torch.kernels.ssd_scan import bf16_plan
+from repro_torch.kernels.ssd_scan import ssd_chunk_scan_bwd_kernel
 from repro_torch.kernels.ssd_scan import ssd_chunk_scan_kernel
 
 # the test workers share the machine's cores: one intra-op thread each
@@ -1489,3 +1491,154 @@ def test_flash_two_warpgroups_with_an_empty_second_match_plain(card, window):
     got = flash_attention_kernel(q, k, v, causal=True, window=window)
     want = ref.flash_attention(q, k, v, causal=True, window=window)
     _close(got, want, torch.bfloat16)
+
+
+# ---------------------------------------------------------------------------
+# the SSD scan's backward kernels
+# ---------------------------------------------------------------------------
+#: each gradient's largest error over its largest magnitude against the
+#: plain backward: f32 sums in other orders (measured <= 3e-6); bf16 stores
+#: dx, dB and dC in bf16, half an ulp 2**-9 of a value (measured <= 2.2e-3)
+_SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+#: (B, S, H, P, N, chunk, steep): the smoke form, mamba2's and zamba2's
+#: widths, chunks of 127 over two sequences, one chunk of 96, steep decay
+_SSD_BWD_SHAPES = [
+    (1, 128, 4, 32, 16, 64, False), (2, 256, 8, 64, 32, 128, False),
+    (2, 512, 80, 64, 128, 128, False), (2, 256, 112, 64, 64, 128, False),
+    (2, 254, 80, 64, 128, 127, False), (1, 96, 6, 32, 16, 128, False),
+    (1, 128, 3, 32, 128, 32, False), (2, 256, 80, 64, 128, 128, True),
+]
+
+
+def _ssd_bwd_inputs(card, dtype, B, S, H, P, N, steep):
+    x, dt, a, b, c, d = _ssd_inputs(card, dtype, B, S, H, P, N,
+                                    B * S + H + N, steep)
+    g = torch.Generator(device=card).manual_seed(S + P)
+    dy = torch.randn(x.shape, generator=g, device=card).to(dtype)
+    ds = torch.randn((B, H, P, N), generator=g, device=card)
+    return x, dt, a, b, c, d, dy, ds
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", _SSD_BWD_SHAPES, ids=lambda s: "x".join(
+    str(int(x)) for x in s))
+def test_ssd_bwd_kernel_matches_plain(card, dtype, shape):
+    B, S, H, P, N, chunk, steep = shape
+    x, dt, a, b, c, d, dy, ds = _ssd_bwd_inputs(card, dtype, B, S, H, P, N,
+                                                steep)
+    kw = dict(chunk=chunk, d_skip=d, dstate=ds)
+    got = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, **kw)
+    want = ref.ssd_chunk_scan_bwd(x, dt, a, b, c, dy, **kw)
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dd"), got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype, name
+        assert bool(torch.isfinite(g).all()), name
+        err = float((g.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err <= _SSD_BWD_TOL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_bwd_kernel_is_deterministic(card, dtype):
+    x, dt, a, b, c, d, dy, ds = _ssd_bwd_inputs(card, dtype, 2, 512, 80, 64,
+                                                128, False)
+    runs = [ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, chunk=128,
+                                      d_skip=d, dstate=ds)
+            for _ in range(2)]
+    for a_, b_ in zip(*runs):
+        assert torch.equal(a_, b_)
+
+
+def test_ssd_bwd_kernel_times_its_kernels(card):
+    """With ``timing`` the call reports its four kernels, each with a
+    positive device time, and its gradients are those of a call
+    without it; without ``d_skip`` there is no dd."""
+    x, dt, a, b, c, d, dy, _ = _ssd_bwd_inputs(card, torch.bfloat16, 2, 256,
+                                               8, 64, 32, False)
+    times = torch.zeros(ssd_module.BWD_KERNELS + 1)
+    got = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, timing=times)
+    want = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy)
+    assert times[0].item() == 4 and bool((times[1:] > 0).all())
+    assert got[5] is None and want[5] is None
+    for a_, b_ in zip(got[:5], want[:5]):
+        assert torch.equal(a_, b_)
+
+
+def test_ssd_ops_under_grad_runs_both_kernels(card):
+    """``ops.ssd_chunk_scan`` on CUDA tensors that require grad: the
+    forward kernel, then the backward kernel, and gradients within the
+    f32 tolerance of autograd of the plain scan (which is finite: the
+    plain scan selects the exponent before exp)."""
+    x, dt, a, b, c, d, dy, ds = _ssd_bwd_inputs(card, torch.float32, 2, 256,
+                                                8, 64, 32, False)
+    fwd, bwd = (ssd_chunk_scan_kernel.launches,
+                ssd_chunk_scan_bwd_kernel.launches)
+    grads = {}
+    for impl in (None, "plain"):
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (x, dt, a, b, c, d)]
+        y, state = ops.ssd_chunk_scan(*leaves[:5], chunk=128,
+                                      d_skip=leaves[5], impl=impl)
+        assert y.grad_fn is not None
+        grads[impl] = torch.autograd.grad((y, state), leaves, (dy, ds))
+    assert ssd_chunk_scan_kernel.launches == fwd + 1
+    assert ssd_chunk_scan_bwd_kernel.launches == bwd + 1
+    # da: autograd's f32 sum of dt * dda cancels; it is held to the plain
+    # backward in the test above
+    for name, g, w in zip(("dx", "ddt", "da", "db", "dc", "dd"),
+                          grads[None], grads["plain"]):
+        assert bool(torch.isfinite(w).all()), name
+        if name != "da":
+            err = float((g - w).abs().max() / w.abs().max())
+            assert err <= _SSD_BWD_TOL[torch.float32], (name, err)
+
+
+#: (arch, layers, smoke width): mamba2 and zamba2 at smoke width (f32, P
+#: 32, N 16; zamba2 two shared-block applications and a trailing layer)
+#: and at full width in bf16 (zamba2 one group, the shared block and a
+#: trailing layer)
+_REMAT_MODELS = [("mamba2-2.7b", 2, True), ("zamba2-7b", 5, True),
+                 ("mamba2-2.7b", 2, False), ("zamba2-7b", 7, False)]
+
+
+@pytest.mark.parametrize("arch,layers,smoke", _REMAT_MODELS,
+                         ids=lambda x: str(x))
+def test_ssd_backward_under_remat_policies(card, arch, layers, smoke):
+    """``loss_and_grads`` through ``SSDChunkScan`` under remat "none",
+    "full" and "dots": the same loss and gradients, bit for bit (the
+    kernels are deterministic and each recompute reruns the forward
+    kernel), and the SSD launches each policy implies: "dots" recomputes
+    the scan (a ctypes launch its dispatcher-level policy cannot save)."""
+    from repro_torch.configs import ARCHS, ShapeConfig, smoke_config
+    from repro_torch.launch import loss_and_grads
+    from repro_torch.models import Model
+
+    cfg = ARCHS[arch]
+    cfg = (smoke_config(cfg) if smoke else cfg).scaled(num_layers=layers)
+    model = Model(cfg, device=card)
+    params = model.init_params(seed=0)
+    batch = model.synthetic_batch(ShapeConfig("t", "train", 256, 2))
+    runs = {}
+    for remat in ("none", "full", "dots"):
+        fwd, bwd = (ssd_chunk_scan_kernel.launches,
+                    ssd_chunk_scan_bwd_kernel.launches)
+        loss, _, grads = loss_and_grads(model, params, batch, remat=remat)
+        torch.cuda.synchronize()
+        runs[remat] = (loss, grads)
+        assert ssd_chunk_scan_bwd_kernel.launches - bwd == layers
+        assert ssd_chunk_scan_kernel.launches - fwd == (
+            layers if remat == "none" else 2 * layers)
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                yield from flat(v, f"{prefix}/{k}")
+            else:
+                yield f"{prefix}/{k}", v
+
+    base = dict(flat(runs["none"][1]))
+    assert all(bool(torch.isfinite(g).all()) for g in base.values())
+    for remat in ("full", "dots"):
+        assert torch.equal(runs[remat][0], runs["none"][0]), remat
+        other = dict(flat(runs[remat][1]))
+        for k, g in base.items():
+            assert torch.equal(other[k], g), (remat, k)

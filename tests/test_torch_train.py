@@ -224,6 +224,61 @@ def test_adamw_update_matches_jax():
                                            atol=1e-7)
 
 
+def test_adamw_update_in_pieces_is_bit_identical(monkeypatch):
+    """A leaf of more than ``PIECE`` elements is updated in pieces (here
+    pieces of 7 elements): the same bits as the whole leaf at once, over 3
+    steps with the clip active, and within 1e-6 of the JAX update."""
+    from repro_torch.training import optimizer
+
+    monkeypatch.setattr(optimizer, "PIECE", 7)
+    rs = np.random.RandomState(4)
+    shapes = {"layers": {"w": (3, 6, 5), "a": (3, 4)}, "b": (5,)}
+    params = jax.tree.map(lambda s: rs.randn(*s).astype(np.float32), shapes,
+                          is_leaf=lambda x: isinstance(x, tuple))
+    cfg = AdamWConfig(warmup_steps=10, grad_clip=0.5)
+    zeros = jax.tree.map(np.zeros_like, params)
+    tparams = params_from_numpy(params, "cpu")
+    tstate = {"mu": params_from_numpy(zeros, "cpu"),
+              "nu": params_from_numpy(zeros, "cpu"),
+              "step": torch.zeros((), dtype=torch.int32)}
+    # the whole-leaf update, as the step wrote it before the pieces
+    ref = {k: v.clone() for k, v in _flat(tparams).items()}
+    mu = {k: torch.zeros_like(v) for k, v in ref.items()}
+    nu = {k: torch.zeros_like(v) for k, v in ref.items()}
+    jstate = {"mu": zeros, "nu": zeros, "step": jnp.int32(0)}
+    jparams = params
+    for step in range(3):
+        grads = jax.tree.map(
+            lambda p: (rs.randn(*p.shape) * 2).astype(np.float32), params)
+        tgrads = params_from_numpy(grads, "cpu")
+        tparams, tstate, tnorm = adamw_update(cfg, tgrads, tstate, tparams)
+        jparams, jstate, _ = jax_adamw_update(
+            JaxAdamW(warmup_steps=10, grad_clip=0.5), grads, jstate, jparams)
+        stepf = torch.tensor(step + 1, dtype=torch.int32).float()
+        lr = cfg.lr * torch.clamp(stepf / cfg.warmup_steps, max=1.0)
+        flat_g = _flat(tgrads)
+        sq = sum(torch.sum(torch.square(flat_g[k].float()))
+                 for k in sorted(flat_g))
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(torch.sqrt(sq),
+                                                        min=1e-9), max=1.0)
+        bc1 = 1 - torch.tensor(cfg.b1) ** stepf
+        bc2 = 1 - torch.tensor(cfg.b2) ** stepf
+        for k in ref:
+            gf = flat_g[k].float() * scale
+            mu[k].mul_(cfg.b1).add_((1 - cfg.b1) * gf)
+            nu[k].mul_(cfg.b2).add_((1 - cfg.b2) * torch.square(gf))
+            ref[k] = ref[k] - lr * ((mu[k] / bc1) / (
+                torch.sqrt(nu[k] / bc2) + cfg.eps) + cfg.weight_decay * ref[k])
+        got = _flat(tparams)
+        jf = _flat(jax.tree.map(np.asarray, jparams))
+        for k in ref:
+            assert torch.equal(got[k], ref[k]), k
+            assert torch.equal(_flat(tstate["mu"])[k], mu[k]), k
+            assert torch.equal(_flat(tstate["nu"])[k], nu[k]), k
+            np.testing.assert_allclose(got[k].numpy(), jf[k], rtol=1e-6,
+                                       atol=1e-7)
+
+
 def test_train_step_matches_jax_on_debug_mesh():
     jm, np_params, tm = _models("qwen2-0.5b", {})
     fn, _, _ = jax_build_train_step(jm, JaxShape("t", "train", S, B),
