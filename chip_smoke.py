@@ -436,9 +436,23 @@ def phase_build():
     bf16 = [n for n in hgmma if "ssd_wgmma_kernel" in n]
     check(len(bf16) == 2 and all(hgmma[n] > 0 for n in bf16),
           f"the bf16 SSD kernels run no warpgroup MMA: {hgmma}")
+    # the SSD backward's bf16 products: states, col and row kernels (N <= 64
+    # and N 128 forms) run wgmma and spill nothing
+    from repro_torch.kernels.ssd_scan import bwd_plan
+
+    hgmma_bwd = hgmma_counts(_build.library_path("ssd_scan_bwd"))
+    wgmma_bwd = [n for n in hgmma_bwd if any(
+        k in n for k in ("states_kernel", "col_kernel", "row_kernel"))]
+    check(len(wgmma_bwd) == 6 and all(hgmma_bwd[n] > 0 for n in wgmma_bwd),
+          f"the bf16 SSD backward runs no warpgroup MMA: {hgmma_bwd}")
+    bwd_plans = {f"N{n}": bwd_plan(n) for n in (64, 128)}
+    check(all(v == 0 for p in bwd_plans.values() for k, v in p.items()
+              if k.endswith("local_bytes")),
+          f"the bf16 SSD backward spills: {bwd_plans}")
     emit({"phase": "build", "ok": True, "seconds": seconds,
           "wall_s": time.perf_counter() - t0, "ptxas": report,
-          "ssd_scan_hgmma": hgmma})
+          "ssd_scan_hgmma": hgmma, "ssd_scan_bwd_hgmma": hgmma_bwd,
+          "ssd_scan_bwd_plans": bwd_plans})
 
 
 def phase_parity(torch):
@@ -5464,9 +5478,11 @@ def phase_ssd_bwd_parity(torch):
     bit; and three planted faults: the chunks run as separate sequences
     (no state and no state gradient carried across chunks) and the skip
     term dropped (each must miss by FAULT_MARGIN tolerances), and the
-    heads summed in reverse order (dB's and dC's bits must differ, which
-    the two-run comparison would catch)."""
+    heads summed in reverse order, in f32 and in bf16 (the bf16 route's
+    head groups: dB's and dC's bits must differ, which the two-run
+    comparison would catch, and each head's dx and ddt must not)."""
     from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import plan_bwd_groups
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan_bwd_kernel
 
     rows, errs = [], {}
@@ -5534,27 +5550,37 @@ def phase_ssd_bwd_parity(torch):
         check(not f["ok"] and f["worst_rel"] >= FAULT_MARGIN * tol,
               f"planted fault {fname} passed the check: {f}")
     # the heads in reverse order: each head's gradients are the same
-    # numbers, dB and dC sum the heads' partials the other way round
-    x, dt, a, b, c, d, dy, ds = ssd_bwd_inputs(torch, torch.float32, B, S,
-                                               H, P, N)
+    # numbers, dB and dC sum the heads the other way round (f32: the
+    # per-head partials; bf16: each head group's heads in f32 registers,
+    # then the groups)
     rev = torch.arange(H - 1, -1, -1, device="cuda")
-    base = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, chunk=L, d_skip=d,
-                                     dstate=ds)
-    flipped = ssd_chunk_scan_bwd_kernel(
-        x[:, :, rev], dt[:, :, rev], a[rev], b, c, dy[:, :, rev], chunk=L,
-        d_skip=d[rev], dstate=ds[:, rev])
-    differ = {n: int((base[i] != flipped[i]).sum()) for i, n in
-              ((3, "db"), (4, "dc"))}
-    same_heads = torch.equal(base[0], flipped[0][:, :, rev])
-    faults["heads_reversed"] = {
-        "elements_differing": differ, "dx_identical": same_heads,
-        "db_rel": max_err(flipped[3], base[3])
-        / float(base[3].abs().max())}
-    check(all(v > 0 for v in differ.values()) and same_heads,
-          f"planted fault heads_reversed: {faults['heads_reversed']}")
+    for dname in ("float32", "bfloat16"):
+        x, dt, a, b, c, d, dy, ds = ssd_bwd_inputs(
+            torch, getattr(torch, dname), B, S, H, P, N)
+        base = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, chunk=L,
+                                         d_skip=d, dstate=ds)
+        flipped = ssd_chunk_scan_bwd_kernel(
+            x[:, :, rev], dt[:, :, rev], a[rev], b, c, dy[:, :, rev],
+            chunk=L, d_skip=d[rev], dstate=ds[:, rev])
+        differ = {n: int((base[i] != flipped[i]).sum()) for i, n in
+                  ((3, "db"), (4, "dc"))}
+        same_heads = (torch.equal(base[0], flipped[0][:, :, rev])
+                      and torch.equal(base[1], flipped[1][:, :, rev]))
+        fault = {"elements_differing": differ,
+                 "dx_ddt_identical": same_heads,
+                 "db_rel": max_err(flipped[3], base[3])
+                 / float(base[3].abs().max())}
+        faults["heads_reversed_" + dname] = fault
+        check(all(v > 0 for v in differ.values()) and same_heads,
+              f"planted fault heads_reversed {dname}: {fault}")
+    # the bf16 route's head groups at the train shapes (planned from shapes)
+    groups = {k: plan_bwd_groups(sh["B"], sh["S"], sh["H"],
+                                 sh["chunk"])._asdict()
+              for k, sh in SSD_TRAIN.items()}
     emit({"phase": "ssd_bwd_parity", "ok": True, "tol": SSD_BWD_TOL,
           "cases": rows, "no_final_state_cotangent": no_state,
-          "planted_faults_caught": faults, "fault_margin": FAULT_MARGIN})
+          "planted_faults_caught": faults, "fault_margin": FAULT_MARGIN,
+          "head_groups": groups})
     return errs
 
 
@@ -5678,7 +5704,7 @@ def ssd_bwd_table_row(torch, name, shape, launches, err):
     backward and autograd-of-the-plain-scan times beside the bound, and
     each kernel's device time."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.ssd_scan import BWD_KERNELS
+    from repro_torch.kernels.ssd_scan import BWD_KERNEL_NAMES, BWD_KERNELS
     from repro_torch.kernels.ssd_scan import ssd_chunk_scan_bwd_kernel
 
     saved = ssd_chunk_scan_bwd_kernel.launches
@@ -5699,8 +5725,7 @@ def ssd_bwd_table_row(torch, name, shape, launches, err):
                                   timing=times)
         calls.append(times.tolist())
     counts = {int(ct[0]) for ct in calls}
-    names = ("carry_kernel", "chunk_kernel", "reduce_bc_kernel",
-             "reduce_heads_kernel")
+    names = BWD_KERNEL_NAMES[torch.bfloat16]
     check(counts == {len(names)}, f"SSD backward kernels a call: {counts}")
     split = {n: statistics.median(ct[1 + i] for ct in calls)
              for i, n in enumerate(names)}

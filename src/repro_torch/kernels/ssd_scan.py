@@ -19,10 +19,22 @@ f32 factor as two bf16 operands, so that the state keeps ~16 bits).  f32
 runs the first version's CUDA-core body, kept for the correctness checks
 held to 1e-4 (bf16 operands would miss them).  Times are in PERF.md.
 Under autograd (``SSDChunkScan``) the backward is
-:func:`ssd_chunk_scan_bwd_kernel` (``csrc/ssd_scan_bwd.cu``): the states
-and state gradients at each chunk's edge, each chunk's gradients with B's
-and C's per head, and their sums in a fixed order, on CUDA cores in f32
-for both dtypes (P 32 or 64, N 16, 32, 64 or 128).
+:func:`ssd_chunk_scan_bwd_kernel` (``csrc/ssd_scan_bwd.cu``), P 32 or 64
+and N 16, 32, 64 or 128.  bf16 runs five kernels on the tensor cores, fed
+by TMA: each chunk's local state and state gradient in parallel over the
+chunks, a short f32 carry of both across the chunks (and e^{total} <G,
+S>, against S's bf16 copy), then the column products (dx, dB, rows j)
+and the row products (dC, rows i, then ddt, da and dd from both passes'
+row sums), each block a
+chunk of one sequence and a group of heads (:func:`plan_bwd_groups`),
+with C . B^T formed once a block and dB / dC summed over the group's
+heads in f32 registers; last the groups' and chunks' partials in a fixed
+order.  Operands are bf16, accumulators and the carried states f32; the
+scores' weighted tiles are rounded only as operands, and the row sums
+for ddt and da come from the f32 fragments.  What bounds it, the bytes
+of the chunks' states beside the products, is in the source's header.
+f32 runs the first version's four CUDA-core kernels, kept for the checks
+held to 1e-4.
 bf16 takes any head dim P % 8 == 0 up to 64 and state dim N % 8 == 0 up
 to 128 (its tiles are laid out for 64 and 64 or 128 columns, zero past P
 and N); f32 takes its compiled forms, P 32 or 64 and N 16, 32, 64 or 128.
@@ -36,7 +48,7 @@ kernel (B/C groups, an initial state), as the JAX package's oracle does.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -55,10 +67,27 @@ MAX_CHUNK = 128
 
 _launch = _build.Entry("ssd_scan", "repro_ssd_chunk_scan", "17q")
 _plan = _build.Entry("ssd_scan", "repro_ssd_plan", "6q")
-_launch_bwd = _build.Entry("ssd_scan_bwd", "repro_ssd_chunk_scan_bwd", "26q")
-#: kernels a backward call launches: the carry across chunks, the chunks'
-#: gradients, the sums over heads of dB and dC, the sums of da and dd
-BWD_KERNELS = 4
+_launch_bwd = _build.Entry("ssd_scan_bwd", "repro_ssd_chunk_scan_bwd", "27q")
+_bwd_plan = _build.Entry("ssd_scan_bwd", "repro_ssd_bwd_plan", "3q")
+#: the kernels a backward call launches, in order, by dtype.  bf16: each
+#: chunk's local state and state gradient, the carry across chunks, the
+#: column products (dx, dB), the row products and the rows (dC, ddt, da,
+#: dd), the sums over head groups and chunks.  f32 (the first version):
+#: the carry, the chunks' gradients, the sums over heads of dB and dC, the
+#: sums of da and dd
+BWD_KERNEL_NAMES = {
+    torch.bfloat16: ("states_kernel", "pass_kernel", "col_kernel",
+                     "row_kernel", "sums_kernel"),
+    torch.float32: ("carry_kernel", "chunk_kernel", "reduce_bc_kernel",
+                    "reduce_heads_kernel"),
+}
+#: the most kernels a backward call launches (the length of ``timing``
+#: is one more)
+BWD_KERNELS = max(len(v) for v in BWD_KERNEL_NAMES.values())
+#: the keys of :func:`bwd_plan`, in the order the C entry writes them
+BWD_PLAN_FIELDS = ("states_registers", "states_local_bytes",
+                   "col_registers", "col_local_bytes", "row_registers",
+                   "row_local_bytes", "smem_bytes")
 #: the keys of :func:`bf16_plan`, in the order the C entry writes them
 PLAN_FIELDS = ("blocks", "threads", "stages", "smem_bytes", "registers",
                "local_bytes", "max_threads")
@@ -146,15 +175,49 @@ def ssd_chunk_scan_kernel(
 ssd_chunk_scan_kernel.launches = 0
 
 
-def _bwd_workspace(B: int, S: int, H: int, P: int, N: int,
-                   chunk: int) -> int:
+#: streaming multiprocessors of an H100 SXM: the bf16 backward's head
+#: groups aim at two blocks for each
+_SMS = 132
+
+
+class BwdGroups(NamedTuple):
+    """The bf16 backward's head groups: a block of its wgmma kernels takes
+    one chunk of one sequence and the heads ``g * heads_per_group`` up to
+    ``min(H, (g + 1) * heads_per_group)`` of group g, in order."""
+    heads_per_group: int
+    groups: int
+    blocks: int
+
+
+def plan_bwd_groups(B: int, S: int, H: int, chunk: int) -> BwdGroups:
+    """Head groups from shapes alone: the group count nearest to two
+    blocks an SM over the (chunk, sequence) pairs (the kernels hold one
+    block an SM), at most one group a head; the last group takes what
+    is left of H."""
+    pairs = (S // chunk) * B
+    want = max(1, min(H, int(2 * _SMS / pairs + 0.5)))
+    hpg = -(-H // want)
+    groups = -(-H // hpg)
+    return BwdGroups(hpg, groups, groups * pairs)
+
+
+def _bwd_workspace(B: int, S: int, H: int, P: int, N: int, chunk: int,
+                   dtype: torch.dtype, groups: int) -> int:
     """f32 elements of the backward's workspace (``workspace_floats`` in
-    ``csrc/ssd_scan_bwd.cu``): the states entering and the state gradients
-    leaving each chunk, (B, S / chunk, H, P, N) each; dB's and dC's per-head
-    partials, (B, S, H, N) each; da's and dd's per-chunk partials, (B, S /
-    chunk, H) each."""
+    ``csrc/ssd_scan_bwd.cu``).  bf16: each chunk's local state and state
+    gradient, (B, S / chunk, H, P, N) f32 each; the carried states as
+    bf16 operands, half as many floats again; the chunks' totals, da's and
+    dd's partials, (B, S / chunk, H) each, and the carried term in up to 4
+    slices; the column pass's sum_i W_ij and V_j and the rows' ddt, (B, S
+    / chunk, H, chunk) each; dB's and dC's partials a head group, (B, S,
+    groups, N) each.  f32 (the first version): the states and state
+    gradients, (B, S / chunk, H, P, N) each; dB's and dC's per-head
+    partials, (B, S, H, N) each; da's and dd's partials."""
     nc = S // chunk
-    return 2 * B * nc * H * P * N + 2 * B * S * H * N + 2 * B * nc * H
+    if dtype == torch.float32:
+        return 2 * B * nc * H * P * N + 2 * B * S * H * N + 2 * B * nc * H
+    return (3 * B * nc * H * P * N + 7 * B * nc * H + 3 * B * S * H
+            + 2 * B * S * groups * N)
 
 
 def ssd_chunk_scan_bwd_kernel(
@@ -174,11 +237,11 @@ def ssd_chunk_scan_bwd_kernel(
     dd) of ``ssd_chunk_scan_kernel(x, dt, a, b, c, chunk=chunk,
     d_skip=d_skip)`` for the cotangents ``dy`` of y and ``dstate`` of the
     final state (None: 0), each in its input's shape and dtype (dd None
-    without ``d_skip``).  Four kernels, no atomics: the same bits on every
-    run.  ``timing``, a CPU f32 tensor of ``BWD_KERNELS + 1``, asks for
-    each kernel's device time: the call writes the number of kernels it
-    launched, then each one's milliseconds in launch order, and waits for
-    them."""
+    without ``d_skip``).  The kernels of ``BWD_KERNEL_NAMES[x.dtype]``, no
+    atomics: the same bits on every run.  ``timing``, a CPU f32 tensor of
+    ``BWD_KERNELS + 1``, asks for each kernel's device time: the call
+    writes the number of kernels it launched, then each one's
+    milliseconds in launch order, and waits for them."""
     if not x.is_cuda:
         raise ValueError("ssd_chunk_scan_bwd_kernel takes CUDA tensors")
     chunk = _check_args(x, b, c, chunk=chunk, init_state=None)
@@ -212,24 +275,31 @@ def ssd_chunk_scan_bwd_kernel(
         raise ValueError("all operands must be on x's device")
     d = (d_skip if d_skip is not None
          else torch.zeros((H,), dtype=torch.float32, device=x.device))
+    # TMA reads the bf16 tensors, and the carry the state's cotangent in
+    # 16-byte pieces, from 16-byte aligned bases
     x, b, c = (t.contiguous() for t in (x, b, c))
     dy = dy.to(x.dtype).contiguous()
+    x, b, c, dy = (t if t.data_ptr() % 16 == 0 else t.clone()
+                   for t in (x, b, c, dy))
     dtf, af, d = (t.float().contiguous() for t in (dt, a, d))
     ds = dstate.float().contiguous() if dstate is not None else None
+    if ds is not None and ds.data_ptr() % 16:
+        ds = ds.clone()
     dx = torch.empty_like(x)
     db, dc = torch.empty_like(b), torch.empty_like(c)
     ddt = torch.empty((B, S, H), dtype=torch.float32, device=x.device)
     da = torch.empty((H,), dtype=torch.float32, device=x.device)
     dd = torch.empty((H,), dtype=torch.float32, device=x.device)
-    n_work = _bwd_workspace(B, S, H, P, N, chunk)
+    groups = plan_bwd_groups(B, S, H, chunk)
+    n_work = _bwd_workspace(B, S, H, P, N, chunk, x.dtype, groups.groups)
     work = torch.empty((n_work,), dtype=torch.float32, device=x.device)
     _launch_bwd(device, _DTYPES[x.dtype], x.data_ptr(), dtf.data_ptr(),
                 af.data_ptr(), b.data_ptr(), c.data_ptr(), d.data_ptr(),
                 dy.data_ptr(), 0 if ds is None else ds.data_ptr(),
                 dx.data_ptr(), ddt.data_ptr(), da.data_ptr(), db.data_ptr(),
                 dc.data_ptr(), dd.data_ptr(), work.data_ptr(), n_work, B, S,
-                H, P, N, chunk, 0 if timing is None else timing.data_ptr(),
-                stream)
+                H, P, N, chunk, groups.heads_per_group,
+                0 if timing is None else timing.data_ptr(), stream)
     ssd_chunk_scan_bwd_kernel.launches += 1
     return (dx, ddt.to(dt.dtype), da.to(a.dtype), db, dc,
             dd.to(d_skip.dtype) if d_skip is not None else None)
@@ -280,6 +350,17 @@ def bf16_plan(B: int, H: int, P: int, N: int, device: int = 0) -> dict:
     return dict(zip(PLAN_FIELDS, out.tolist()))
 
 
-__all__ = ["BWD_KERNELS", "SSDChunkScan", "bf16_plan",
+def bwd_plan(N: int, device: int = 0) -> dict:
+    """The bf16 backward's wgmma kernels as built (N <= 64 and N 128 are
+    two forms): registers and local memory a thread (spills) of
+    states_kernel, col_kernel and row_kernel, and their dynamic shared
+    memory.  Builds the library if need be."""
+    out = torch.zeros(len(BWD_PLAN_FIELDS), dtype=torch.int64)
+    _bwd_plan(device, N, out.data_ptr())
+    return dict(zip(BWD_PLAN_FIELDS, out.tolist()))
+
+
+__all__ = ["BWD_KERNELS", "BWD_KERNEL_NAMES", "BwdGroups", "SSDChunkScan",
+           "bf16_plan", "bwd_plan", "plan_bwd_groups",
            "ssd_chunk_scan_bwd_kernel", "ssd_chunk_scan_bwd_plain",
            "ssd_chunk_scan_kernel", "ssd_chunk_scan_plain"]

@@ -1497,16 +1497,21 @@ def test_flash_two_warpgroups_with_an_empty_second_match_plain(card, window):
 # the SSD scan's backward kernels
 # ---------------------------------------------------------------------------
 #: each gradient's largest error over its largest magnitude against the
-#: plain backward: f32 sums in other orders (measured <= 3e-6); bf16 stores
-#: dx, dB and dC in bf16, half an ulp 2**-9 of a value (measured <= 2.2e-3)
+#: plain backward: f32 sums in other orders (measured <= 3e-6); bf16 rounds
+#: the products' operands to bf16 and stores dx, dB and dC in bf16
+#: (measured <= 6.7e-3 on an H100, about one bf16 ulp 2**-8 of the largest
+#: gradient)
 _SSD_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 #: (B, S, H, P, N, chunk, steep): the smoke form, mamba2's and zamba2's
-#: widths, chunks of 127 over two sequences, one chunk of 96, steep decay
+#: widths, chunks of 127 over two sequences, one chunk of 96, steep decay;
+#: 13 heads in groups of 4 (the bf16 route's last group takes one) and 6
+#: heads in one group over long sequences (``plan_bwd_groups``)
 _SSD_BWD_SHAPES = [
     (1, 128, 4, 32, 16, 64, False), (2, 256, 8, 64, 32, 128, False),
     (2, 512, 80, 64, 128, 128, False), (2, 256, 112, 64, 64, 128, False),
     (2, 254, 80, 64, 128, 127, False), (1, 96, 6, 32, 16, 128, False),
     (1, 128, 3, 32, 128, 32, False), (2, 256, 80, 64, 128, 128, True),
+    (2, 4096, 13, 64, 128, 128, False), (2, 12288, 6, 64, 128, 128, False),
 ]
 
 
@@ -1549,18 +1554,51 @@ def test_ssd_bwd_kernel_is_deterministic(card, dtype):
 
 
 def test_ssd_bwd_kernel_times_its_kernels(card):
-    """With ``timing`` the call reports its four kernels, each with a
-    positive device time, and its gradients are those of a call
-    without it; without ``d_skip`` there is no dd."""
+    """With ``timing`` the call reports its kernels (``BWD_KERNELS`` in
+    bf16), each with a positive device time, and its gradients are those
+    of a call without it; without ``d_skip`` there is no dd."""
     x, dt, a, b, c, d, dy, _ = _ssd_bwd_inputs(card, torch.bfloat16, 2, 256,
                                                8, 64, 32, False)
     times = torch.zeros(ssd_module.BWD_KERNELS + 1)
     got = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, timing=times)
     want = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy)
-    assert times[0].item() == 4 and bool((times[1:] > 0).all())
+    n = len(ssd_module.BWD_KERNEL_NAMES[torch.bfloat16])
+    assert n == ssd_module.BWD_KERNELS
+    assert times[0].item() == n and bool((times[1:] > 0).all())
     assert got[5] is None and want[5] is None
     for a_, b_ in zip(got[:5], want[:5]):
         assert torch.equal(a_, b_)
+
+
+@pytest.mark.parametrize("H,N", [(80, 128), (112, 64)],
+                         ids=["mamba2", "zamba2"])
+def test_ssd_bwd_workspace_within_the_first_version(card, H, N):
+    """At both train shapes (2 x 4096, P 64, chunks of 128) the bf16
+    backward's f32 workspace is no larger than the first version's
+    formula (S and G, dB's and dC's per-head partials, da's and dd's
+    partials), and the call runs within it: the allocator's peak grows by
+    the workspace and the outputs, no more."""
+    B, S, P, chunk = 2, 4096, 64, 128
+    nc = S // chunk
+    first = 2 * B * nc * H * P * N + 2 * B * S * H * N + 2 * B * nc * H
+    groups = ssd_module.plan_bwd_groups(B, S, H, chunk).groups
+    work = ssd_module._bwd_workspace(B, S, H, P, N, chunk, torch.bfloat16,
+                                     groups)
+    assert work <= first
+    x, dt, a, b, c, d, dy, _ = _ssd_bwd_inputs(card, torch.bfloat16, B, S,
+                                               H, P, N, False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start = torch.cuda.memory_allocated()
+    out = ssd_chunk_scan_bwd_kernel(x, dt, a, b, c, dy, chunk=chunk,
+                                    d_skip=d)
+    torch.cuda.synchronize()
+    outputs = sum(g.numel() * g.element_size() for g in out)
+    grown = torch.cuda.max_memory_allocated() - start
+    # + the f32 copies of dt, a and d the wrapper makes, and the
+    # allocator's rounding
+    slack = 3 * dt.numel() * 4 + (8 << 20)
+    assert grown <= 4 * work + outputs + slack, (grown, work)
 
 
 def test_ssd_ops_under_grad_runs_both_kernels(card):

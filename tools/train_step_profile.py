@@ -32,8 +32,10 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 #: device-time groups by kernel name, first match wins
-GROUPS = (("ssd_backward", ("carry_kernel", "chunk_kernel",
-                            "reduce_bc_kernel", "reduce_heads_kernel")),
+GROUPS = (("ssd_backward", ("states_kernel", "pass_kernel", "col_kernel",
+                            "row_kernel", "sums_kernel", "carry_kernel",
+                            "chunk_kernel", "reduce_bc_kernel",
+                            "reduce_heads_kernel")),
           ("ssd_forward", ("ssd_wgmma_kernel", "ssd_scan_kernel")),
           ("flash_backward", ("rows_kernel", "dkdv_kernel", "dq_kernel")),
           ("flash_forward", ("flash_wgmma_kernel", "combine_splits_kernel",
