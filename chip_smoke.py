@@ -70,7 +70,17 @@ random weights from a seed (mixtral over 6 of its 32 layers):
     layers), each: its first layers in f32 (every gradient leaf, kernels
     against plain), one step's gradients (every leaf finite and nonzero,
     the SSD and flash launches of a remat "full" step) and a ``Trainer``
-    over 4 steps of 2 x 4096 tokens, twice, the losses identical.
+    over 4 steps of 2 x 4096 tokens, twice, the losses identical;
+  * the four examples (``examples/*_torch.py``) through their own
+    ``main``: the quickstart at its defaults under each of the eight
+    schemes, each joined with a timeout; ``serve_paged`` (granite-3-8b
+    at smoke width, f32) four ways and ``serve_cluster`` (qwen2-0.5b at
+    smoke width: a trace, a killed replica, prefill and decode tiers)
+    three, each on the card and then on the CPU on the same weights, the
+    greedy runs' tokens, stats and printed lines equal; ``train_lm``'s
+    qwen2-100m in f32 over 200 steps with a checkpoint every 50, then
+    again with a failure before step 120 (every loss the first run's,
+    bit for bit).
 
 It checks that each path went through its kernels (launch counts, and
 the split combines beside them), and times each kernel beside its plain
@@ -1790,15 +1800,16 @@ def _launches(kernels) -> dict:
     return {name: k.launches for name, k in kernels.items()}
 
 
-def _check_group_launches(group, launches):
-    """Every decode dispatch ran 24 paged launches and every prefill
-    chunk 24 flash launches, summed over the live and dead replicas."""
+def _check_group_launches(group, launches, layers=N_LAYERS):
+    """Every decode dispatch ran ``layers`` paged launches and every
+    prefill chunk ``layers`` flash launches (24, qwen2-0.5b's, unless
+    told), summed over the live and dead replicas."""
     per = group.stats()["per_replica"]
     dispatches = sum(s["decode_dispatches"] for s in per)
     chunks = sum(s["prefill_chunks"] for s in per)
-    check(launches["paged_attention"] == N_LAYERS * dispatches,
+    check(launches["paged_attention"] == layers * dispatches,
           f"paged launches {launches} vs {dispatches} dispatches")
-    check(launches["flash_attention"] == N_LAYERS * chunks,
+    check(launches["flash_attention"] == layers * chunks,
           f"flash launches {launches} vs {chunks} chunks")
     check(all(s["dispatches_per_step"] <= 1 for s in per),
           "a replica ran more than one dispatch a step")
@@ -4905,8 +4916,9 @@ def vlm_table_rows(torch, launches, errs):
 # the backward kernel against autograd of the plain version: (name, B,
 # S_q, S_kv, H, Hkv, D, causal, window) — qwen2's train shape, D 128 at
 # G 4, phi3's D 96 and zamba2's D 112 (the run-time-D range; also at its
-# train shape, B 2 x 4096), the encoder's non-causal shape, and a
-# 4096-key window whose edges cut key tiles mid-tile
+# train shape, B 2 x 4096), the encoder's non-causal shape, a 4096-key
+# window whose edges cut key tiles mid-tile, and examples/train_lm_torch.py's
+# shape (B 8 x 128, 12 heads on 2 KV heads, so G 6)
 BWD_SHAPES = (
     ("qwen2_train", 2, 4096, 4096, 14, 2, 64, True, 0),
     ("d128_g4", 1, 2048, 2048, 32, 8, 128, True, 0),
@@ -4915,6 +4927,7 @@ BWD_SHAPES = (
     ("zamba2_train", 2, 4096, 4096, 32, 32, 112, True, 0),
     ("encoder_noncausal", 2, 1024, 1024, 16, 16, 64, False, 0),
     ("window_4096", 1, 4672, 4672, 8, 2, 128, True, 4096),
+    ("train_lm_g6", 8, 128, 128, 12, 2, 64, True, 0),
 )
 # each gradient's largest error over its largest magnitude: f32 sums in
 # another order than the plain autograd; bf16 rounds the gradients (an ulp
@@ -5066,13 +5079,14 @@ def flat_grads(torch, model, params, batch, impl=None, remat="full"):
     return loss, flat
 
 
-def train_batch(torch, cfg, step=0, batch=TR_BATCH):
-    """The synthetic pipeline's batch of ``step`` (seed 0), on the card."""
+def train_batch(torch, cfg, step=0, batch=TR_BATCH, seq=TR_SEQ):
+    """The synthetic pipeline's batch of ``step`` (seed 0): ``batch``
+    sequences of ``seq``, on the card."""
     from repro_torch.configs import ShapeConfig
     from repro_torch.data import SyntheticDataPipeline
 
-    pipe = SyntheticDataPipeline(cfg, ShapeConfig("train_4k", "train",
-                                                  TR_SEQ, batch),
+    pipe = SyntheticDataPipeline(cfg, ShapeConfig("train", "train", seq,
+                                                  batch),
                                  start_step=step)
     try:
         return {k: torch.from_numpy(v.copy()).cuda()
@@ -5129,12 +5143,13 @@ def phase_train_f32(torch):
     train_f32_check(torch, "train_f32", ARCHS["qwen2-0.5b"], TR_F32_LAYERS)
 
 
-def train_f32_check(torch, phase, arch, layers, batch_size=TR_BATCH):
+def train_f32_check(torch, phase, arch, layers, batch_size=TR_BATCH,
+                    seq=TR_SEQ):
     """``arch``'s first ``layers`` layers in f32: one train step's loss,
     grad norm and every gradient leaf through the kernels (the f32 bodies
     and the backward kernels) against the plain versions, on conditioned
     weights, and one ``build_train_step`` step of each, on
-    ``batch_size`` sequences of TR_SEQ."""
+    ``batch_size`` sequences of ``seq``."""
     import gc
 
     from repro_torch.launch import build_train_step
@@ -5147,7 +5162,7 @@ def train_f32_check(torch, phase, arch, layers, batch_size=TR_BATCH):
     torch.cuda.reset_peak_memory_stats()
     model = Model(arch.scaled(num_layers=layers, dtype="float32"))
     params = conditioned(model, model.init_params(seed=0))
-    batch = train_batch(torch, model.cfg, batch=batch_size)
+    batch = train_batch(torch, model.cfg, batch=batch_size, seq=seq)
     runs = {impl: flat_grads(torch, model, params, batch, impl=impl)
             for impl in (None, "plain")}
     (lk, gk), (lp, gp) = runs[None], runs["plain"]
@@ -5175,7 +5190,7 @@ def train_f32_check(torch, phase, arch, layers, batch_size=TR_BATCH):
         check(abs(a - b) <= TR_F32_LOSS_TOL * abs(b), f"f32 step {key} "
                                                       f"{a} vs {b}")
     emit({"phase": phase, "ok": True, "arch": arch.name, "layers": layers,
-          "batch": batch_size, "seq": TR_SEQ,
+          "batch": batch_size, "seq": seq,
           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
           "loss_rel_err": loss_rel, "worst_grad_leaf": worst,
           "tol": {"loss_and_grad_norm": TR_F32_LOSS_TOL,
@@ -5796,6 +5811,397 @@ def ssm_train_table_rows(torch, launches, errs):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the examples: examples/*_torch.py through their own entry points
+# ---------------------------------------------------------------------------
+#: serve_paged's runs: (arguments, requests finished); the greedy runs
+#: are held to the CPU run's tokens
+EX_PAGED_RUNS = {
+    "defaults": ([], 12),
+    "best_of_4_speculate_2": (["--best-of", "4", "--speculate", "2"], 48),
+    "hazard_whole_prompt": (["--policy", "hazard", "--chunk-tokens", "0"],
+                            12),
+    "sampled": (["--temperature", "0.8", "--top-p", "0.9"], 12),
+}
+EX_PAGED_SAMPLED = "sampled"
+#: serve_cluster's runs (the first also writes a trace with --trace-out)
+EX_CLUSTER_RUNS = {
+    "defaults_trace": [],
+    "kill_replica": ["--kill-replica"],
+    "tiered": ["--prefill-replicas", "1", "--decode-replicas", "2",
+               "--prefill-chunk-tokens", "256"],
+}
+#: train_lm: the example's default 200 steps, and a failure before step
+#: 120, restored from step 99's checkpoint
+EX_TRAIN_STEPS, EX_TRAIN_FAIL_AT = 200, 120
+#: the quickstart's defaults take about a second a scheme
+EX_JOIN_TIMEOUT_S = 120
+#: the stats entry that times the host
+EX_HOST_TIME = "host_us_per_step"
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quiet(fn, *a, **k):
+    """``fn(*a, **k)`` and the lines it printed."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a, **k)
+    return out, buf.getvalue().splitlines()
+
+
+def masked(lines) -> list:
+    """An example's printed lines without its wall time, its rate and
+    the trace's path."""
+    import re
+
+    out = []
+    for ln in lines:
+        ln = re.sub(r"in [0-9.]+s \([0-9.]+ tok/s on [^)]*\)", "in Ts", ln)
+        ln = re.sub(r"tokens in [0-9.]+s", "tokens in Ts", ln)
+        out.append(re.sub(r"metrics\) -> .*", "metrics) -> PATH", ln))
+    return out
+
+
+def card_and_cpu(torch, main, argv, cpu_argv=None):
+    """An example's ``main`` on the card with the launch counts of the
+    serving path's kernels set to 0, then with ``--device cpu`` on the
+    same weights: the CPU run's ``Model.init_params`` returns the tree
+    the card run made, copied to the CPU (the two devices' generators
+    draw different numbers from one seed).  Both results with their
+    printed lines and seconds, and the card run's launches."""
+    from repro_torch.models import Model
+    from repro_torch.models.param import tree_map
+
+    kernels = _group_kernels()
+    made = []
+    init = Model.init_params
+
+    def keep(self, seed=0):
+        made.append(init(self, seed))
+        return made[-1]
+
+    try:
+        Model.init_params = keep
+        _reset(kernels.values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card, card_lines = quiet(main, argv)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launches = _launches(kernels)
+        check(len(made) == 1, f"{argv}: {len(made)} weight trees made")
+        host = tree_map(lambda t: t.cpu(), made[0])
+        Model.init_params = lambda self, seed=0: host
+        t0 = time.perf_counter()
+        cpu, cpu_lines = quiet(main, (cpu_argv or argv) + ["--device", "cpu"])
+        cpu_s = time.perf_counter() - t0
+    finally:
+        Model.init_params = init
+    return (dict(out=card, lines=card_lines, seconds=card_s,
+                 launches=launches),
+            dict(out=cpu, lines=cpu_lines, seconds=cpu_s))
+
+
+def _differing(a, b) -> dict:
+    """The keys of two dicts whose values differ, with both values."""
+    return {k: (a.get(k), b.get(k)) for k in sorted(set(a) | set(b), key=str)
+            if a.get(k) != b.get(k)}
+
+
+def phase_examples_quickstart(torch):
+    """``examples/quickstart_torch.py`` at its defaults (4 threads x 3000
+    operations on a Michael & Scott queue and a Harris list) under each
+    of the eight schemes, each in a daemon thread joined with a timeout;
+    every allocated node is reclaimed or counted unreclaimed."""
+    import contextlib
+    import io
+    import threading
+
+    from repro_torch.core import SCHEMES
+
+    main = load_example("quickstart_torch").main
+    runs = {}
+    for scheme in sorted(SCHEMES):
+        out = {}
+
+        def target():
+            try:
+                out["stats"] = main(["--scheme", scheme])
+            except Exception as exc:  # reported below
+                out["error"] = f"{type(exc).__name__}: {exc}"
+
+        # the workers inherit the daemon flag, so a livelock cannot hold
+        # the process; stdout comes back whether or not the thread ends
+        t = threading.Thread(target=target, daemon=True)
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            t.start()
+            t.join(EX_JOIN_TIMEOUT_S)
+        seconds = time.perf_counter() - t0
+        check(not t.is_alive(),
+              f"quickstart {scheme}: not done in {EX_JOIN_TIMEOUT_S} s")
+        check("stats" in out, f"quickstart {scheme}: {out.get('error')}")
+        s = out["stats"]
+        check(s["allocated"] == s["reclaimed"] + s["unreclaimed"]
+              and s["reclaimed"] > 0, f"quickstart {scheme}: {s}")
+        runs[scheme] = {"seconds": seconds,
+                        **{k: s[k] for k in ("allocated", "reclaimed",
+                                             "unreclaimed")},
+                        "printed": buf.getvalue().splitlines()}
+    emit({"phase": "examples_quickstart", "ok": True,
+          "seconds": sum(r["seconds"] for r in runs.values()),
+          "runs": runs})
+
+
+def phase_examples_serve_paged(torch):
+    """``examples/serve_paged_torch.py`` (granite-3-8b at smoke width, f32)
+    through its ``main``: the defaults, best-of 4 with the speculative
+    lane, hazard pointers with whole-prompt prefill, and sampling.  Each
+    runs on the card and then on the CPU on the same weights.  The greedy
+    runs give every request the CPU run's tokens, every stats entry but
+    the host's own step time equals the CPU run's, and so do the printed
+    lines.  The sampled run finishes every request, reclaims every page
+    and recycles as many pages as its CPU run."""
+    main = load_example("serve_paged_torch").main
+    runs = {}
+    for name, (argv, n_req) in EX_PAGED_RUNS.items():
+        card, cpu = card_and_cpu(torch, main, argv)
+        eng, ceng = card["out"], cpu["out"]
+        toks = {r.rid: list(r.generated) for r in eng.sched.finished}
+        ctoks = {r.rid: list(r.generated) for r in ceng.sched.finished}
+        st, cst = eng.stats(), ceng.stats()
+        check(len(toks) == n_req and all(len(t) == 8
+                                         for t in toks.values()),
+              f"serve_paged {name}: {len(toks)} requests, "
+              f"{[len(t) for t in toks.values()]} tokens")
+        check(st["pool_unreclaimed"] == 0,
+              f"serve_paged {name}: {st['pool_unreclaimed']} unreclaimed")
+        launches = card["launches"]
+        check(launches["paged_attention"] > 0
+              and launches["flash_attention"] > 0,
+              f"serve_paged {name}: launches {launches}")
+        diff = _differing({k: v for k, v in st.items() if k != EX_HOST_TIME},
+                          {k: v for k, v in cst.items()
+                           if k != EX_HOST_TIME})
+        same_lines = masked(card["lines"]) == masked(cpu["lines"])
+        if name == EX_PAGED_SAMPLED:
+            check(st["pool_freed"] == cst["pool_freed"],
+                  f"serve_paged {name}: {st['pool_freed']} pages recycled, "
+                  f"{cst['pool_freed']} on the CPU")
+        else:
+            check(toks == ctoks, f"serve_paged {name}: tokens differ from "
+                                 f"the CPU run's: {_differing(toks, ctoks)}")
+            check(not diff, f"serve_paged {name}: stats differ: {diff}")
+            check(same_lines, f"serve_paged {name}: printed lines differ: "
+                              f"{card['lines']} vs {cpu['lines']}")
+        runs[name] = {
+            "argv": argv, "seconds": card["seconds"],
+            "cpu_seconds": cpu["seconds"], "requests": len(toks),
+            "tokens": sum(len(t) for t in toks.values()),
+            "launches": launches,
+            "stats": {k: st[k] for k in (
+                "steps", "dispatches_per_step", "prefill_chunks",
+                "prefix_hits", "prefix_misses", "pool_freed",
+                "pool_unreclaimed", "cow_copies", "spec_acceptance",
+                "tokens_per_dispatch", EX_HOST_TIME)},
+            "tokens_equal_cpu": toks == ctoks,
+            "stats_differing_cpu": list(diff),
+            "printed_equal_cpu": same_lines, "printed": card["lines"]}
+    emit({"phase": "examples_serve_paged", "ok": True,
+          "seconds": sum(r["seconds"] for r in runs.values()),
+          "cpu_seconds": sum(r["cpu_seconds"] for r in runs.values()),
+          "runs": runs})
+
+
+def _cluster_requests(group) -> list:
+    return [(r.rid, r.replica, list(r.generated), bool(r.done))
+            for r in group.requests]
+
+
+def _cluster_stats(group) -> dict:
+    st = dict(group.stats())
+    st["per_replica"] = [{k: v for k, v in r.items() if k != EX_HOST_TIME}
+                         for r in st["per_replica"]]
+    return st
+
+
+def phase_examples_serve_cluster(torch):
+    """``examples/serve_cluster_torch.py`` (qwen2-0.5b at smoke width,
+    f32) through its ``main``: the defaults writing a trace, a replica
+    killed mid-traffic, and 1 prefill and 2 decode replicas with
+    256-token prefill chunks.  The example's own asserts hold in each
+    run (full reclamation after drain, the handoffs, the death detected
+    and its hold force-expired, every replay finished).  Each runs on the
+    card and then on the CPU on the same weights: every request's
+    replica and tokens, the group's stats but the host's step times,
+    the lifecycle counts and the printed lines equal the CPU run's, and
+    the trace validates."""
+    import tempfile
+
+    from repro_torch.obs import validate_chrome_trace
+
+    main = load_example("serve_cluster_torch").main
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as d:
+        for name, argv in EX_CLUSTER_RUNS.items():
+            card_argv, cpu_argv = argv, argv
+            if name == "defaults_trace":
+                card_argv = argv + ["--trace-out", f"{d}/card.json"]
+                cpu_argv = argv + ["--trace-out", f"{d}/cpu.json"]
+            card, cpu = card_and_cpu(torch, main, card_argv, cpu_argv)
+            (group, life), (cgroup, clife) = card["out"], cpu["out"]
+            reqs, creqs = _cluster_requests(group), _cluster_requests(cgroup)
+            st = group.stats()
+            check(reqs == creqs, f"serve_cluster {name}: requests differ "
+                                 f"from the CPU run's: "
+                                 f"{[(a, b) for a, b in zip(reqs, creqs) if a != b]}")
+            diff = _differing(_cluster_stats(group), _cluster_stats(cgroup))
+            check(not diff, f"serve_cluster {name}: stats differ: {diff}")
+            ldiff = _differing(life.stats(), clife.stats())
+            check(not ldiff, f"serve_cluster {name}: lifecycle differs: "
+                             f"{ldiff}")
+            same_lines = masked(card["lines"]) == masked(cpu["lines"])
+            check(same_lines, f"serve_cluster {name}: printed lines differ: "
+                              f"{card['lines']} vs {cpu['lines']}")
+            launches = card["launches"]
+            check(launches["paged_attention"] > 0
+                  and launches["flash_attention"] > 0,
+                  f"serve_cluster {name}: launches {launches}")
+            _check_group_launches(group, launches,
+                                  group.model.cfg.num_layers)
+            rec = {"argv": argv, "seconds": card["seconds"],
+                   "cpu_seconds": cpu["seconds"], "requests": len(reqs),
+                   "tokens": sum(len(r[2]) for r in reqs),
+                   "launches": launches,
+                   "stats": {k: st[k] for k in (
+                       "cluster_steps", "engine_steps", "checkpoints",
+                       "holds_issued", "unreclaimed")},
+                   "lifecycle": life.stats(),
+                   "requests_equal_cpu": True, "stats_equal_cpu": True,
+                   "printed_equal_cpu": True, "printed": card["lines"]}
+            if name == "defaults_trace":
+                with open(f"{d}/card.json") as f:
+                    rec["trace_events"] = validate_chrome_trace(json.load(f))
+                check(rec["trace_events"] > 0, "empty trace")
+            runs[name] = rec
+    emit({"phase": "examples_serve_cluster", "ok": True,
+          "seconds": sum(r["seconds"] for r in runs.values()),
+          "cpu_seconds": sum(r["cpu_seconds"] for r in runs.values()),
+          "runs": runs})
+
+
+def phase_examples_train_lm(torch):
+    """``examples/train_lm_torch.py``'s default model (qwen2-100m, f32,
+    batches of 8 x 128) on the card through its ``main``: 200 steps with
+    a checkpoint every 50, then 200 steps with a failure before step 120.
+    The example's own assert holds in both (the loss falls), the failure
+    run restarts once from step 99's checkpoint, and every loss of it,
+    the 20 replayed steps included, equals the clean run's bit for bit.
+    Each run's wall time less its steps' own (``time_s``, which ends
+    before the step's checkpoint is taken) is what the checkpoints, the
+    pipeline and, after the failure, the restore cost: measured inside
+    one run, since two runs' step times differ by more than the writes
+    take.  The checkpoints live in a temporary directory, removed
+    afterwards.  Then one step of the example's own model at its batch
+    of 8 x 128 (the flash forward and backward at 12 heads on 2, G 6)
+    through the kernels against the plain versions: ``train_f32_check``,
+    the loss, the grad norm and every gradient leaf, on the example's
+    seed-0 weights with the attention projections conditioned."""
+    import tempfile
+
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_kernel
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    mod = load_example("train_lm_torch")
+    seen = {}
+    run = mod.run
+
+    def recording(cfg, shape, steps, **kw):
+        seen.update(cfg=cfg, shape=shape)
+        return run(cfg, shape, steps, **kw)
+
+    mod.run = recording
+    kernels = (flash_attention_kernel, flash_attention_bwd_kernel)
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_lm_") as d:
+        for name, extra in (
+                ("clean", []),
+                ("failure", ["--inject-failure", str(EX_TRAIN_FAIL_AT)])):
+            _reset(kernels)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, lines = quiet(mod.main, [
+                "--steps", str(EX_TRAIN_STEPS), "--ckpt-dir", f"{d}/{name}",
+                *extra])
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            times = [h["time_s"] for h in out["history"]]
+            runs[name] = {
+                "seconds": seconds, "outside_steps_s": seconds - sum(times),
+                "restarts": out["restarts"],
+                "final_step": out["final_step"],
+                "checkpoints": out["checkpoints"],
+                "launches": {"flash_attention": flash_attention_kernel.launches,
+                             "flash_attention_bwd":
+                                 flash_attention_bwd_kernel.launches},
+                "steps_run": len(times), "step_s_sum": sum(times),
+                "median_step_s": statistics.median(times[1:]),
+                "losses": [h["loss"] for h in out["history"]],
+                "history_steps": [h["step"] for h in out["history"]],
+                "printed": lines}
+    mod.run = run
+    clean, fail = runs["clean"], runs["failure"]
+    L = seen["cfg"].num_layers
+    want = {"flash_attention": 2 * L * EX_TRAIN_STEPS,
+            "flash_attention_bwd": L * EX_TRAIN_STEPS}
+    check(clean["launches"] == want,
+          f"train_lm launches {clean['launches']}, want {want}")
+    check(clean["restarts"] == 0 and fail["restarts"] == 1
+          and fail["final_step"] == EX_TRAIN_STEPS,
+          f"train_lm restarts {clean['restarts']} / {fail['restarts']}, "
+          f"final step {fail['final_step']}")
+    restored = (EX_TRAIN_FAIL_AT // 50) * 50  # the example saves every 50
+    check(fail["history_steps"] == list(range(EX_TRAIN_FAIL_AT))
+          + list(range(restored, EX_TRAIN_STEPS)),
+          f"train_lm failure run's steps {fail['history_steps']}")
+    want_loss = clean["losses"]
+    diffs = {s: (x, want_loss[s]) for s, x in zip(fail["history_steps"],
+                                                   fail["losses"])
+             if x != want_loss[s]}
+    check(not diffs, f"train_lm: losses differ from the clean run's "
+                     f"(step: failure run, clean run): {diffs}")
+    emit({"phase": "examples_train_lm", "ok": True,
+          "arch": seen["cfg"].name, "params": clean["printed"][0],
+          "batch": seen["shape"].global_batch, "seq": seen["shape"].seq_len,
+          "steps": EX_TRAIN_STEPS, "fail_at": EX_TRAIN_FAIL_AT,
+          "replayed_from": restored, "replay_identical": True,
+          "loss_first_last": [want_loss[0], want_loss[-1]],
+          "tokens_per_s": (seen["shape"].global_batch
+                           * seen["shape"].seq_len
+                           / clean["median_step_s"]),
+          "runs": {k: {kk: vv for kk, vv in v.items()
+                       if kk not in ("losses", "history_steps")}
+                   for k, v in runs.items()},
+          "losses": want_loss})
+    train_f32_check(torch, "examples_train_lm_f32", seen["cfg"],
+                    seen["cfg"].num_layers, seen["shape"].global_batch,
+                    seen["shape"].seq_len)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", action="store_true",
@@ -5838,6 +6244,18 @@ def main() -> int:
         phase_sampler_parity(torch)
         phase = "small_reference"
         phase_small_reference(torch)
+        # the examples, as a user runs them (no torch.no_grad around them),
+        # early: late in this process the same training steps take twice
+        # as long
+        phase = "examples_quickstart"
+        phase_examples_quickstart(torch)
+        phase = "examples_serve_paged"
+        phase_examples_serve_paged(torch)
+        phase = "examples_serve_cluster"
+        phase_examples_serve_cluster(torch)
+        phase = "examples_train_lm"
+        phase_examples_train_lm(torch)
+        torch.cuda.empty_cache()
 
         phase = "init"
         from repro_torch.configs import ARCHS, ShapeConfig

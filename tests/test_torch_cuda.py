@@ -1313,7 +1313,8 @@ def test_moe_combine_on_card_matches_cpu(card):
 #: (B, S_q, S_kv, H, Hkv, D, causal, window): qwen2's heads causal; D 112
 #: with a window that cuts key tiles mid-tile; D 128 at G 4; a non-causal
 #: window whose last rows see no key (they average every key); S not a
-#: multiple of 128 at D 64; G 1 at D 112
+#: multiple of 128 at D 64; G 1 at D 112; examples/train_lm_torch.py's
+#: batch, 12 heads on 2 (G 6)
 _BWD_SHAPES = [
     (2, 640, 640, 14, 2, 64, True, 0),
     (1, 300, 300, 8, 2, 112, True, 100),
@@ -1321,6 +1322,7 @@ _BWD_SHAPES = [
     (1, 400, 300, 6, 3, 96, False, 40),
     (2, 333, 333, 14, 2, 64, True, 0),
     (1, 200, 200, 4, 4, 112, True, 0),
+    (8, 128, 128, 12, 2, 64, True, 0),
 ]
 #: each gradient's largest error over its largest magnitude: f32 sums in
 #: another order than the plain autograd; bf16 rounds the gradients

@@ -8,7 +8,9 @@ between replicas, an SSM, an encoder-decoder and a hybrid prefill and
 decode, a vlm prefill, and the training plane (a ``Trainer`` with its
 stamp-guarded data pipeline and checkpoints) pulls in neither JAX nor
 the JAX package, and its entry points run on the card unless told
-otherwise."""
+otherwise.  So do the four examples of the port (``examples/*_torch.py``):
+their sources import neither, and the quickstart and ``serve_paged``
+with ``--device cpu`` run in a process that ends with neither loaded."""
 
 import pathlib
 import re
@@ -181,9 +183,42 @@ def test_sources_name_no_jax_import():
                      re.M)
     files = list((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    examples = sorted((ROOT / "examples").glob("*_torch.py"))
+    assert [f.name for f in examples] == [
+        "quickstart_torch.py", "serve_cluster_torch.py",
+        "serve_paged_torch.py", "train_lm_torch.py"]
+    files += examples
     assert len(files) > 10
     hits = [f for f in files if pat.search(f.read_text())]
     assert hits == []
+
+
+_EXAMPLES_CHILD = r"""
+import runpy
+import sys
+
+sys.argv = ["quickstart_torch.py"]
+runpy.run_path("examples/quickstart_torch.py", run_name="__main__")
+sys.argv = ["serve_paged_torch.py", "--device", "cpu"]
+runpy.run_path("examples/serve_paged_torch.py", run_name="__main__")
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print("BAD", bad)
+"""
+
+
+def test_examples_run_without_jax_and_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _EXAMPLES_CHILD], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+        env={"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin",
+             "OMP_NUM_THREADS": "1", "JAX_PLATFORMS": "cpu"},
+    )
+    assert out.returncode == 0, out.stderr
+    assert "scheme=stamp-it allocated=" in out.stdout, out.stdout
+    assert "tok/s on CPU" in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
 
 
 def test_group_replicas_live_on_the_models_device():
